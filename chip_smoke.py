@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port (``dvdx_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py    # needs one CUDA card
+
+Phases, each printing on its own lines; any failure raises and exits nonzero:
+  1. the card's name and power limit (nvidia-smi), torch / CUDA versions;
+     determinism flags set;
+  2. build of every CUDA kernel from ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
+  3. each kernel against its plain PyTorch version on the card, in bf16, at
+     the main path's full-width shapes, with kernel / plain / library times
+     (CUDA events) and the roofline bound;
+  4. the reference check: one UNet call of a small model of the same
+     structure on the card (kernels) and on the CPU (plain versions) from
+     the same weights and inputs; the base noise's bits on the card and on
+     the CPU;
+  5. the main path: zeroscope-v2-576w with seeded random weights (zero-init
+     leaves perturbed so every layer carries signal). Request A: 16 frames at
+     576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root; every
+     kernel must have launched. Request B: another prompt and seed, 3 steps,
+     run twice; leaves and roots must be bit-identical. Then each kernel's
+     bound summed over one UNet call and one frame's VAE decode, from the
+     shapes its layers hand it;
+  6. a ``kernels`` JSON line, then the result line.
+
+Imports nothing of JAX or of the JAX package. Detail too long for the end of
+the output goes to ``chiprun_out/``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+OUT_DIR = "chiprun_out"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def randn(shape, gen, scale=1.0, shift=0.0):
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return (x * scale + shift).to(torch.bfloat16)
+
+
+# (flops, bytes) of one launch: each input read once, each output written
+# once, bf16 activations and weights
+def flash_cost(b, s, h, d):
+    return 4.0 * b * h * s * s * d, 4.0 * b * s * h * d * 2
+
+
+def temporal_cost(b, f, n, h, d):
+    return 4.0 * b * n * h * f * f * d, 4.0 * b * f * n * h * d * 2
+
+
+def geglu_cost(t, c, inner):
+    return 6.0 * t * c * inner, (2.0 * t * c + 3.0 * c * inner + 2 * inner + c) * 2
+
+
+def gn_cost(n, l, c, bias):
+    # x read, y written (bf16), the (N, C) bias (bf16), gamma and beta (f32)
+    return 8.0 * n * l * c, 2.0 * n * l * c * 2 + (n * c * 2 if bias else 0) + 8 * c
+
+
+# --- phase 3: kernels against their plain versions --------------------------
+
+def kernel_cases():
+    """(kernel, label, inputs(gen), kernel_fn, plain_fn, library_fn, (flops,
+    bytes), on the main path) at the standard geometry (CFG batch 2, 16
+    frames, latent 40x72) and, for GroupNorm, the VAE decoder's frames."""
+    import torch.nn.functional as F
+
+    from dvdx_tpu_torch.ops import groupnorm as gn
+    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
+    from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
+    from dvdx_tpu_torch.ops.kernels import temporal_attention as ta
+
+    cases = []
+
+    def sdpa_bshd(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+    for label, (b, s, h, d) in (("level0", (32, 2880, 5, 64)),
+                                ("level1", (32, 720, 10, 64)),
+                                ("ragged_d40", (4, 777, 3, 40))):
+        def mk(gen, b=b, s=s, h=h, d=d):
+            return [randn((b, s, h, d), gen) for _ in range(3)]
+        main = label != "ragged_d40"
+        cases.append(("flash_attention", label, mk, fa.flash_attention,
+                      fa.flash_attention_plain, sdpa_bshd, flash_cost(b, s, h, d), main))
+
+    def sdpa_fm(heads):
+        def fn(q, k, v):
+            b, f, n, hd = q.shape
+            d = hd // heads
+            t = [x.view(b, f, n, heads, d).permute(0, 2, 3, 1, 4) for x in (q, k, v)]
+            return F.scaled_dot_product_attention(*t)
+        return fn
+
+    for label, (b, f, n, heads, d), layout in (
+            ("level0", (2, 16, 2880, 5, 64), "fm"),
+            ("transformer_in_d40", (2, 16, 2880, 8, 40), "fm"),
+            ("level1", (2, 16, 720, 10, 64), "fm"),
+            ("level2", (2, 16, 180, 20, 64), "fm"),
+            ("level3", (2, 16, 45, 20, 64), "fm"),
+            ("level0_posmajor", (2, 16, 2880, 5, 64), "pm"),
+            ("transformer_in_d40_posmajor", (2, 16, 2880, 8, 40), "pm")):
+        shape = (b, f, n, heads * d) if layout == "fm" else (b, n, f, heads * d)
+
+        def mk(gen, shape=shape):
+            return [randn(shape, gen) for _ in range(3)]
+        if layout == "fm":
+            kern = lambda q, k, v, h=heads: ta.temporal_attention(q, k, v, heads=h)
+            plain = lambda q, k, v, h=heads: ta.temporal_attention_plain(q, k, v, heads=h)
+            lib = sdpa_fm(heads)
+        else:
+            kern = lambda q, k, v, h=heads: ta.temporal_attention_posmajor(q, k, v, heads=h)
+            plain = lambda q, k, v, h=heads: ta.temporal_attention_plain(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                heads=h).transpose(1, 2)
+            lib = lambda q, k, v, h=heads: sdpa_fm(h)(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        cases.append(("temporal_attention", label, mk, kern, plain, lib,
+                      temporal_cost(b, f, n, heads, d), layout == "fm"))
+
+    for label, (t, c) in (("level0", (92160, 320)), ("level1", (23040, 640)),
+                          ("level2", (5760, 1280)), ("level3", (1440, 1280))):
+        inner = 4 * c
+
+        def mk(gen, t=t, c=c, inner=inner):
+            return [randn((t, c), gen), randn((2 * inner, c), gen, c ** -0.5),
+                    randn((2 * inner,), gen, 0.1), randn((c, inner), gen, inner ** -0.5),
+                    randn((c,), gen, 0.1)]
+        cases.append(("geglu_ff", label, mk, gf.geglu_ff, gf.geglu_ff_plain, None,
+                      geglu_cost(t, c, inner), True))
+
+    # UNet norms (eps 1e-5, 1e-6 in the transformers), then the VAE decoder's
+    # per-frame norms at 576x320 (eps 1e-6, one sample, up to 737k elements
+    # per group); the VAE inputs sit at mean 3 std 1, where one-pass moments
+    # cancel most
+    for label, (n, l, c, act, bias, eps, scale, shift) in (
+            ("resnet_l0", (32, 2880, 320, "silu", True, 1e-5, 2.0, 0.5)),
+            ("temporal_l0", (2, 46080, 320, "none", False, 1e-6, 2.0, 0.5)),
+            ("resnet_l1", (32, 720, 640, "silu", False, 1e-5, 2.0, 0.5)),
+            ("resnet_l2", (32, 180, 1280, "silu", True, 1e-5, 2.0, 0.5)),
+            ("resnet_l3_concat", (32, 45, 2560, "silu", False, 1e-5, 2.0, 0.5)),
+            ("vae_mid", (1, 2880, 512, "silu", False, 1e-6, 1.0, 3.0)),
+            ("vae_mid_attn", (1, 2880, 512, "none", False, 1e-6, 1.0, 3.0)),
+            ("vae_up_80x144", (1, 11520, 512, "silu", False, 1e-6, 1.0, 3.0)),
+            ("vae_up_160x288_c512", (1, 46080, 512, "silu", False, 1e-6, 1.0, 3.0)),
+            ("vae_up_160x288", (1, 46080, 256, "silu", False, 1e-6, 1.0, 3.0)),
+            ("vae_up_320x576_c256", (1, 184320, 256, "silu", False, 1e-6, 1.0, 3.0)),
+            ("vae_out_320x576", (1, 184320, 128, "silu", False, 1e-6, 1.0, 3.0))):
+        def mk(gen, n=n, l=l, c=c, bias=bias, scale=scale, shift=shift):
+            xs = [randn((n, l, c), gen, scale, shift),
+                  torch.rand((c,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((c,), generator=gen, device="cuda") * 0.1]
+            xs.append(randn((n, c), gen) if bias else None)
+            return xs
+
+        def kern(x, w, b_, bias, act=act, eps=eps):
+            return gn.group_norm_act(x, w, b_, groups=32, eps=eps, act=act, bias=bias)
+
+        def plain(x, w, b_, bias, act=act, eps=eps):
+            return gn.group_norm_act_plain(x, w, b_, groups=32, eps=eps, act=act,
+                                           bias=bias)
+
+        def lib(x, w, b_, bias, act=act, eps=eps):
+            xb = x if bias is None else x + bias[:, None, :]
+            y = F.group_norm(xb.transpose(1, 2), 32, w.to(x.dtype), b_.to(x.dtype), eps)
+            return F.silu(y) if act == "silu" else y
+        cases.append(("group_norm_act", label, mk, kern, plain, lib,
+                      gn_cost(n, l, c, bias), True))
+    return cases
+
+
+KERNEL_META = {
+    "flash_attention": ("dvdx_tpu_torch/csrc/flash_attention.cu",
+                        "dvdx_tpu/ops/pallas/flash_attention.py:470"),
+    "temporal_attention": ("dvdx_tpu_torch/csrc/temporal_attention.cu",
+                           "dvdx_tpu/ops/pallas/temporal_attention.py:183"),
+    "geglu_ff": ("dvdx_tpu_torch/csrc/geglu_ff.cu",
+                 "dvdx_tpu/ops/pallas/geglu_ff.py:98"),
+    "group_norm_act": ("dvdx_tpu_torch/csrc/groupnorm.cu",
+                       "dvdx_tpu/ops/groupnorm.py:179"),
+}
+# max |kernel - plain| <= TOL_ULPS bf16 ulps (2^-7 relative) of max |plain|:
+# both round to bf16 at the same points but sum in different orders, and the
+# flash kernel rounds unnormalised probabilities (the plain version rounds
+# normalised ones)
+TOL_ULPS = 2.0
+
+
+def check_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    summary = {}
+    rows = []
+    for name, label, mk, kern, plain, lib, (flops, nbytes), main in kernel_cases():
+        inputs = mk(gen)
+        out = kern(*inputs)
+        torch.cuda.synchronize()
+        ref = plain(*inputs)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = TOL_ULPS * 2.0 ** -7 * max(scale, 1e-6)
+        ok = bool(np.isfinite(err)) and err <= tol
+        iters = 5
+        ms = cuda_ms(lambda: kern(*inputs), iters)
+        plain_ms = cuda_ms(lambda: plain(*inputs), 2)
+        lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
+        bms, bby = bound_ms(flops, nbytes)
+        row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
+                   max_abs_ref=scale, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bms, bound_by=bby, main_path=main, ok=ok)
+        rows.append(row)
+        log(f"kernel {name:18s} {label:28s} err={err:.3e} tol={tol:.3e} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"bound_ms={bms:.4f} ({bby}) {'OK' if ok else 'FAIL'}")
+        del inputs, out, ref
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
+                                 f"version ({err:.3e} > {tol:.3e})")
+        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                          bound_ms=0.0, library_ms=0.0,
+                                          t_ops=0.0, t_bytes=0.0))
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        if main:
+            s["ms"] += ms
+            s["plain_ms"] += plain_ms
+            s["bound_ms"] += bms
+            s["t_ops"] += flops / PEAK_BF16_FLOPS
+            s["t_bytes"] += nbytes / PEAK_BYTES
+            s["library_ms"] = None if lib_ms is None or s["library_ms"] is None \
+                else s["library_ms"] + lib_ms
+    return summary, rows
+
+
+# --- phase 4: the main path ---------------------------------------------------
+
+def kernel_modules():
+    from dvdx_tpu_torch.ops import groupnorm as gn
+    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
+    from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
+    from dvdx_tpu_torch.ops.kernels import temporal_attention as ta
+
+    return {"flash_attention": fa, "temporal_attention": ta, "geglu_ff": gf,
+            "group_norm_act": gn}
+
+
+def check_against_cpu():
+    """The port's CUDA path (its kernels) against its CPU path (the plain
+    versions, which the CPU tests hold to the JAX package): the
+    full-geometry base noise has the same bits on the card and on the CPU,
+    and one batched CFG UNet call of a small model of the same structure
+    (``utils.testing.reference_check_pipeline``: C = 64 / 128, level-0
+    self-attention over 1024 tokens, so every kernel runs), bf16 on both
+    sides, from the same weights and inputs, stays within
+    ``REFERENCE_RELRMS_TOL``. One call, not a denoise loop: guidance and the
+    sampler amplify each bf16 rounding difference from step to step."""
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.utils.testing import (REFERENCE_RELRMS_TOL,
+                                              reference_check_inputs,
+                                              reference_check_pipeline,
+                                              relative_rms, unet_pair_call)
+
+    key = rng.base_key(7)
+    gpu_noise = rng.video_noise(key, 16, (40, 72, 4), device="cuda").cpu()
+    cpu_noise = rng.video_noise(key, 16, (40, 72, 4), device="cpu")
+    ulps = (gpu_noise.view(torch.int32).long() - cpu_noise.view(torch.int32).long()).abs()
+    same16 = torch.equal(gpu_noise.bfloat16().view(torch.int16),
+                         cpu_noise.bfloat16().view(torch.int16))
+    log(f"reference: base noise (16, 40, 72, 4) card vs CPU: {int((ulps > 0).sum())} "
+        f"float32 values differ, by up to {int(ulps.max())} ulp; bf16 latent "
+        f"bit-equal: {same16}")
+    if not same16 or ulps.max() > 3:
+        raise AssertionError("base noise differs between the card and the CPU")
+
+    cpu = reference_check_pipeline()
+    z, hidden, t = reference_check_inputs(cpu)
+    mods = kernel_modules()
+    before = {k: m.LAUNCHES for k, m in mods.items()}
+    eps_gpu = unet_pair_call(reference_check_pipeline(device="cuda").unet,
+                             z.cuda(), hidden.cuda(), t).cpu()
+    missing = [k for k, m in mods.items() if m.LAUNCHES == before[k]]
+    if missing:
+        raise AssertionError(f"small model never launched: {missing}")
+    eps_cpu = unet_pair_call(cpu.unet, z, hidden, t)
+    eps_f32 = unet_pair_call(reference_check_pipeline("float32").unet, z, hidden, t)
+    dist = relative_rms(eps_gpu, eps_cpu)
+    log(f"reference: small model, one UNet call at t={t}, relative RMS: card vs "
+        f"CPU (both bf16) {dist:.5f} (tolerance {REFERENCE_RELRMS_TOL}); card vs "
+        f"CPU float32 {relative_rms(eps_gpu, eps_f32):.5f}; CPU bf16 vs CPU "
+        f"float32 {relative_rms(eps_cpu, eps_f32):.5f}; max |card - CPU| "
+        f"{(eps_gpu - eps_cpu).abs().max().item():.4f} at max |eps| "
+        f"{eps_cpu.abs().max().item():.3f}")
+    if not dist <= REFERENCE_RELRMS_TOL:
+        raise AssertionError(f"the card's UNet call is {dist:.4f} (relative RMS) from "
+                             f"the CPU's, over {REFERENCE_RELRMS_TOL}")
+
+
+def launch_bounds(module, run):
+    """Run ``run()`` with forward hooks on the layers of ``module`` that hand
+    work to a kernel, and sum each kernel's launches and bound from the
+    shapes handed to it: {kernel: {"launches": n, "bound_ms": t}}. Each
+    hook's count must equal its kernel's own launch counter over the run."""
+    from dvdx_tpu_torch.models import layers
+    from dvdx_tpu_torch.ops.attention import wants_flash
+
+    acc = {k: [0, 0.0] for k in KERNEL_META}
+
+    def add(name, cost):
+        acc[name][0] += 1
+        acc[name][1] += bound_ms(*cost)[0]
+
+    def on_gn(mod, args, kwargs, out):
+        x, c = args[0], args[0].shape[-1]
+        bias = kwargs.get("bias", args[1] if len(args) > 1 else None)
+        add("group_norm_act", gn_cost(x.shape[0], x[0].numel() // c, c, bias is not None))
+
+    def on_ff(mod, args, kwargs, out):
+        c = args[0].shape[-1]
+        add("geglu_ff", geglu_cost(args[0].numel() // c, c, mod.proj_out.in_features))
+
+    def on_frame_attn(mod, args, kwargs, out):
+        b, f, n = args[0].shape[:3]
+        add("temporal_attention",
+            temporal_cost(b, f, n, mod.heads, mod.to_q.out_features // mod.heads))
+
+    def on_attn(mod, args, kwargs, out):
+        x = args[0]
+        ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
+        s = x.shape[1]
+        if wants_flash(s, s if ctx is None else ctx.shape[1], mod.head_dim):
+            add("flash_attention", flash_cost(x.shape[0], s, mod.heads, mod.head_dim))
+
+    hooks = ((layers.GroupNorm, on_gn), (layers.GEGLUFeedForward, on_ff),
+             (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn))
+    handles = [m.register_forward_hook(fn, with_kwargs=True)
+               for m in module.modules() for cls, fn in hooks if isinstance(m, cls)]
+    mods = kernel_modules()
+    before = {k: m.LAUNCHES for k, m in mods.items()}
+    run()
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    for k, (n, _) in acc.items():
+        if mods[k].LAUNCHES - before[k] != n:
+            raise AssertionError(f"{k}: {mods[k].LAUNCHES - before[k]} launches, "
+                                 f"{n} seen by the bound's hooks")
+    return {k: {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
+
+
+def run_path(steps_a: int):
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.pipelines.text2video import (build_pipeline, encode_prompts,
+                                                     generate)
+    from dvdx_tpu_torch.utils.testing import perturb_zero_params, unet_pair_call
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline("zeroscope-v2-576w", seed=0, device="cuda")
+    perturb_zero_params(pipe, seed=99)
+    torch.cuda.synchronize()
+    log(f"path: built zeroscope-v2-576w (seeded random init, zero leaves "
+        f"perturbed) in {time.perf_counter() - t0:.1f} s; "
+        f"params: {sum(p.numel() for p in pipe.parameters()) / 1e9:.3f} B")
+
+    mods = kernel_modules()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    video, (zs, epss, ts) = generate(pipe, "a red panda rides a bicycle through "
+                                     "a snowy forest", seed=7, num_steps=steps_a,
+                                     record=True)
+    torch.cuda.synchronize()
+    sec_a = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    root_a = MerkleCommitment(ts, zs, epss).root.hex()
+    log(f"request A: video {tuple(video.shape)} {video.dtype}, {steps_a} steps, "
+        f"{sec_a:.2f} s/request, peak memory {peak / 2**30:.2f} GiB, "
+        f"merkle root {root_a} over {len(ts)} leaves")
+    log(f"request A launches: {json.dumps(launches)}")
+    if video.shape != (16, 320, 576, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"request A: bad video {video.shape} {video.dtype}")
+    if not (torch.isfinite(zs.float()).all() and torch.isfinite(epss.float()).all()):
+        raise AssertionError("request A: non-finite latents or eps")
+    if len(ts) != steps_a or zs.shape[0] != steps_a:
+        raise AssertionError("request A: wrong number of PoI leaves")
+    if float(np.std(video)) == 0.0:
+        raise AssertionError("request A: constant video")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"request A never launched: {missing}")
+
+    runs = []
+    for m in mods.values():
+        m.LAUNCHES = 0
+    for rep in range(2):
+        t0 = time.perf_counter()
+        vid, (zb, eb, tb) = generate(pipe, "a lighthouse at dusk, waves crashing",
+                                     negative_prompt="blurry", seed=123456789,
+                                     num_steps=3, record=True)
+        torch.cuda.synchronize()
+        runs.append((vid, zb, eb, MerkleCommitment(tb, zb, eb).root.hex(),
+                     time.perf_counter() - t0))
+        if rep == 0:
+            launches_b = {k: m.LAUNCHES for k, m in mods.items()}
+    (v1, z1, e1, r1, s1), (v2, z2, e2, r2, s2) = runs
+    same = (torch.equal(z1.view(torch.int16), z2.view(torch.int16))
+            and torch.equal(e1.view(torch.int16), e2.view(torch.int16))
+            and np.array_equal(v1, v2) and r1 == r2)
+    log(f"request B: 3 steps twice ({s1:.2f} s, {s2:.2f} s), roots {r1} / {r2}, "
+        f"bit-identical={same}")
+    if not same:
+        raise AssertionError("request B: re-execution is not bit-identical")
+    # A and B share the text encoding and the 16-frame decode, so their
+    # difference is (steps_a - 3) denoise steps (one batched UNet call each)
+    extra = steps_a - 3
+    per_step = {k: (launches[k] - launches_b[k]) / extra for k in launches}
+    step_s = (sec_a - s2) / extra
+    log(f"path: per denoise step {step_s:.4f} s, rest of a request (text, noise, "
+        f"decode) {sec_a - steps_a * step_s:.3f} s; launches per UNet call "
+        f"{json.dumps(per_step)}")
+
+    # the bound of one batched UNet call and of one frame's decode, summed
+    # over the launches each makes at the default geometry
+    hidden = encode_prompts(pipe, ["", "a red panda rides a bicycle"])
+    z = rng.video_noise(rng.base_key(7), 16, (40, 72, 4), device="cuda")[None].bfloat16()
+    t = int(make_ddim_schedule(steps_a).timesteps[0])
+    unet_bounds = launch_bounds(pipe.unet, lambda: unet_pair_call(pipe.unet, z, hidden, t))
+
+    def decode_one_frame():
+        with torch.inference_mode():
+            pipe.vae_decoder(z[0, :1].float())
+    vae_bounds = launch_bounds(pipe.vae_decoder, decode_one_frame)
+    log(f"path: bound per UNet call {json.dumps(unet_bounds)}")
+    log(f"path: bound per frame's VAE decode {json.dumps(vae_bounds)}")
+    return launches, dict(seconds_per_request=sec_a, steps=steps_a,
+                          peak_bytes=peak, root=root_a,
+                          seconds_request_b=[s1, s2], seconds_per_step=step_s,
+                          launches_request_b=launches_b,
+                          launches_per_unet_call=per_step,
+                          bound_per_unet_call=unet_bounds,
+                          bound_per_vae_frame=vae_bounds)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    import dvdx_tpu_torch
+    from dvdx_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    dvdx_tpu_torch.enable_determinism()
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    t0 = time.perf_counter()
+    build = _build.build_all()
+    log(f"build: {len(build)} kernels in {time.perf_counter() - t0:.1f} s "
+        + " ".join(f"{k}={v['seconds']:.1f}s" for k, v in build.items()))
+    with open(os.path.join(OUT_DIR, "build_ptxas.txt"), "w") as f:
+        for k, v in build.items():
+            f.write(f"==== {k}\n{v['ptxas']}\n")
+
+    summary, rows = check_kernels()
+    with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
+        json.dump({"device": smi, "rows": rows}, f, indent=1)
+
+    t0 = time.perf_counter()
+    check_against_cpu()
+    log(f"reference check: {time.perf_counter() - t0:.1f} s")
+    launches, path = run_path(steps_a=25)
+    with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
+        json.dump({"device": smi, "launches": launches, **path}, f, indent=1)
+
+    kernels = []
+    for name, s in summary.items():
+        src, replaces = KERNEL_META[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": "operations" if s["t_ops"] > s["t_bytes"]
+                        else "bytes", "library_ms": s["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+// Shared helpers for the port's Hopper kernels: bf16 packing, the
+// m16n8k16 bf16 tensor-core product (mma.sync), and the error-string export
+// each shared library carries for its ctypes wrapper.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+extern "C" const char* dvdx_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+namespace dvdx {
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D += A(16x16, row) * B(16x8, col); bf16 inputs, f32 accumulate.
+// Fragment layout (PTX ISA, mma.m16n8k16), g = lane/4, t = lane%4:
+//   a[0]: A[g][2t..2t+1]    a[1]: A[g+8][2t..2t+1]
+//   a[2]: A[g][2t+8..+9]    a[3]: A[g+8][2t+8..+9]
+//   b0:   B[2t..2t+1][g]    b1:   B[2t+8..+9][g]
+//   d[0..1]: D[g][2t..2t+1] d[2..3]: D[g+8][2t..2t+1]
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace dvdx

@@ -1,0 +1,71 @@
+"""Import hygiene of the PyTorch port: every ``dvdx_tpu_torch`` module, and
+what ``chip_smoke.py`` imports, must import with JAX and the JAX package
+blocked (``sys.modules[name] = None`` makes any import of them fail)."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "dvdx_tpu"):
+    sys.modules[name] = None
+import dvdx_tpu_torch
+mods = sorted(m.name for m in pkgutil.walk_packages(dvdx_tpu_torch.__path__,
+                                                    "dvdx_tpu_torch."))
+for m in mods:
+    importlib.import_module(m)
+print(len(mods))
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                          capture_output=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": REPO})
+
+
+def test_port_imports_without_jax():
+    proc = _run(_BLOCKED_IMPORT)
+    assert proc.returncode == 0, proc.stderr
+    import dvdx_tpu_torch
+
+    expected = sum(1 for _ in pkgutil.walk_packages(dvdx_tpu_torch.__path__,
+                                                    "dvdx_tpu_torch."))
+    assert int(proc.stdout.split()[-1]) == expected >= 15
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py's module-level imports and the port modules its phases
+    import; without a card ``main`` stops before any phase and exits 2."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'dvdx_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import runpy\n"
+            "g = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+            "g['kernel_modules']()\n"
+            "import dvdx_tpu_torch.pipelines.text2video, dvdx_tpu_torch.verify.merkle\n"
+            "import dvdx_tpu_torch.utils.testing\n"
+            "import torch\n"
+            "assert torch.cuda.is_available() or g['main']() == 2\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("source", ["flash_attention", "temporal_attention",
+                                    "geglu_ff", "groupnorm"])
+def test_kernel_sources_ship(source):
+    """Every CUDA source the build compiles exists in the package, beside the
+    shared header."""
+    from dvdx_tpu_torch.ops import _build
+
+    assert source in _build.SOURCES
+    assert (_build.CSRC / f"{source}.cu").is_file()
+    assert (_build.CSRC / "common.cuh").is_file()
