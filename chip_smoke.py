@@ -8,19 +8,23 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      determinism flags set;
   2. build of every CUDA kernel from ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, in bf16, at
-     the main path's full-width shapes, with kernel / plain / library times
-     (CUDA events) and the roofline bound;
+     the main path's full-width shapes (and a few off it: the fused tail at
+     C = 640, flash_attention_mh), with kernel / plain / library times (CUDA
+     events) and the roofline bound;
   4. the reference check: one UNet call of a small model of the same
      structure on the card (kernels) and on the CPU (plain versions) from
-     the same weights and inputs; the base noise's bits on the card and on
-     the CPU;
+     the same weights and inputs, every kernel of the model path launched;
+     the base noise's bits on the card and on the CPU;
   5. the main path: zeroscope-v2-576w with seeded random weights (zero-init
      leaves perturbed so every layer carries signal). Request A: 16 frames at
      576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root; every
-     kernel must have launched. Request B: another prompt and seed, 3 steps,
-     run twice; leaves and roots must be bit-identical. Then each kernel's
-     bound summed over one UNet call and one frame's VAE decode, from the
-     shapes its layers hand it;
+     kernel of the model path must have launched, as often per UNet call as
+     the layers' routing says. Request B: another prompt and seed, 3 steps,
+     run twice; leaves and roots must be bit-identical. The validator's
+     re-execution (``verify.spotcheck.StepEngine``) of 3 revealed steps of
+     Request A must reproduce them bit for bit, bind the video, and refuse a
+     tampered eps leaf. Then each kernel's bound summed over one UNet call
+     and one frame's VAE decode, from the shapes its layers hand it;
   6. a ``kernels`` JSON line, then the result line.
 
 Imports nothing of JAX or of the JAX package. Detail too long for the end of
@@ -84,6 +88,23 @@ def geglu_cost(t, c, inner):
     return 6.0 * t * c * inner, (2.0 * t * c + 3.0 * c * inner + 2 * inner + c) * 2
 
 
+def flash_mh_cost(b, sq, sk, h, d):
+    # q, k, v read at their head_dim lanes; the padded (B, Sq, H*128) output
+    # written once
+    return 4.0 * b * h * sq * sk * d, (b * (sq + 2 * sk) * h * d + b * sq * h * 128) * 2.0
+
+
+def spatial_tail_cost(rows, c, hd1, hd, t, n):
+    flops = 2.0 * rows * (3 * hd * c + 2 * t * hd + 12 * c * c)
+    weights = 3 * hd * c + 12 * c * c + 13 * c  # matrices, biases, LN vectors
+    return flops, (rows * (2 * c + hd1) + weights + 2 * n * t * hd) * 2.0
+
+
+def temporal_block_cost(rows, f, c):
+    flops = 2.0 * rows * (8 * c * c + 2 * f * c + 12 * c * c)
+    return flops, (2 * rows * c + 20 * c * c + 15 * c) * 2.0
+
+
 def gn_cost(n, l, c, bias):
     # x read, y written (bf16), the (N, C) bias (bf16), gamma and beta (f32)
     return 8.0 * n * l * c, 2.0 * n * l * c * 2 + (n * c * 2 if bias else 0) + 8 * c
@@ -100,7 +121,9 @@ def kernel_cases():
     from dvdx_tpu_torch.ops import groupnorm as gn
     from dvdx_tpu_torch.ops.kernels import flash_attention as fa
     from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
+    from dvdx_tpu_torch.ops.kernels import spatial_tail as st
     from dvdx_tpu_torch.ops.kernels import temporal_attention as ta
+    from dvdx_tpu_torch.ops.kernels import temporal_block as tb
 
     cases = []
 
@@ -199,6 +222,69 @@ def kernel_cases():
             return F.silu(y) if act == "silu" else y
         cases.append(("group_norm_act", label, mk, kern, plain, lib,
                       gn_cost(n, l, c, bias), True))
+
+    def sdpa_mh(heads, d):
+        def fn(q, k, v):
+            t = [fa._head_views(x, heads, d).transpose(1, 2) for x in (q, k, v)]
+            return F.scaled_dot_product_attention(*t)
+        return fn
+
+    # flash_attention_mh (off the main path): head strips of 128 lanes
+    for label, (b, sq, sk, heads, d) in (("self_level0", (32, 2880, 2880, 5, 64)),
+                                         ("cross_77", (32, 2880, 77, 5, 64))):
+        def mk(gen, b=b, sq=sq, sk=sk, heads=heads, d=d):
+            out = []
+            for s_ in (sq, sk, sk):
+                x = torch.zeros((b, s_, heads, 128), device="cuda", dtype=torch.bfloat16)
+                x[..., :d] = randn((b, s_, heads, d), gen)
+                out.append(x.view(b, s_, heads * 128))
+            return out
+        cases.append(("flash_attention_mh", label, mk,
+                      lambda q, k, v, h=heads, d=d: fa.flash_attention_mh(q, k, v, heads=h, head_dim=d),
+                      lambda q, k, v, h=heads, d=d: fa.flash_attention_mh_plain(
+                          q, k, v, heads=h, head_dim=d),
+                      sdpa_mh(heads, d), flash_mh_cost(b, sq, sk, heads, d), False))
+
+    def linear_params(keys, shapes, gen):
+        # weights N(0, 1/fan_in), biases and LayerNorm biases N(0, 0.1^2),
+        # LayerNorm scales 1 + N(0, 0.1^2)
+        out = {}
+        for key in keys:
+            shape = shapes[key]
+            if len(shape) == 2:
+                out[key] = randn(shape, gen, shape[1] ** -0.5)
+            else:
+                out[key] = randn(shape, gen, 0.1, 1.0 if key.endswith("_s") else 0.0)
+        return out
+
+    for label, (n, s_, c, heads, t), main in (("level0", (32, 2880, 320, 5, 77), True),
+                                              ("c640", (32, 720, 640, 10, 77), False)):
+        shapes = {k: (c,) for k in st.KEYS}
+        shapes.update({"o1_w": (c, c), "q2_w": (c, c), "o2_w": (c, c),
+                       "ffi_w": (8 * c, c), "ffi_b": (8 * c,), "ffo_w": (c, 4 * c)})
+
+        def mk(gen, n=n, s_=s_, c=c, t=t, shapes=shapes):
+            return [randn((n, s_, c), gen), randn((n, s_, c), gen),
+                    randn((n, t, c), gen), randn((n, t, c), gen),
+                    linear_params(st.KEYS, shapes, gen)]
+        cases.append(("fused_spatial_tail", label, mk,
+                      lambda *a, h=heads: st.fused_spatial_tail(*a, heads=h),
+                      lambda *a, h=heads: st.fused_spatial_tail_plain(*a, heads=h), None,
+                      spatial_tail_cost(n * s_, c, c, c, t, n), main))
+
+    for label, (b, f, n, heads) in (("level0", (2, 16, 2880, 5)),
+                                    ("transformer_in_d40", (2, 16, 2880, 8))):
+        c = 320
+        shapes = {k: (c,) for k in tb.KEYS}
+        shapes.update({k: (c, c) for k in ("q1", "k1", "v1", "o1_w", "q2", "k2", "v2", "o2_w")})
+        shapes.update({"ffi_w": (8 * c, c), "ffi_b": (8 * c,), "ffo_w": (c, 4 * c)})
+
+        def mk(gen, b=b, f=f, n=n, c=c, shapes=shapes):
+            return [randn((b, f, n, c), gen), linear_params(tb.KEYS, shapes, gen)]
+        cases.append(("fused_temporal_block", label, mk,
+                      lambda x, p, h=heads: tb.fused_temporal_block(x, p, heads=h),
+                      lambda x, p, h=heads: tb.fused_temporal_block_plain(x, p, heads=h), None,
+                      temporal_block_cost(b * f * n, f, c), True))
     return cases
 
 
@@ -211,7 +297,26 @@ KERNEL_META = {
                  "dvdx_tpu/ops/pallas/geglu_ff.py:98"),
     "group_norm_act": ("dvdx_tpu_torch/csrc/groupnorm.cu",
                        "dvdx_tpu/ops/groupnorm.py:179"),
+    "flash_attention_mh": ("dvdx_tpu_torch/csrc/flash_attention.cu",
+                           "dvdx_tpu/ops/pallas/flash_attention.py:361"),
+    "fused_spatial_tail": ("dvdx_tpu_torch/csrc/spatial_tail.cu",
+                           "dvdx_tpu/ops/pallas/spatial_tail.py:304"),
+    "fused_temporal_block": ("dvdx_tpu_torch/csrc/temporal_block.cu",
+                             "dvdx_tpu/ops/pallas/temporal_block.py:146"),
 }
+# the kernels the UNet / VAE path runs (flash_attention_mh is opt-in in the
+# JAX package and off the port's path: phase 3 alone holds it)
+MODEL_PATH = ("flash_attention", "temporal_attention", "geglu_ff", "group_norm_act",
+              "fused_spatial_tail", "fused_temporal_block")
+# launches per batched UNet call of zeroscope-v2-576w at 16 x 576x320: flash
+# in the 10 spatial transformers of levels 0-1 (S >= 512), the fused tail in
+# the 5 of level 0, the fused block in transformer_in and the 5 level-0
+# temporal transformers, frame-axis attention twice in each of the 11 other
+# temporal transformers, GEGLU in the 11 other spatial and 11 other temporal
+# transformers, GroupNorm in every resnet, temporal conv and transformer
+EXPECTED_PER_UNET_CALL = {"flash_attention": 10, "temporal_attention": 22,
+                          "geglu_ff": 22, "group_norm_act": 166,
+                          "fused_spatial_tail": 5, "fused_temporal_block": 6}
 # max |kernel - plain| <= TOL_ULPS bf16 ulps (2^-7 relative) of max |plain|:
 # both round to bf16 at the same points but sum in different orders, and the
 # flash kernel rounds unnormalised probabilities (the plain version rounds
@@ -220,8 +325,11 @@ TOL_ULPS = 2.0
 
 
 def check_kernels():
+    """Each case's kernel against its plain version. Returns ({kernel: sums
+    over its main-path shapes, or over all its shapes where none is on the
+    path}, rows)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    summary = {}
+    sums = {}
     rows = []
     for name, label, mk, kern, plain, lib, (flops, nbytes), main in kernel_cases():
         inputs = mk(gen)
@@ -241,7 +349,7 @@ def check_kernels():
                    max_abs_ref=scale, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bms, bound_by=bby, main_path=main, ok=ok)
         rows.append(row)
-        log(f"kernel {name:18s} {label:28s} err={err:.3e} tol={tol:.3e} "
+        log(f"kernel {name:20s} {label:28s} err={err:.3e} tol={tol:.3e} "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"bound_ms={bms:.4f} ({bby}) {'OK' if ok else 'FAIL'}")
@@ -250,31 +358,52 @@ def check_kernels():
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
                                  f"version ({err:.3e} > {tol:.3e})")
-        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                          bound_ms=0.0, library_ms=0.0,
-                                          t_ops=0.0, t_bytes=0.0))
+        s = sums.setdefault((name, main), dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                               bound_ms=0.0, library_ms=0.0,
+                                               t_ops=0.0, t_bytes=0.0))
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        if main:
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
-            s["bound_ms"] += bms
-            s["t_ops"] += flops / PEAK_BF16_FLOPS
-            s["t_bytes"] += nbytes / PEAK_BYTES
-            s["library_ms"] = None if lib_ms is None or s["library_ms"] is None \
-                else s["library_ms"] + lib_ms
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+        s["bound_ms"] += bms
+        s["t_ops"] += flops / PEAK_BF16_FLOPS
+        s["t_bytes"] += nbytes / PEAK_BYTES
+        s["library_ms"] = None if lib_ms is None or s["library_ms"] is None \
+            else s["library_ms"] + lib_ms
+    summary = {}
+    for name in KERNEL_META:
+        s = sums.get((name, True)) or sums[(name, False)]
+        off = sums.get((name, False))
+        if off is not None:
+            s["max_abs_err"] = max(s["max_abs_err"], off["max_abs_err"])
+        summary[name] = s
     return summary, rows
 
 
 # --- phase 4: the main path ---------------------------------------------------
 
-def kernel_modules():
+def launch_counters():
+    """{kernel: (module, name of its launch counter)} for every kernel."""
     from dvdx_tpu_torch.ops import groupnorm as gn
     from dvdx_tpu_torch.ops.kernels import flash_attention as fa
     from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
+    from dvdx_tpu_torch.ops.kernels import spatial_tail as st
     from dvdx_tpu_torch.ops.kernels import temporal_attention as ta
+    from dvdx_tpu_torch.ops.kernels import temporal_block as tb
 
-    return {"flash_attention": fa, "temporal_attention": ta, "geglu_ff": gf,
-            "group_norm_act": gn}
+    return {"flash_attention": (fa, "LAUNCHES"), "temporal_attention": (ta, "LAUNCHES"),
+            "geglu_ff": (gf, "LAUNCHES"), "group_norm_act": (gn, "LAUNCHES"),
+            "flash_attention_mh": (fa, "MH_LAUNCHES"),
+            "fused_spatial_tail": (st, "LAUNCHES"),
+            "fused_temporal_block": (tb, "LAUNCHES")}
+
+
+def read_counts() -> dict:
+    return {k: getattr(m, a) for k, (m, a) in launch_counters().items()}
+
+
+def reset_counts() -> None:
+    for m, a in launch_counters().values():
+        setattr(m, a, 0)
 
 
 def check_against_cpu():
@@ -283,7 +412,8 @@ def check_against_cpu():
     full-geometry base noise has the same bits on the card and on the CPU,
     and one batched CFG UNet call of a small model of the same structure
     (``utils.testing.reference_check_pipeline``: C = 64 / 128, level-0
-    self-attention over 1024 tokens, so every kernel runs), bf16 on both
+    self-attention over 1024 tokens, mid block at 4x4 latents, so every
+    kernel of the model path runs), bf16 on both
     sides, from the same weights and inputs, stays within
     ``REFERENCE_RELRMS_TOL``. One call, not a denoise loop: guidance and the
     sampler amplify each bf16 rounding difference from step to step."""
@@ -307,11 +437,12 @@ def check_against_cpu():
 
     cpu = reference_check_pipeline()
     z, hidden, t = reference_check_inputs(cpu)
-    mods = kernel_modules()
-    before = {k: m.LAUNCHES for k, m in mods.items()}
+    reset_counts()
     eps_gpu = unet_pair_call(reference_check_pipeline(device="cuda").unet,
                              z.cuda(), hidden.cuda(), t).cpu()
-    missing = [k for k, m in mods.items() if m.LAUNCHES == before[k]]
+    counts = read_counts()
+    log(f"reference: small model launches {json.dumps(counts)}")
+    missing = [k for k in MODEL_PATH if counts[k] == 0]
     if missing:
         raise AssertionError(f"small model never launched: {missing}")
     eps_cpu = unet_pair_call(cpu.unet, z, hidden, t)
@@ -336,7 +467,7 @@ def launch_bounds(module, run):
     from dvdx_tpu_torch.models import layers
     from dvdx_tpu_torch.ops.attention import wants_flash
 
-    acc = {k: [0, 0.0] for k in KERNEL_META}
+    acc = {k: [0, 0.0] for k in MODEL_PATH}
 
     def add(name, cost):
         acc[name][0] += 1
@@ -363,19 +494,40 @@ def launch_bounds(module, run):
         if wants_flash(s, s if ctx is None else ctx.shape[1], mod.head_dim):
             add("flash_attention", flash_cost(x.shape[0], s, mod.heads, mod.head_dim))
 
+    def on_block(mod, args, kwargs, out):
+        # the fused tail calls attn1.attend, not its forward
+        x, ctx = args[0], kwargs.get("context", args[1] if len(args) > 1 else None)
+        if not mod.fused(x, ctx):
+            return
+        n, s, c = x.shape
+        a1 = mod.attn1
+        if wants_flash(s, s, a1.head_dim):
+            add("flash_attention", flash_cost(n, s, a1.heads, a1.head_dim))
+        hd = mod.attn2.to_q.out_features
+        add("fused_spatial_tail", spatial_tail_cost(n * s, c, a1.heads * a1.head_dim,
+                                                    hd, ctx.shape[1], n))
+
+    def on_temporal_block(mod, args, kwargs, out):
+        x = args[0]
+        if mod.fused(x):
+            add("fused_temporal_block",
+                temporal_block_cost(x[..., 0].numel(), x.shape[1], x.shape[-1]))
+
     hooks = ((layers.GroupNorm, on_gn), (layers.GEGLUFeedForward, on_ff),
-             (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn))
+             (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn),
+             (layers.BasicTransformerBlock, on_block),
+             (layers._TemporalBlock, on_temporal_block))
     handles = [m.register_forward_hook(fn, with_kwargs=True)
                for m in module.modules() for cls, fn in hooks if isinstance(m, cls)]
-    mods = kernel_modules()
-    before = {k: m.LAUNCHES for k, m in mods.items()}
+    before = read_counts()
     run()
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
+    after = read_counts()
     for k, (n, _) in acc.items():
-        if mods[k].LAUNCHES - before[k] != n:
-            raise AssertionError(f"{k}: {mods[k].LAUNCHES - before[k]} launches, "
+        if after[k] - before[k] != n:
+            raise AssertionError(f"{k}: {after[k] - before[k]} launches, "
                                  f"{n} seen by the bound's hooks")
     return {k: {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
 
@@ -396,17 +548,15 @@ def run_path(steps_a: int):
         f"perturbed) in {time.perf_counter() - t0:.1f} s; "
         f"params: {sum(p.numel() for p in pipe.parameters()) / 1e9:.3f} B")
 
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    prompt_a = "a red panda rides a bicycle through a snowy forest"
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    video, (zs, epss, ts) = generate(pipe, "a red panda rides a bicycle through "
-                                     "a snowy forest", seed=7, num_steps=steps_a,
+    video, (zs, epss, ts) = generate(pipe, prompt_a, seed=7, num_steps=steps_a,
                                      record=True)
     torch.cuda.synchronize()
     sec_a = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     root_a = MerkleCommitment(ts, zs, epss).root.hex()
     log(f"request A: video {tuple(video.shape)} {video.dtype}, {steps_a} steps, "
@@ -421,13 +571,12 @@ def run_path(steps_a: int):
         raise AssertionError("request A: wrong number of PoI leaves")
     if float(np.std(video)) == 0.0:
         raise AssertionError("request A: constant video")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in MODEL_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"request A never launched: {missing}")
 
     runs = []
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     for rep in range(2):
         t0 = time.perf_counter()
         vid, (zb, eb, tb) = generate(pipe, "a lighthouse at dusk, waves crashing",
@@ -437,7 +586,7 @@ def run_path(steps_a: int):
         runs.append((vid, zb, eb, MerkleCommitment(tb, zb, eb).root.hex(),
                      time.perf_counter() - t0))
         if rep == 0:
-            launches_b = {k: m.LAUNCHES for k, m in mods.items()}
+            launches_b = read_counts()
     (v1, z1, e1, r1, s1), (v2, z2, e2, r2, s2) = runs
     same = (torch.equal(z1.view(torch.int16), z2.view(torch.int16))
             and torch.equal(e1.view(torch.int16), e2.view(torch.int16))
@@ -454,6 +603,11 @@ def run_path(steps_a: int):
     log(f"path: per denoise step {step_s:.4f} s, rest of a request (text, noise, "
         f"decode) {sec_a - steps_a * step_s:.3f} s; launches per UNet call "
         f"{json.dumps(per_step)}")
+    wrong = {k: per_step[k] for k, n in EXPECTED_PER_UNET_CALL.items() if per_step[k] != n}
+    if wrong:
+        raise AssertionError(f"launches per UNet call {wrong}, expected "
+                             f"{EXPECTED_PER_UNET_CALL}")
+    reexec = check_reexecution(pipe, prompt_a, 7, video, zs, epss, ts, root_a)
 
     # the bound of one batched UNet call and of one frame's decode, summed
     # over the launches each makes at the default geometry
@@ -472,9 +626,66 @@ def run_path(steps_a: int):
                           peak_bytes=peak, root=root_a,
                           seconds_request_b=[s1, s2], seconds_per_step=step_s,
                           launches_request_b=launches_b,
-                          launches_per_unet_call=per_step,
+                          launches_per_unet_call=per_step, reexecution=reexec,
                           bound_per_unet_call=unet_bounds,
                           bound_per_vae_frame=vae_bounds)
+
+
+def check_reexecution(pipe, prompt, seed, video, zs, epss, ts, root_hex):
+    """The validator's side on the card: re-derive z_0 from the seed,
+    re-execute 3 revealed steps of Request A (the last among them) through
+    ``StepEngine`` under the same-program tolerances (atol 1e-4, rtol 2^-7,
+    ``dvdx_tpu/network/validator.py:93-99``) and require them bit for bit,
+    bind the video on two audit-derived frames, and refuse an eps leaf
+    scaled by 1 + 2^-4."""
+    from dvdx_tpu_torch.verify.spotcheck import (StepEngine, binding_frame_indices,
+                                                 compare_arrays, verify_revealed_steps)
+
+    engine = StepEngine(pipe)
+    steps = len(ts)
+    checks = [3, 12, steps - 1]
+    leaves = {i: (int(ts[i]), zs[i, 0], epss[i, 0])
+              for c in checks for i in (c, c + 1) if i < steps}
+    tol = dict(atol=1e-4, rtol=2.0 ** -7)
+    reset_counts()
+    t0 = time.perf_counter()
+    base_ok, _, base_bitwise = compare_arrays(
+        engine.base_latent(seed, *video.shape[:3]), zs[0, 0], bitwise=True, **tol)
+    results, _ = verify_revealed_steps(engine, prompt, "", leaves, checks, steps, 7.5,
+                                       same_platform=True, **tol)
+    frames = binding_frame_indices(b"audit-secret", bytes.fromhex(root_hex), len(video))
+    bound, bind_err = engine.verify_video_binding(
+        video, leaves[steps - 1], steps - 1, steps, 7.5, prompt, frame_indices=frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    tampered = dict(leaves)
+    t12, z12, e12 = leaves[12]
+    tampered[12] = (t12, z12, (e12.float() * (1 + 2.0 ** -4)).bfloat16())
+    refused, _ = verify_revealed_steps(engine, prompt, "", tampered, [12], steps, 7.5,
+                                       same_platform=True, **tol)
+    summary = {"checks": checks, "platform": engine.platform_tag,
+               "base_latent_bitwise": base_bitwise,
+               "passed": {i: r.passed for i, r in results.items()},
+               "bitwise": {i: r.bitwise for i, r in results.items()},
+               "binding_frames": frames, "binding_ok": bound, "binding_err": bind_err,
+               "tampered_refused": not refused[12].passed,
+               "tampered_reason": refused[12].reason, "seconds": seconds,
+               "launches": counts}
+    log(f"re-execution: {engine.platform_tag}, steps {checks} passed "
+        f"{summary['passed']} bitwise {summary['bitwise']}; base latent bitwise "
+        f"{base_bitwise}; video binding on frames {frames}: {bound} (mean |err| "
+        f"{bind_err:.4f}); eps leaf x (1 + 2^-4) refused: {summary['tampered_refused']} "
+        f"({refused[12].reason}); {seconds:.2f} s for the verification; launches "
+        f"{json.dumps(counts)}")
+    if not (base_ok and base_bitwise and all(r.passed and r.bitwise for r in results.values())):
+        raise AssertionError(f"re-execution is not bit-identical: {summary}")
+    if not bound or not summary["tampered_refused"]:
+        raise AssertionError(f"video binding or tamper check failed: {summary}")
+    missing = [k for k in MODEL_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"re-execution never launched: {missing}")
+    return summary
 
 
 def main():

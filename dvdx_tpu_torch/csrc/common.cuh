@@ -28,6 +28,25 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Two packed bf16 values times s, each rounded back to bf16 (s == 1 is exact).
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // D += A(16x16, row) * B(16x8, col); bf16 inputs, f32 accumulate.
 // Fragment layout (PTX ISA, mma.m16n8k16), g = lane/4, t = lane%4:
 //   a[0]: A[g][2t..2t+1]    a[1]: A[g+8][2t..2t+1]

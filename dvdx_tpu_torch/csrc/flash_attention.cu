@@ -1,7 +1,13 @@
 // Non-causal flash attention over (B, S, H, D) bf16, f32 online softmax.
 //
 // Replaces dvdx_tpu/ops/pallas/flash_attention.py:flash_attention
-// (_onepass_kernel / _flash_kernel). One block per (query tile of 64 rows,
+// (_onepass_kernel / _flash_kernel) and flash_attention_mh
+// (_onepass_mh_kernel / _flash_mh_kernel): the key length Sk may differ from
+// the query length (cross-attention), every operand and the output are
+// addressed by strides (the mh entry point passes the first head_dim lanes of
+// each 128-lane head strip), and q may be scaled and rounded to bf16 before
+// QK^T (q_scale; the mh kernels' order) instead of scaling the logits.
+// One block per (query tile of 64 rows,
 // batch*head); 4 warps own 16 query rows each. Q/K/V are read straight from
 // the (B, S, H, D) layout by strides (no head-major copies). K and V^T tiles
 // of 64 keys are staged in shared memory; QK^T and P.V run on the tensor
@@ -28,10 +34,11 @@ constexpr int THREADS = 128;
 template <int DP>  // head dim rounded up to a multiple of 16
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S, int D,
-          long long qsb, long long qss, long long qsh, long long ksb,
-          long long kss, long long ksh, long long vsb, long long vss,
-          long long vsh, float scale) {
+          const bf16* __restrict__ v, bf16* __restrict__ o, int H, int S,
+          int Sk, int D, long long qsb, long long qss, long long qsh,
+          long long ksb, long long kss, long long ksh, long long vsb,
+          long long vss, long long vsh, long long osb, long long oss,
+          long long osh, float q_scale, float scale) {
   constexpr int KSTR = DP + 8;  // smem row strides (bf16), conflict-free
   constexpr int VSTR = BK + 8;
   __shared__ __align__(16) bf16 k_s[BK * KSTR];
@@ -52,7 +59,9 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 4; ++j) {
       const int row = (j & 1) ? r1 : r0;
       const int col = ks * 16 + 2 * t + ((j & 2) ? 8 : 0);
-      qa[ks][j] = (row < S && col < D) ? ld32(qb + row * qss + col) : 0u;
+      qa[ks][j] = (row < S && col < D)
+                      ? scale_bf16x2(ld32(qb + row * qss + col), q_scale)
+                      : 0u;
     }
   }
 
@@ -63,13 +72,13 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m_run[2] = {-1e30f, -1e30f};
   float l_run[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // previous tile fully consumed
     for (int i = tid; i < BK * (DP / 8); i += THREADS) {
       const int r = i / (DP / 8), c8 = (i % (DP / 8)) * 8;
       const int key = k0 + r;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < S && c8 < D) {
+      if (key < Sk && c8 < D) {
         kv = *reinterpret_cast<const uint4*>(kb + key * kss + c8);
         vv = *reinterpret_cast<const uint4*>(vb + key * vss + c8);
       }
@@ -98,7 +107,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = key < S ? s[nt][e] * scale : -1e30f;
+        s[nt][e] = key < Sk ? s[nt][e] * scale : -1e30f;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
     }
@@ -148,56 +157,65 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const long long osr = (long long)H * D;  // output is contiguous (B,S,H,D)
-  bf16* ob = o + (long long)b * S * osr + (long long)h * D;
+  bf16* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int dt = 0; dt < DP / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (col >= D) continue;
     if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + r0 * osr + col) =
+      *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
           pack_bf16(acc[dt][0] / l_run[0], acc[dt][1] / l_run[0]);
     if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + r1 * osr + col) =
+      *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
           pack_bf16(acc[dt][2] / l_run[1], acc[dt][3] / l_run[1]);
   }
 }
 
 template <int DP>
 void launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-            int S, int D, const long long* qs, const long long* ks,
-            const long long* vs, float scale, cudaStream_t stream) {
+            int S, int Sk, int D, const long long* qs, const long long* ks,
+            const long long* vs, const long long* os, float q_scale,
+            float scale, cudaStream_t stream) {
   dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd<DP><<<grid, THREADS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, S, D, qs[0], qs[1],
-      qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, S, Sk, D, qs[0],
+      qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os[0], os[1],
+      os[2], q_scale, scale);
 }
 
 }  // namespace
 
-// Strides are in elements for the (b, s, h) axes; the d axis is contiguous.
-// D must be a multiple of 8 and at most 128 (checked by the wrapper).
+// Strides are in elements for the (b, s, h) axes of q, k, v and the output;
+// the d axis is contiguous. q has S rows, k and v have Sk. D must be a
+// multiple of 8 and at most 128 (checked by the wrapper). q_scale == 1 leaves
+// q as it is.
 extern "C" int dvdx_flash_attention(const void* q, const void* k, const void* v,
-                                    void* o, int B, int H, int S, int D,
+                                    void* o, int B, int H, int S, int Sk, int D,
                                     long long qsb, long long qss, long long qsh,
                                     long long ksb, long long kss, long long ksh,
                                     long long vsb, long long vss, long long vsh,
-                                    float scale, void* stream) {
+                                    long long osb, long long oss, long long osh,
+                                    float q_scale, float scale, void* stream) {
   const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh},
-                  vs[3] = {vsb, vss, vsh};
-  if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.y
+                  vs[3] = {vsb, vss, vsh}, os[3] = {osb, oss, osh};
+  if (B * H > 65535 || Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DVDX_FLASH_CASE(n, dp)                                                 \
+  case n:                                                                      \
+    launch<dp>(q, k, v, o, B, H, S, Sk, D, qs, ks, vs, os, q_scale, scale, st); \
+    break;
   switch ((D + 15) / 16) {
-    case 1: launch<16>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 2: launch<32>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 3: launch<48>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 4: launch<64>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 5: launch<80>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 6: launch<96>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 7: launch<112>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
-    case 8: launch<128>(q, k, v, o, B, H, S, D, qs, ks, vs, scale, st); break;
+    DVDX_FLASH_CASE(1, 16)
+    DVDX_FLASH_CASE(2, 32)
+    DVDX_FLASH_CASE(3, 48)
+    DVDX_FLASH_CASE(4, 64)
+    DVDX_FLASH_CASE(5, 80)
+    DVDX_FLASH_CASE(6, 96)
+    DVDX_FLASH_CASE(7, 112)
+    DVDX_FLASH_CASE(8, 128)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DVDX_FLASH_CASE
   return static_cast<int>(cudaGetLastError());
 }

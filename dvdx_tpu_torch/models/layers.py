@@ -1,9 +1,17 @@
 """Building blocks of the zeroscope UNet3D (diffusers temporal style).
 
-Counterpart of ``dvdx_tpu/models/layers.py`` on the configuration whose
-fused spatial tail and fused temporal block are off: every module here runs
-the reference's unfused branch. Submodule and parameter names follow the
-reference's flax tree (``utils/bridge.py`` maps it leaf for leaf).
+Counterpart of ``dvdx_tpu/models/layers.py`` with the routing the JAX package
+intends on its TPU: a BasicTransformerBlock with a text context runs its
+post-attn1 tail as ``fused_spatial_tail`` and a ``_TemporalBlock`` runs as
+``fused_temporal_block`` where the shape gates below take them (at the
+standard geometry: the five level-0 spatial transformers, and
+``transformer_in`` and the five level-0 temporal transformers); every other
+module runs the reference's unfused branch. The gates read shapes only, not
+the device, so the CPU (the kernels' plain versions) and the card compute
+one step program. The fused kernels follow the TPU kernels' rounding order,
+which is not the unfused branch's. Submodule and parameter names follow the
+reference's flax tree on both branches (``utils/bridge.py`` maps it leaf for
+leaf).
 
 Layout: activations stay channel-last, (N, H, W, C) per frame and
 (B, F, H, W, C) per video, as in the reference; convolutions view them as
@@ -28,7 +36,31 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 from ..ops.groupnorm import group_norm_act
 from ..ops.kernels.geglu_ff import geglu_ff
+from ..ops.kernels.spatial_tail import fused_spatial_tail
 from ..ops.kernels.temporal_attention import temporal_attention
+from ..ops.kernels.temporal_block import fused_temporal_block
+
+# Shape gates of the fused branches (the JAX package's
+# _fused_spatial_tail_wants / _fused_block_wants without the TPU's VMEM
+# choosers): the fused tail at S >= 512 rows with a context of <= 512 tokens
+# and widths <= 384 (the resident-weight bound; the JAX package's streamed
+# C = 640 route is a measured loss and is not taken), the fused block at
+# N >= 64 positions, F <= 128 frames, C <= 384.
+SPATIAL_TAIL_MIN_SEQ = 512
+FUSED_MAX_DIM = 384
+FUSED_MAX_CONTEXT = 512
+TEMPORAL_BLOCK_MIN_POSITIONS = 64
+TEMPORAL_BLOCK_MAX_FRAMES = 128
+
+
+def fused_spatial_tail_wants(s: int, dim: int, inner: int, ctx_tokens: int) -> bool:
+    return (s >= SPATIAL_TAIL_MIN_SEQ and dim <= FUSED_MAX_DIM
+            and inner <= FUSED_MAX_DIM and ctx_tokens <= FUSED_MAX_CONTEXT)
+
+
+def fused_temporal_block_wants(frames: int, positions: int, dim: int) -> bool:
+    return (positions >= TEMPORAL_BLOCK_MIN_POSITIONS
+            and frames <= TEMPORAL_BLOCK_MAX_FRAMES and dim <= FUSED_MAX_DIM)
 
 
 class Dense(nn.Linear):
@@ -182,20 +214,26 @@ class Attention(nn.Module):
         self.to_v = Dense(kv_dim, inner, bias=False)
         self.to_out = Dense(inner, query_dim)
 
-    def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def attend(self, x: torch.Tensor,
+               context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The heads' P.V output before the out-projection, (B, S, inner)."""
         ctx = x if context is None else context
         b, s, t = x.shape[0], x.shape[1], ctx.shape[1]
         q = self.to_q(x).view(b, s, self.heads, self.head_dim)
         k = self.to_k(ctx).view(b, t, self.heads, self.head_dim)
         v = self.to_v(ctx).view(b, t, self.heads, self.head_dim)
         o = multi_head_attention(q, k, v)
-        return self.to_out(o.reshape(b, s, self.heads * self.head_dim))
+        return o.reshape(b, s, self.heads * self.head_dim)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.to_out(self.attend(x, context))
 
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn, LN -> cross-attn over the text context, LN -> GEGLU;
-    all residual (the reference's unfused branch)."""
+    all residual. Where ``fused_spatial_tail_wants`` takes the shapes,
+    everything after attn1's P.V runs as ``fused_spatial_tail``."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  eps: float = 1e-5):
@@ -207,7 +245,29 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=eps)
         self.ff = GEGLUFeedForward(dim)
 
+    def fused(self, x: torch.Tensor, context: torch.Tensor) -> bool:
+        return fused_spatial_tail_wants(x.shape[1], x.shape[-1],
+                                        self.attn1.heads * self.attn1.head_dim,
+                                        context.shape[1])
+
+    def tail_params(self) -> dict:
+        """The fused tail's flat parameter dict (the JAX keys, nn.Linear
+        layout)."""
+        a1, a2, ff = self.attn1, self.attn2, self.ff
+        return {"o1_w": a1.to_out.weight, "o1_b": a1.to_out.bias,
+                "ln2_s": self.norm2.weight, "ln2_b": self.norm2.bias,
+                "q2_w": a2.to_q.weight, "o2_w": a2.to_out.weight,
+                "o2_b": a2.to_out.bias,
+                "ln3_s": self.norm3.weight, "ln3_b": self.norm3.bias,
+                "ffi_w": ff.proj_in.weight, "ffi_b": ff.proj_in.bias,
+                "ffo_w": ff.proj_out.weight, "ffo_b": ff.proj_out.bias}
+
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        if self.fused(x, context):
+            o1 = self.attn1.attend(self.norm1(x))
+            return fused_spatial_tail(
+                x, o1, self.attn2.to_k(context), self.attn2.to_v(context),
+                self.tail_params(), heads=self.attn1.heads, eps=self.norm2.eps)
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
@@ -255,7 +315,9 @@ class _FrameAxisAttention(nn.Module):
 
 class _TemporalBlock(nn.Module):
     """BasicTransformerBlock on (B, F, N, C) with frame-axis attention in
-    attn1 and attn2 (diffusers double_self_attention)."""
+    attn1 and attn2 (diffusers double_self_attention). Where
+    ``fused_temporal_block_wants`` takes the shapes, the whole block runs as
+    ``fused_temporal_block``."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, eps: float = 1e-5):
         super().__init__()
@@ -266,7 +328,28 @@ class _TemporalBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=eps)
         self.ff = GEGLUFeedForward(dim)
 
+    def fused(self, x: torch.Tensor) -> bool:
+        return fused_temporal_block_wants(x.shape[1], x.shape[2], x.shape[3])
+
+    def block_params(self) -> dict:
+        """The fused block's flat parameter dict (the JAX keys, nn.Linear
+        layout)."""
+        p = {}
+        for i, (norm, attn) in enumerate(((self.norm1, self.attn1),
+                                          (self.norm2, self.attn2)), start=1):
+            p.update({f"ln{i}_s": norm.weight, f"ln{i}_b": norm.bias,
+                      f"q{i}": attn.to_q.weight, f"k{i}": attn.to_k.weight,
+                      f"v{i}": attn.to_v.weight, f"o{i}_w": attn.to_out.weight,
+                      f"o{i}_b": attn.to_out.bias})
+        p.update({"ln3_s": self.norm3.weight, "ln3_b": self.norm3.bias,
+                  "ffi_w": self.ff.proj_in.weight, "ffi_b": self.ff.proj_in.bias,
+                  "ffo_w": self.ff.proj_out.weight, "ffo_b": self.ff.proj_out.bias})
+        return p
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused(x):
+            return fused_temporal_block(x, self.block_params(),
+                                        heads=self.attn1.heads, eps=self.norm1.eps)
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x))
         return x + self.ff(self.norm3(x))

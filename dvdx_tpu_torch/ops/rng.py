@@ -100,8 +100,11 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     order; |x| == 1 maps to +-inf. log1p is taken in float64 and rounded
     once, so CPU and CUDA give the same bits. Matches XLA's CPU result to
     within 3 f32 ulps (about 1% of values differ): XLA's own float32 log1p
-    is not correctly rounded. Rounded to bfloat16, the latent dtype, the
-    two agree."""
+    is not correctly rounded. Rounded to bfloat16, the latent dtype, such a
+    difference now and then crosses a rounding boundary: the bf16 base
+    latent differs from the reference's by one bf16 ulp in a few elements
+    at some seeds (7 of seeds 0-599 at (16, 40, 72, 4)), which the
+    validator's cross-platform tolerance absorbs."""
     w = -torch.log1p(-(x * x).double()).float()
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()

@@ -6,9 +6,10 @@ denoise step and the VAE decode of zeroscope-v2-576w.
 Builds the model with seeded random weights (zero-init leaves perturbed, as
 ``chip_smoke.py`` does), runs one warm-up step, then traces two
 classifier-free-guided DDIM steps and one frame's VAE decode with
-``torch.profiler``. Device kernels are grouped into the port's four kernels,
+``torch.profiler``. Device kernels are grouped into the port's kernels,
 matrix products, convolutions and everything else; the idle share is the
-part of the traced window in which no kernel ran. Needs a CUDA card; writes
+part of the traced window in which no kernel ran. The fused spatial tail and
+temporal block are grouped as their two launches each (chain and FF). Needs a CUDA card; writes
 the breakdown to ``chiprun_out/profile_step.json``.
 """
 
@@ -27,6 +28,8 @@ OUT = os.path.join("chiprun_out", "profile_step.json")
 
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
+    ("fused_spatial_tail", ("spatial_tail_",)),
+    ("fused_temporal_block", ("temporal_block_",)),
     ("flash_attention", ("flash_fwd",)),
     ("temporal_attention", ("temporal_attn",)),
     ("geglu_ff", ("geglu_ff_kernel",)),

@@ -46,13 +46,19 @@ def perturb_zero_params(module: nn.Module, seed: int = 0,
 
 def reference_check_spec(dtype: str) -> zoo.ModelSpec:
     """A zeroscope-structured model small enough for the CPU whose shapes
-    every kernel takes on the card: UNet widths 64 / 128 with cross-attention
-    at level 0, and 4 frames at 64x64, whose 32x32 latents give level 0's
-    self-attention 1024 tokens, so it runs flash attention."""
+    every kernel of the model path takes on the card: UNet widths 64 / 128 /
+    128 / 128 with cross-attention at level 0, and 4 frames at 64x64. The
+    32x32 latents give level 0 1024 tokens, so its spatial transformer runs
+    flash attention and the fused tail, and its temporal transformers and
+    ``transformer_in`` the fused block; the mid block sits at 4x4 latents
+    (16 positions), where both fused gates refuse, so its spatial and
+    temporal transformers run the unfused modules (frame-axis attention,
+    GEGLU)."""
     return dataclasses.replace(
         zoo.get_model_spec("zeroscope-tiny-hf"), name="reference-check",
-        unet=dataclasses.replace(unet3d.UNet3DConfig(), block_out_channels=(64, 128),
-                                 layers_per_block=1, cross_attention_levels=(True, False),
+        unet=dataclasses.replace(unet3d.UNet3DConfig(), block_out_channels=(64, 128, 128, 128),
+                                 layers_per_block=1,
+                                 cross_attention_levels=(True, False, False, False),
                                  cross_attention_dim=64, dtype=dtype),
         text=dataclasses.replace(text_encoder.tiny_text_config(), dtype=dtype),
         vae=dataclasses.replace(vae.tiny_vae_config(), dtype=dtype),

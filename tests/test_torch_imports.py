@@ -48,8 +48,9 @@ def test_chip_smoke_imports_without_jax():
             "    sys.modules[name] = None\n"
             "import runpy\n"
             "g = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-            "g['kernel_modules']()\n"
+            "assert set(g['read_counts']()) == set(g['KERNEL_META'])\n"
             "import dvdx_tpu_torch.pipelines.text2video, dvdx_tpu_torch.verify.merkle\n"
+            "import dvdx_tpu_torch.verify.spotcheck\n"
             "import dvdx_tpu_torch.utils.testing\n"
             "import torch\n"
             "assert torch.cuda.is_available() or g['main']() == 2\n"
@@ -60,7 +61,8 @@ def test_chip_smoke_imports_without_jax():
 
 
 @pytest.mark.parametrize("source", ["flash_attention", "temporal_attention",
-                                    "geglu_ff", "groupnorm"])
+                                    "geglu_ff", "groupnorm", "spatial_tail",
+                                    "temporal_block"])
 def test_kernel_sources_ship(source):
     """Every CUDA source the build compiles exists in the package, beside the
     shared header."""

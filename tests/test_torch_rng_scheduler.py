@@ -1,10 +1,12 @@
 """Port vs reference: counter-based base noise and the DDIM schedule/step.
 
-The validator re-derives z_0 from the seed, so the port's noise must be the
-reference's bit for bit: the random bits, the uniforms and the bfloat16 base
-latent are compared for equality; the float32 normals within 3 ulps (the
-port evaluates XLA's erf_inv polynomial with XLA's fused multiply-adds, but
-XLA's float32 log1p is not correctly rounded)."""
+The validator re-derives z_0 from the seed: the random bits and the uniforms
+are compared for equality; the float32 normals within 3 ulps (the port
+evaluates XLA's erf_inv polynomial with XLA's fused multiply-adds, but XLA's
+float32 log1p is not correctly rounded). Rounded to the bfloat16 latent, the
+two agree bit for bit at most seeds, not all: an f32 difference can cross a
+bf16 rounding boundary (seed 148 at the standard geometry, below), by one
+bf16 ulp, which the validator's cross-platform tolerance absorbs."""
 
 import jax
 import jax.numpy as jnp
@@ -56,7 +58,8 @@ def test_video_noise_matches_reference(seed):
     may differ by up to 3 ulps: XLA's CPU log1p (inside erf_inv) is not
     correctly rounded and the port takes log1p in float64 (about 1% of values
     differ; ROADMAP section 3). The latent the pipeline uses is bfloat16, and
-    there the two agree bit for bit."""
+    at these seeds the two agree bit for bit there (not at every seed: see
+    test_bf16_base_latent_differs_by_one_ulp_at_most)."""
     want = np.asarray(jrng.video_noise(jrng.base_key(seed), 4, (10, 18, 4)))
     got = trng.video_noise(trng.base_key(seed), 4, (10, 18, 4), device="cpu").numpy()
     ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32))
@@ -66,6 +69,28 @@ def test_video_noise_matches_reference(seed):
     want16 = np.asarray(jnp.asarray(want, jnp.bfloat16)).view(np.int16)
     got16 = torch.from_numpy(got).to(torch.bfloat16).view(torch.int16).numpy()
     np.testing.assert_array_equal(got16, want16)
+
+
+def test_bf16_base_latent_differs_by_one_ulp_at_most():
+    """Seed 148 at the standard latent geometry (16, 40, 72, 4) is one of the
+    seeds (7 of 0-599) whose bfloat16 z_0 differs from the reference's: an
+    f32 normal a few ulps off crosses a bf16 rounding boundary. Every
+    differing element is exactly one bf16 ulp away, and the port's
+    compare_arrays in the validator's cross-platform regime (atol 5e-2)
+    accepts the port's z_0 against the reference's."""
+    from dvdx_tpu_torch.verify.spotcheck import compare_arrays
+
+    seed, shape = 148, (40, 72, 4)
+    want = jax.jit(lambda k: jrng.video_noise(k, 16, shape))(jrng.base_key(seed))
+    want16 = np.asarray(jnp.asarray(want, jnp.bfloat16))
+    got16 = trng.video_noise(trng.base_key(seed), 16, shape, device="cpu").bfloat16()
+    bits = np.abs(got16.view(torch.int16).numpy().astype(np.int64)
+                  - want16.view(np.int16).astype(np.int64))
+    print(f"parity: {int((bits > 0).sum())} of {bits.size} bf16 values differ, "
+          f"by {bits.max()} ulp")  # shown by pytest -rP
+    assert bits.max() == 1
+    ok, err, bitwise = compare_arrays(got16, want16, bitwise=False, atol=5e-2)
+    assert ok and not bitwise and 0 < err < 5e-2
 
 
 @pytest.mark.parametrize("num_steps", [3, 25, 50])
