@@ -9,8 +9,9 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
   2. build of every CUDA kernel from ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the main path's full-width shapes (and a few off it: the fused tail at
-     C = 640, flash_attention_mh), with kernel / plain / library times (CUDA
-     events) and the roofline bound;
+     C = 640, flash_attention_mh, GEGLU's two launches on their own at
+     level 2), with kernel / plain / library times (CUDA events), the
+     roofline bound, and a second call that must give the same bits;
   4. the reference check: one UNet call of a small model of the same
      structure on the card (kernels) and on the CPU (plain versions) from
      the same weights and inputs, every kernel of the model path launched;
@@ -86,6 +87,14 @@ def temporal_cost(b, f, n, h, d):
 
 def geglu_cost(t, c, inner):
     return 6.0 * t * c * inner, (2.0 * t * c + 3.0 * c * inner + 2 * inner + c) * 2
+
+
+def geglu_in_cost(t, c, inner):
+    return 4.0 * t * c * inner, (t * c + 2.0 * inner * c + 2 * inner + t * inner) * 2
+
+
+def geglu_out_cost(t, c, inner):
+    return 2.0 * t * c * inner, (t * inner + 1.0 * c * inner + c + t * c) * 2
 
 
 def flash_mh_cost(b, sq, sk, h, d):
@@ -184,6 +193,20 @@ def kernel_cases():
                     randn((c,), gen, 0.1)]
         cases.append(("geglu_ff", label, mk, gf.geglu_ff, gf.geglu_ff_plain, None,
                       geglu_cost(t, c, inner), True))
+
+    # the two launches of the level-2 call on their own, so each one's time
+    # shows (geglu_ff's row above is their sum)
+    t, c, inner = 5760, 1280, 5120
+    cases.append(("geglu_ff", "level2_geglu_in",
+                  lambda gen, t=t, c=c, inner=inner: [
+                      randn((t, c), gen), randn((2 * inner, c), gen, c ** -0.5),
+                      randn((2 * inner,), gen, 0.1)],
+                  gf.geglu_in, gf.geglu_in_plain, None, geglu_in_cost(t, c, inner), False))
+    cases.append(("geglu_ff", "level2_geglu_out",
+                  lambda gen, t=t, c=c, inner=inner: [
+                      randn((t, inner), gen), randn((c, inner), gen, inner ** -0.5),
+                      randn((c,), gen, 0.1)],
+                  gf.geglu_out, gf.geglu_out_plain, None, geglu_out_cost(t, c, inner), False))
 
     # UNet norms (eps 1e-5, 1e-6 in the transformers), then the VAE decoder's
     # per-frame norms at 576x320 (eps 1e-6, one sample, up to 737k elements
@@ -339,25 +362,28 @@ def check_kernels():
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         tol = TOL_ULPS * 2.0 ** -7 * max(scale, 1e-6)
-        ok = bool(np.isfinite(err)) and err <= tol
+        # the same inputs again must give the same bits (PoI re-execution)
+        repeat = torch.equal(out.view(torch.int16), kern(*inputs).view(torch.int16))
+        ok = bool(np.isfinite(err)) and err <= tol and repeat
         iters = 5
         ms = cuda_ms(lambda: kern(*inputs), iters)
         plain_ms = cuda_ms(lambda: plain(*inputs), 2)
         lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
         bms, bby = bound_ms(flops, nbytes)
         row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
-                   max_abs_ref=scale, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bms, bound_by=bby, main_path=main, ok=ok)
+                   max_abs_ref=scale, repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bms, bound_by=bby, main_path=main, ok=ok)
         rows.append(row)
         log(f"kernel {name:20s} {label:28s} err={err:.3e} tol={tol:.3e} "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={bms:.4f} ({bby}) {'OK' if ok else 'FAIL'}")
+            f"bound_ms={bms:.4f} ({bby}) repeat_bitwise={repeat} {'OK' if ok else 'FAIL'}")
         del inputs, out, ref
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
-                                 f"version ({err:.3e} > {tol:.3e})")
+                                 f"version ({err:.3e} > {tol:.3e}) or with itself "
+                                 f"(repeat bitwise: {repeat})")
         s = sums.setdefault((name, main), dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                                bound_ms=0.0, library_ms=0.0,
                                                t_ops=0.0, t_bytes=0.0))

@@ -20,15 +20,15 @@
 // and the 20*C^2 weights once and writing out once; at level 0 (92160 rows,
 // C = 320) that is tensor-core operations.
 //
-// Design (simple and right first), as spatial_tail.cu: the weights (4.1 MB
-// at C = 320) stream from L2 as mma.sync B fragments; (a) temporal_block_chain
-// runs both attention sub-blocks and LN3 on a 32-row tile held in shared
-// memory and writes x and h = LN3(x) in bf16; (b) temporal_block_ff is
-// geglu_body.cuh's GEGLU tile with the residual epilogue. Nothing runs
-// between the two launches. Fixed launch shapes and summation orders, no
-// atomics.
+// Design, as spatial_tail.cu: the weights (4.1 MB at C = 320) stream from
+// L2 as mma.sync B fragments; (a) temporal_block_chain runs both attention
+// sub-blocks and LN3 on a 32-row tile held in shared memory and writes x and
+// h = LN3(x) in bf16; (b), (c) the GEGLU feed-forward as geglu_gemm.cuh's
+// two wgmma products, geglu_in into the (rows, I) inner tensor and
+// geglu_out with the residual epilogue. Nothing runs between the launches.
+// Fixed launch shapes and summation orders, no atomics.
 #include "fused_rows.cuh"
-#include "geglu_body.cuh"
+#include "geglu_gemm.cuh"
 
 using namespace dvdx;
 
@@ -149,35 +149,26 @@ temporal_block_chain(const bf16* __restrict__ x, AttnWeights a1,
   }
 }
 
-template <int NT, int MT>
-__global__ void __launch_bounds__(GEGLU_THREADS)
-temporal_block_ff(const bf16* __restrict__ h, const bf16* __restrict__ w_in,
-                  const bf16* __restrict__ b_in,
-                  const bf16* __restrict__ w_out,
-                  const bf16* __restrict__ b_out, const bf16* __restrict__ xr,
-                  bf16* __restrict__ out, int T, int I) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  geglu_ff_tile<NT, MT, true>(h, w_in, b_in, w_out, b_out, xr, out, T, I,
-                             smem_raw);
-}
+struct temporal_block_ff {};  // names the FF launches in profiles
 
 }  // namespace
 
-// x, out (B, F, N, C) contiguous; x_mid and h (B, F, N, C) scratch. Weights
-// in nn.Linear's (out, in) layout: q/k/v/o (C, C) for both attentions,
-// ffi_w (2I, C) value rows first, ffo_w (C, I); vectors of C (2I for ffi_b).
-// All bf16. C % 64 == 0, C <= 384, heads dividing C, F <= 32, I % 64 == 0.
+// x, out (B, F, N, C) contiguous; x_mid and h (B, F, N, C) scratch, inner
+// (B * F * N, I) scratch. Weights in nn.Linear's (out, in) layout: q/k/v/o
+// (C, C) for both attentions, ffi_w (2I, C) value rows first, ffo_w (C, I);
+// vectors of C (2I for ffi_b). All bf16. C % 64 == 0, C <= 384, heads
+// dividing C, F <= 32, I % 128 == 0.
 extern "C" int dvdx_temporal_block(
     const void* x, const void* ln1_s, const void* ln1_b, const void* q1,
     const void* k1, const void* v1, const void* o1_w, const void* o1_b,
     const void* ln2_s, const void* ln2_b, const void* q2, const void* k2,
     const void* v2, const void* o2_w, const void* o2_b, const void* ln3_s,
     const void* ln3_b, const void* ffi_w, const void* ffi_b,
-    const void* ffo_w, const void* ffo_b, void* x_mid, void* h, void* out,
-    int B, int F, int N, int C, int heads, int I, float scale, float eps,
+    const void* ffo_w, const void* ffo_b, void* x_mid, void* h, void* inner,
+    void* out, int B, int F, int N, int C, int heads, int I, float scale, float eps,
     void* stream) {
   if (C % 64 || C > MAX_DIM || heads < 1 || C % heads || F < 1 ||
-      F > MAX_FRAMES || N < 1 || B < 1 || B > 65535 || I % GEGLU_BI)
+      F > MAX_FRAMES || N < 1 || B < 1 || B > 65535 || I % FF_IN_BN)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto bf = [](const void* p) { return static_cast<const bf16*>(p); };
@@ -198,15 +189,7 @@ extern "C" int dvdx_temporal_block(
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = B * F * N;
-#define DVDX_FF_CASE(nt)                                                   \
-  case nt:                                                                 \
-    return geglu_launch<nt, geglu_fused_mt(nt)>(                           \
-        temporal_block_ff<nt, geglu_fused_mt(nt)>, h, ffi_w, ffi_b, ffo_w, \
-        ffo_b, x_mid, out, rows, I, st);
-  switch (C / 64) {
-    DVDX_FF_CASE(1) DVDX_FF_CASE(2) DVDX_FF_CASE(3)
-    DVDX_FF_CASE(4) DVDX_FF_CASE(5) DVDX_FF_CASE(6)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef DVDX_FF_CASE
+  const int rc = geglu_in_launch<temporal_block_ff>(h, ffi_w, ffi_b, inner, rows, C, I, st);
+  if (rc != 0) return rc;
+  return geglu_out_launch<temporal_block_ff>(inner, ffo_w, ffo_b, x_mid, out, rows, C, I, st);
 }

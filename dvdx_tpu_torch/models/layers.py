@@ -187,8 +187,12 @@ class TemporalConvBlock(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """diffusers FeedForward(activation_fn='geglu'), mult 4, through the
-    fused ``geglu_ff`` kernel: the 8x-width inner tensor never reaches
-    device memory."""
+    ``geglu_ff`` kernels: two wgmma products, the 4x-width inner tensor
+    (value times gelu(gate), bf16) written to device memory by the first and
+    read back by the second. On the H100 those 2*T*I*2 bytes cost a fraction
+    of the products' bound (35 us against 229 us at T = 5760, C = 1280),
+    and the split lets both products run 128-token tiles at every width,
+    where keeping the inner tensor on chip shrank the tile as C grew."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()

@@ -9,8 +9,9 @@ Replaces ``dvdx_tpu/ops/pallas/flash_attention.py``:
   length of its own (the ``_onepass_mh_kernel`` / ``_flash_mh_kernel``
   bodies), with ``pad_head_columns`` / ``pad_head_rows``.
 
-One kernel, ``csrc/flash_attention.cu``, serves both: one block per (64-query
-tile, batch*head), tensor-core QK^T and P.V with an f32 online softmax, Q/K/V
+One kernel, ``csrc/flash_attention.cu``, serves both: one block per (128-query
+tile, batch*head), K/V tiles brought in by TMA through a ring in shared
+memory, QK^T and P.V on wgmma with an f32 online softmax in between, Q/K/V
 and the output addressed by strides, a ragged key tail masked. On Hopper the
 128-lane strips buy nothing, so the mh entry point launches it on strided
 views of each strip's first head_dim lanes; the pad lanes of its output come

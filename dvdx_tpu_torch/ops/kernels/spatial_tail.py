@@ -9,11 +9,13 @@ residual -- in the TPU kernel's rounding order ((x + mm) + b, where the
 unfused branch computes x + (mm + b)), so the fused configuration is a step
 program of its own.
 
-Kernel: ``csrc/spatial_tail.cu``, two launches with nothing between them --
-the row-local chain up to LN3 on 32-row tiles held in shared memory, then the
-GEGLU tile of ``csrc/geglu_body.cuh`` with a residual epilogue; weights
-stream from L2 (they do not fit shared memory). Bounded by tensor-core
-operations at the UNet's level 0; it takes C <= 768 (C % 64 == 0).
+Kernel: ``csrc/spatial_tail.cu``, three launches with nothing between them
+-- the row-local chain up to LN3 on 32-row tiles held in shared memory
+(weights stream from L2: they do not fit shared memory), then the GEGLU
+feed-forward as the two wgmma products of ``csrc/geglu_gemm.cuh``, the second
+with the residual epilogue; the inner tensor goes through a (rows, I)
+scratch. Bounded by tensor-core operations at the UNet's level 0; it takes
+C <= 768 (C % 64 == 0) and I % 128 == 0.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from .. import _build
 from .fused_math import dense, geglu_residual, layer_norm
 
-LAUNCHES = 0  # calls that launched the kernel (its two launches) since the last reset
+LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
 MAX_DIM = 768
 MAX_CONTEXT = 512
 KEYS = ("o1_w", "o1_b", "ln2_s", "ln2_b", "q2_w", "o2_w", "o2_b",
@@ -88,7 +90,7 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     inner = params["ffi_w"].shape[0] // 2
     if (c % 64 or c > MAX_DIM or hd1 % 16 or hd1 > MAX_DIM or hd % 16
             or hd > MAX_DIM or hd % heads or not 1 <= t <= MAX_CONTEXT
-            or inner % 64 or o1.shape[:2] != (n, s)
+            or inner % 128 or o1.shape[:2] != (n, s)
             or ctx_k.shape != (n, t, hd) or ctx_v.shape != (n, t, hd)):
         raise ValueError(f"fused_spatial_tail: unsupported shapes x {tuple(x.shape)}, "
                          f"o1 {tuple(o1.shape)}, ctx {tuple(ctx_k.shape)}")
@@ -99,14 +101,15 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     if any(a.data_ptr() % 16 for a in ops):
         raise ValueError("fused_spatial_tail: operands must be 16-byte aligned")
     x2, h = torch.empty_like(ops[0]), torch.empty_like(ops[0])
+    ff_inner = torch.empty((n * s, inner), dtype=x2.dtype, device=x2.device)
     out = torch.empty_like(ops[0])
     lib = _build.library("spatial_tail")
     fn = lib.dvdx_spatial_tail
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    rc = fn(*(_build.ptr(a) for a in ops + [x2, h, out]), n * s, s, c, hd1, hd,
+    rc = fn(*(_build.ptr(a) for a in ops + [x2, h, ff_inner, out]), n * s, s, c, hd1, hd,
             t, heads, inner, float(_scale(params, heads, scale)), float(eps),
             _build.stream(x.device))
     _build.check(lib, rc, "fused_spatial_tail")

@@ -9,12 +9,14 @@ order: x + (mm + b) after each attention, the unnormalised probabilities
 exp(s - max) rounded to bf16 before P.V and the sum divided after, and the FF
 output bias added in float32 before its one rounding.
 
-Kernel: ``csrc/temporal_block.cu``, two launches with nothing between them --
-both attention sub-blocks and LN3 on 32-row tiles (P = 32 / F positions x F
-frames, gathered by the frame stride; the F x F attention runs per
-position), then the GEGLU tile of ``csrc/geglu_body.cuh`` with a residual
-epilogue. Bounded by tensor-core operations at the UNet's level 0; it takes
-C <= 384 (C % 64 == 0) and F <= 32.
+Kernel: ``csrc/temporal_block.cu``, three launches with nothing between
+them -- both attention sub-blocks and LN3 on 32-row tiles (P = 32 / F
+positions x F frames, gathered by the frame stride; the F x F attention runs
+per position), then the GEGLU feed-forward as the two wgmma products of
+``csrc/geglu_gemm.cuh``, the second with the residual epilogue; the inner
+tensor goes through a (rows, I) scratch. Bounded by tensor-core operations at
+the UNet's level 0; it takes C <= 384 (C % 64 == 0), F <= 32 and
+I % 128 == 0.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from .. import _build
 from .fused_math import dense, geglu_residual, layer_norm
 
-LAUNCHES = 0  # calls that launched the kernel (its two launches) since the last reset
+LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
 MAX_DIM = 384
 MAX_FRAMES = 32
 KEYS = ("ln1_s", "ln1_b", "q1", "k1", "v1", "o1_w", "o1_b",
@@ -80,7 +82,7 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         raise ValueError("fused_temporal_block: the kernel takes bfloat16")
     b, f, n, c = x.shape
     inner = params["ffi_w"].shape[0] // 2
-    if c % 64 or c > MAX_DIM or c % heads or f > MAX_FRAMES or inner % 64 \
+    if c % 64 or c > MAX_DIM or c % heads or f > MAX_FRAMES or inner % 128 \
             or params["q1"].shape != (c, c):
         raise ValueError(f"fused_temporal_block: unsupported shape {tuple(x.shape)} "
                          f"with {heads} heads")
@@ -91,15 +93,16 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     if any(a.data_ptr() % 16 for a in ops):
         raise ValueError("fused_temporal_block: operands must be 16-byte aligned")
     x_mid, h = torch.empty_like(ops[0]), torch.empty_like(ops[0])
+    ff_inner = torch.empty((b * f * n, inner), dtype=x_mid.dtype, device=x_mid.device)
     out = torch.empty_like(ops[0])
     lib = _build.library("temporal_block")
     fn = lib.dvdx_temporal_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     scale = (c // heads) ** -0.5 if scale is None else scale
-    rc = fn(*(_build.ptr(a) for a in ops + [x_mid, h, out]), b, f, n, c, heads,
+    rc = fn(*(_build.ptr(a) for a in ops + [x_mid, h, ff_inner, out]), b, f, n, c, heads,
             inner, float(scale), float(eps), _build.stream(x.device))
     _build.check(lib, rc, "fused_temporal_block")
     global LAUNCHES

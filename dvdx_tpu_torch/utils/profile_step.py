@@ -9,8 +9,10 @@ classifier-free-guided DDIM steps and one frame's VAE decode with
 ``torch.profiler``. Device kernels are grouped into the port's kernels,
 matrix products, convolutions and everything else; the idle share is the
 part of the traced window in which no kernel ran. The fused spatial tail and
-temporal block are grouped as their two launches each (chain and FF). Needs a CUDA card; writes
-the breakdown to ``chiprun_out/profile_step.json``.
+temporal block are grouped as their three launches each (the chain and the
+two GEGLU products, whose kernels carry the library's name in their template
+arguments). Needs a CUDA card; writes the breakdown to
+``chiprun_out/profile_step.json``.
 """
 
 from __future__ import annotations
@@ -26,13 +28,16 @@ import torch
 STEPS = 2
 OUT = os.path.join("chiprun_out", "profile_step.json")
 
-# kernel-name fragments -> group (first match wins)
+# kernel-name fragments -> group (first match wins): the GEGLU products of
+# the fused kernels (geglu_stage<spatial_tail_ff, ...>, geglu_stage<
+# temporal_block_ff, ...>) land in their fused kernel's group, geglu_ff's own
+# (geglu_stage<geglu_ff_site, ...>) in geglu_ff's
 GROUPS = (
     ("fused_spatial_tail", ("spatial_tail_",)),
     ("fused_temporal_block", ("temporal_block_",)),
     ("flash_attention", ("flash_fwd",)),
     ("temporal_attention", ("temporal_attn",)),
-    ("geglu_ff", ("geglu_ff_kernel",)),
+    ("geglu_ff", ("geglu_ff_", "geglu_stage")),
     ("group_norm_act", ("gn_partial", "gn_finalize", "gn_apply")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),

@@ -44,7 +44,11 @@ def _check(got, want):
     assert err <= 4 * 2 ** -8 * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("b,s,h,d", [(2, 600, 5, 64), (1, 77, 2, 40), (1, 130, 3, 128)])
+# S = 2880 (level 0) and 777 leave ragged query and key tiles; D = 40 and 128
+# take the one-box and two-box paths with zero-filled pad lanes
+@pytest.mark.parametrize("b,s,h,d", [(2, 600, 5, 64), (1, 77, 2, 40), (1, 130, 3, 128),
+                                     (1, 2880, 2, 64), (2, 777, 3, 40), (1, 777, 2, 128),
+                                     (1, 2880, 1, 128)])
 def test_flash_kernel_matches_plain(cuda, b, s, h, d):
     q, k, v = (_randn((b, s, h, d), i, cuda).bfloat16() for i in range(3))
     before = tflash.LAUNCHES
@@ -73,18 +77,58 @@ def test_temporal_kernel_matches_plain(cuda, layout, f, n, heads, d):
     _check(got, want)
 
 
-@pytest.mark.parametrize("t,c", [(300, 320), (100, 640), (77, 1280)])
-def test_geglu_kernel_matches_plain(cuda, t, c):
+def _geglu_args(t, c, device):
     inner = 4 * c
-    args = [_randn((t, c), 0, cuda), _randn((2 * inner, c), 1, cuda, c ** -0.5),
-            _randn((2 * inner,), 2, cuda, 0.1), _randn((c, inner), 3, cuda, inner ** -0.5),
-            _randn((c,), 4, cuda, 0.1)]
-    args = [a.bfloat16() for a in args]
+    args = [_randn((t, c), 0, device), _randn((2 * inner, c), 1, device, c ** -0.5),
+            _randn((2 * inner,), 2, device, 0.1), _randn((c, inner), 3, device, inner ** -0.5),
+            _randn((c,), 4, device, 0.1)]
+    return [a.bfloat16() for a in args]
+
+
+# T = 77, 300, 5761: one partial 128-row tile, a ragged last tile, many
+# tiles; C = 320 takes 160-column output tiles, 640 and 1280 128-column ones
+@pytest.mark.parametrize("c", [320, 640, 1280])
+@pytest.mark.parametrize("t", [77, 300, 5761])
+def test_geglu_kernel_matches_plain(cuda, t, c):
+    args = _geglu_args(t, c, cuda)
     before = tff.LAUNCHES
     got = tff.geglu_ff(*args)
     torch.cuda.synchronize()
     assert tff.LAUNCHES == before + 1
     _check(got, tff.geglu_ff_plain(*args))
+
+
+@pytest.mark.parametrize("t,c", [(300, 320), (77, 1280)])
+def test_geglu_stage_kernels_match_plain(cuda, t, c):
+    """geglu_in and geglu_out on their own, the latter with and without the
+    residual epilogue the fused kernels use."""
+    x, w_in, b_in, w_out, b_out = _geglu_args(t, c, cuda)
+    h = tff.geglu_in(x, w_in, b_in)
+    torch.cuda.synchronize()
+    _check(h, tff.geglu_in_plain(x, w_in, b_in))
+    resid = _randn((t, c), 5, cuda).bfloat16()
+    for r in (None, resid):
+        _check(tff.geglu_out(h, w_out, b_out, r), tff.geglu_out_plain(h, w_out, b_out, r))
+
+
+def test_redesigned_kernels_repeat_bitwise(cuda):
+    """Flash attention (both head-dim paths, ragged tiles, the mh entry point
+    with its own key length) and the GEGLU pair give the same bits on the
+    same inputs: the tile shapes depend on the shapes alone, and nothing sums
+    across blocks."""
+    runs = []
+    for d in (64, 128):
+        q, k, v = (_randn((2, 777, 3, d), i, cuda).bfloat16() for i in range(3))
+        runs.append(lambda q=q, k=k, v=v: tflash.flash_attention(q, k, v))
+    strips = [_randn((2, s, 2 * 128), i, cuda).bfloat16() for i, s in enumerate((300, 77, 77))]
+    runs.append(lambda: tflash.flash_attention_mh(*strips, heads=2, head_dim=128))
+    args = _geglu_args(5761, 320, cuda)
+    runs.append(lambda: tff.geglu_ff(*args))
+    for run in runs:
+        first = run()
+        second = run()
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.parametrize("n,l,c,act,with_bias", [
@@ -120,7 +164,8 @@ def _params(keys, shapes, seed, device):
     return out
 
 
-@pytest.mark.parametrize("b,sq,sk,heads,d", [(2, 600, 600, 2, 64), (2, 300, 77, 3, 40)])
+@pytest.mark.parametrize("b,sq,sk,heads,d", [(2, 600, 600, 2, 64), (2, 300, 77, 3, 40),
+                                             (1, 777, 2880, 2, 64), (1, 2880, 777, 2, 128)])
 def test_flash_mh_kernel_matches_plain(cuda, b, sq, sk, heads, d):
     """Head strips of 128 lanes, zero pad lanes in; the pad lanes out are
     exactly zero."""
@@ -133,7 +178,8 @@ def test_flash_mh_kernel_matches_plain(cuda, b, sq, sk, heads, d):
     got = tflash.flash_attention_mh(q, k, v, heads=heads, head_dim=d)
     torch.cuda.synchronize()
     assert tflash.MH_LAUNCHES == before + 1
-    assert got.view(b, sq, heads, 128)[..., d:].abs().max().item() == 0.0
+    if d < 128:
+        assert got.view(b, sq, heads, 128)[..., d:].abs().max().item() == 0.0
     _check(got, tflash.flash_attention_mh_plain(q, k, v, heads=heads, head_dim=d))
 
 

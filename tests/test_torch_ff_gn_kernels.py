@@ -22,6 +22,7 @@ from dvdx_tpu.ops import groupnorm as jgn
 from dvdx_tpu.ops.pallas import geglu_ff as jff
 from dvdx_tpu_torch.ops import groupnorm as tgn
 from dvdx_tpu_torch.ops.kernels import geglu_ff as tff
+from dvdx_tpu_torch.ops.kernels.fused_math import geglu_residual
 
 torch.set_num_threads(2)
 
@@ -87,6 +88,63 @@ def test_geglu_plain_matches_pallas_and_unfused(dtype, t, c):
     got = tff.geglu_ff(*_ff_torch(params, dtype))
     _check(got, jff.geglu_ff(*jargs, interpret=True), dtype)
     _check(got, _ff_unfused(*jargs), dtype)
+
+
+def _geglu_one_expression(x, w_in, b_in, w_out, b_out):
+    """The kernels' rounding points written as one expression: value and
+    gate rounded, the gated product rounded, the output bias added in f32
+    before the one rounding."""
+    dt = x.dtype
+    inner = w_in.shape[0] // 2
+    hg = x.float() @ w_in.float().t() + b_in.float()
+    val, gate = hg[:, :inner].to(dt).float(), hg[:, inner:].to(dt).float()
+    h = (val * (0.5 * gate * (1.0 + torch.erf(gate * 2 ** -0.5)))).to(dt)
+    return (h.float() @ w_out.float().t() + b_out.float()).to(dt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,c", [(50, 32), (130, 64)])
+def test_geglu_stage_plains_compose_to_geglu_ff(dtype, t, c):
+    """The plain versions of the two kernel stages (geglu_in, then geglu_out)
+    compose bit for bit to geglu_ff_plain and to the one-expression form,
+    match the reference's Pallas kernel, and geglu_out's residual epilogue
+    is bit for bit the fused kernels' plain GEGLU residual."""
+    params = _ff_params(t, c, seed=t + 1)
+    x, w_in, b_in, w_out, b_out = _ff_torch(params, dtype)
+    h = tff.geglu_in(x, w_in, b_in)  # CPU tensors: the plain stage
+    assert h.shape == (t, 4 * c) and h.dtype == x.dtype
+    assert torch.equal(h, tff.geglu_in_plain(x, w_in, b_in))
+    got = tff.geglu_out(h, w_out, b_out)
+    assert torch.equal(got, tff.geglu_ff_plain(x, w_in, b_in, w_out, b_out))
+    assert torch.equal(got, _geglu_one_expression(x, w_in, b_in, w_out, b_out))
+    jargs = [jnp.asarray(a, getattr(jnp, dtype)) for a in params]
+    _check(got, jff.geglu_ff(*jargs, interpret=True), dtype)
+    resid = torch.from_numpy(np.random.default_rng(t).normal(size=(t, c)).astype(np.float32))
+    resid = resid.to(x.dtype)
+    assert torch.equal(tff.geglu_out_plain(h, w_out, b_out, resid),
+                       geglu_residual(x, resid, w_in, b_in, w_out, b_out))
+
+
+@pytest.mark.parametrize("fn,c,inner,msg", [
+    ("geglu_ff", 320, 1280, "unsupported device"),
+    ("geglu_ff", 96, 384, "unsupported width"),
+    ("geglu_ff", 64, 192, "unsupported width"),  # inner not a multiple of 128
+    ("geglu_in", 64, 192, "unsupported width"),
+    ("geglu_out", 96, 384, "unsupported width"),
+    ("geglu_out", 320, 1280, "unsupported device"),
+])
+def test_geglu_wrappers_refuse_what_the_kernels_do_not_take(fn, c, inner, msg):
+    """Off the CPU the wrappers launch the kernels or raise: shapes the
+    kernels do not tile (C % 64, I % 128 for geglu_in) and devices that are
+    neither the CPU nor a CUDA card are refused before any launch."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    w_in, b_in, w_out, b_out = meta(2 * inner, c), meta(2 * inner), meta(c, inner), meta(c)
+    args = {"geglu_ff": (meta(8, c), w_in, b_in, w_out, b_out),
+            "geglu_in": (meta(8, c), w_in, b_in),
+            "geglu_out": (meta(8, inner), w_out, b_out)}[fn]
+    with pytest.raises(ValueError, match=msg):
+        getattr(tff, fn)(*args)
 
 
 # --- GroupNorm + pre-bias + SiLU (row 9) -------------------------------------
