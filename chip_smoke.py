@@ -10,8 +10,11 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the main path's full-width shapes (and a few off it: the fused tail at
      C = 640, flash_attention_mh, GEGLU's two launches on their own at
-     level 2), with kernel / plain / library times (CUDA events), the
-     roofline bound, and a second call that must give the same bits;
+     level 2, GroupNorm with a level-0 pre-bias and with ragged chunks, the
+     fused block at a ragged N and at F = 24), with kernel / plain / library
+     times (CUDA events, the launches queued behind a device spin), the
+     roofline bound (the fused block's also split into its chain and FF
+     launches), and a second call that must give the same bits;
   4. the reference check: one UNet call of a small model of the same
      structure on the card (kernels) and on the CPU (plain versions) from
      the same weights and inputs, every kernel of the model path launched;
@@ -53,10 +56,14 @@ def log(*args):
 
 
 def cuda_ms(fn, iters: int) -> float:
+    """Device milliseconds per call: the launches are queued while the
+    device spins for about 20 ms, so a call whose host side is slower than
+    its kernels (small shapes) is timed by its kernels, not by the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -109,8 +116,23 @@ def spatial_tail_cost(rows, c, hd1, hd, t, n):
     return flops, (rows * (2 * c + hd1) + weights + 2 * n * t * hd) * 2.0
 
 
+def temporal_chain_cost(rows, f, c):
+    # the chain launch: eight C x C products and two attentions (S and P.V,
+    # 2 F C multiply-adds a row each); x and 8 C^2 weights and 8 LN / bias
+    # vectors read, x_mid and h written
+    return 2.0 * rows * (8 * c * c + 4 * f * c), (3 * rows * c + 8 * c * c + 8 * c) * 2.0
+
+
+def temporal_ff_cost(rows, c):
+    # the two GEGLU launches: h read, the (rows, 4C) inner tensor written and
+    # read back, x_mid read, out written
+    flops, _ = geglu_cost(rows, c, 4 * c)
+    return flops, (2 * rows * c + 2 * rows * 4 * c + rows * c + 12 * c * c + 9 * c) * 2.0
+
+
 def temporal_block_cost(rows, f, c):
-    flops = 2.0 * rows * (8 * c * c + 2 * f * c + 12 * c * c)
+    # the whole block as one function: x read, out written, weights once
+    flops = 2.0 * rows * (8 * c * c + 4 * f * c + 12 * c * c)
     return flops, (2 * rows * c + 20 * c * c + 15 * c) * 2.0
 
 
@@ -218,6 +240,8 @@ def kernel_cases():
             ("resnet_l1", (32, 720, 640, "silu", False, 1e-5, 2.0, 0.5)),
             ("resnet_l2", (32, 180, 1280, "silu", True, 1e-5, 2.0, 0.5)),
             ("resnet_l3_concat", (32, 45, 2560, "silu", False, 1e-5, 2.0, 0.5)),
+            ("temporal_l0_bias", (2, 46080, 320, "none", True, 1e-6, 2.0, 0.5)),
+            ("ragged_chunks", (3, 1000, 320, "silu", True, 1e-5, 2.0, 0.5)),
             ("vae_mid", (1, 2880, 512, "silu", False, 1e-6, 1.0, 3.0)),
             ("vae_mid_attn", (1, 2880, 512, "none", False, 1e-6, 1.0, 3.0)),
             ("vae_up_80x144", (1, 11520, 512, "silu", False, 1e-6, 1.0, 3.0)),
@@ -244,7 +268,7 @@ def kernel_cases():
             y = F.group_norm(xb.transpose(1, 2), 32, w.to(x.dtype), b_.to(x.dtype), eps)
             return F.silu(y) if act == "silu" else y
         cases.append(("group_norm_act", label, mk, kern, plain, lib,
-                      gn_cost(n, l, c, bias), True))
+                      gn_cost(n, l, c, bias), label not in GN_OFF_PATH))
 
     def sdpa_mh(heads, d):
         def fn(q, k, v):
@@ -295,8 +319,14 @@ def kernel_cases():
                       lambda *a, h=heads: st.fused_spatial_tail_plain(*a, heads=h), None,
                       spatial_tail_cost(n * s_, c, c, c, t, n), main))
 
+    # the main path's two blocks, then off it: N not a multiple of the 4
+    # positions a tile, and F = 24 (the XL geometry's frames: 2 positions a
+    # tile, keys padded to 32) with both head layouts
     for label, (b, f, n, heads) in (("level0", (2, 16, 2880, 5)),
-                                    ("transformer_in_d40", (2, 16, 2880, 8))):
+                                    ("transformer_in_d40", (2, 16, 2880, 8)),
+                                    ("f16_ragged_n", (2, 16, 2881, 5)),
+                                    ("f24_5x64", (2, 24, 2881, 5)),
+                                    ("f24_8x40", (2, 24, 2881, 8))):
         c = 320
         shapes = {k: (c,) for k in tb.KEYS}
         shapes.update({k: (c, c) for k in ("q1", "k1", "v1", "o1_w", "q2", "k2", "v2", "o2_w")})
@@ -307,8 +337,17 @@ def kernel_cases():
         cases.append(("fused_temporal_block", label, mk,
                       lambda x, p, h=heads: tb.fused_temporal_block(x, p, heads=h),
                       lambda x, p, h=heads: tb.fused_temporal_block_plain(x, p, heads=h), None,
-                      temporal_block_cost(b * f * n, f, c), True))
+                      temporal_block_cost(b * f * n, f, c), label in ("level0",
+                                                                      "transformer_in_d40")))
+        BOUND_PARTS[("fused_temporal_block", label)] = {
+            "chain": bound_ms(*temporal_chain_cost(b * f * n, f, c))[0],
+            "ff": bound_ms(*temporal_ff_cost(b * f * n, c))[0]}
     return cases
+
+
+GN_OFF_PATH = ("temporal_l0_bias", "ragged_chunks")
+# (kernel, shape label) -> the bound of each launch group of a fused kernel
+BOUND_PARTS = {}
 
 
 KERNEL_META = {
@@ -370,14 +409,17 @@ def check_kernels():
         plain_ms = cuda_ms(lambda: plain(*inputs), 2)
         lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
         bms, bby = bound_ms(flops, nbytes)
+        parts = BOUND_PARTS.get((name, label))
         row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
                    max_abs_ref=scale, repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bms, bound_by=bby, main_path=main, ok=ok)
+                   library_ms=lib_ms, bound_ms=bms, bound_by=bby, main_path=main, ok=ok,
+                   bound_ms_parts=parts)
         rows.append(row)
         log(f"kernel {name:20s} {label:28s} err={err:.3e} tol={tol:.3e} "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={bms:.4f} ({bby}) repeat_bitwise={repeat} {'OK' if ok else 'FAIL'}")
+            f"bound_ms={bms:.4f} ({bby}) repeat_bitwise={repeat} {'OK' if ok else 'FAIL'}"
+            + ("" if parts is None else " bound_ms_parts=" + json.dumps(parts)))
         del inputs, out, ref
         torch.cuda.empty_cache()
         if not ok:
@@ -494,6 +536,7 @@ def launch_bounds(module, run):
     from dvdx_tpu_torch.ops.attention import wants_flash
 
     acc = {k: [0, 0.0] for k in MODEL_PATH}
+    chain_ff = [0.0, 0.0]  # the fused block's bound split: chain launch, FF launches
 
     def add(name, cost):
         acc[name][0] += 1
@@ -536,8 +579,10 @@ def launch_bounds(module, run):
     def on_temporal_block(mod, args, kwargs, out):
         x = args[0]
         if mod.fused(x):
-            add("fused_temporal_block",
-                temporal_block_cost(x[..., 0].numel(), x.shape[1], x.shape[-1]))
+            rows, f, c = x[..., 0].numel(), x.shape[1], x.shape[-1]
+            add("fused_temporal_block", temporal_block_cost(rows, f, c))
+            chain_ff[0] += bound_ms(*temporal_chain_cost(rows, f, c))[0]
+            chain_ff[1] += bound_ms(*temporal_ff_cost(rows, c))[0]
 
     hooks = ((layers.GroupNorm, on_gn), (layers.GEGLUFeedForward, on_ff),
              (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn),
@@ -555,7 +600,9 @@ def launch_bounds(module, run):
         if after[k] - before[k] != n:
             raise AssertionError(f"{k}: {after[k] - before[k]} launches, "
                                  f"{n} seen by the bound's hooks")
-    return {k: {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
+    out = {k: {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
+    out["fused_temporal_block"].update(bound_ms_chain=chain_ff[0], bound_ms_ff=chain_ff[1])
+    return out
 
 
 def run_path(steps_a: int):
@@ -738,6 +785,13 @@ def main():
     with open(os.path.join(OUT_DIR, "build_ptxas.txt"), "w") as f:
         for k, v in build.items():
             f.write(f"==== {k}\n{v['ptxas']}\n")
+    # registers, spills and shared memory of the redesigned kernels
+    for k, names in (("groupnorm", ("gn_fused",)), ("temporal_block", ("temporal_block_chain",))):
+        lines = build[k]["ptxas"].splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(n in line for n in names):
+                log(f"ptxas {k}: " + " | ".join(x.split("ptxas info    :")[-1].strip()
+                                               for x in lines[i:i + 4]))
 
     summary, rows = check_kernels()
     with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:

@@ -1,6 +1,7 @@
-// Row-tile building blocks of the fused spatial tail and temporal block
-// (spatial_tail.cu, temporal_block.cu): a block of FUSED_THREADS (8 warps)
-// owns FUSED_ROWS token rows held in shared memory as bf16, multiplies them
+// Row-tile building blocks of the fused spatial tail (spatial_tail.cu; the
+// residual epilogues below also serve temporal_block.cu): a block of
+// FUSED_THREADS (8 warps) owns FUSED_ROWS token rows held in shared memory as
+// bf16, multiplies them
 // by weights streamed from global memory (L2-resident; a weight set of a few
 // MB does not fit the 227 KB of shared memory), and normalises whole rows,
 // each of which the block holds in full.

@@ -10,23 +10,57 @@
 //
 // Replaces dvdx_tpu/ops/pallas/temporal_block.py:fused_temporal_block
 // (_block_kernel), with its rounding order. The TPU kernel packs 8 positions
-// into 128-row MXU tiles with a checkerboard mask (_checkerboard_bias,
-// _packed_heads_attend); that packing exists only for the MXU. Here a block
-// owns P = 32 / F positions x F frames, gathered from the frame-major layout
-// by the frame stride, and the F x F attention runs per position, as
-// temporal_attention.cu does. Positions past N are neither read nor written.
+// into 128-row MXU tiles with a checkerboard mask; that packing exists only
+// for the MXU.
 //
-// Bound on the H100: 2*rows*(8*C^2 + 2*F*C + 12*C^2) flops against reading x
-// and the 20*C^2 weights once and writing out once; at level 0 (92160 rows,
-// C = 320) that is tensor-core operations.
+// Bound on the H100: per row 2 * (8 C^2 + 4 F C) flops for the chain (eight
+// C x C products, two attentions' S and P.V) and 2 * 12 C^2 for the FF,
+// against reading x and the 20 C^2 weights once and writing out once; at
+// level 0 (92160 rows, C = 320) that is tensor-core operations. Every
+// 64-row tile multiplies by all eight C x C weights (1.6 MB at C = 320, 2.3
+// GB from L2 per call), and its LayerNorms and attentions run between the
+// products, so the chain is far from that bound: PERF.md gives where its
+// time goes (utils/kernel_probe).
 //
-// Design, as spatial_tail.cu: the weights (4.1 MB at C = 320) stream from
-// L2 as mma.sync B fragments; (a) temporal_block_chain runs both attention
-// sub-blocks and LN3 on a 32-row tile held in shared memory and writes x and
-// h = LN3(x) in bf16; (b), (c) the GEGLU feed-forward as geglu_gemm.cuh's
-// two wgmma products, geglu_in into the (rows, I) inner tensor and
-// geglu_out with the residual epilogue. Nothing runs between the launches.
-// Fixed launch shapes and summation orders, no atomics.
+// Design of the chain, temporal_block_chain (one CTA per 64-row tile, 288
+// threads -- two consumer warpgroups and a producer warp -- one CTA per SM):
+//   * tile: P positions x F frames (ChainPlan in ops/kernels/temporal_block
+//     .py: P = 64 / F, fewer where the last position's 16-row-padded frames
+//     would pass row 64), gathered by the frame stride; tile row r is frame
+//     r % F of position n0 + r / F. Rows past P * F and positions past N are
+//     zero, computed and never stored.
+//   * x lives in registers for the whole chain, in the wgmma accumulator
+//     layout of the out-projection: warpgroup w (of 2) holds columns
+//     [w C/2, (w+1) C/2) of all 64 rows, so each residual add is register
+//     local. LayerNorm reduces a row over the 4 lanes of a quad and the two
+//     warpgroups (one exchange through shared memory). x comes in, and x
+//     and h go out, through the shared buffers by 16-byte accesses.
+//   * the eight C x C products run on wgmma m64 n(C/2) k16: A, the LN output
+//     (or the attention output), from a 128-byte-swizzled shared buffer;
+//     B, the weight, streamed by the producer warp's one thread through a
+//     ring of half-width 64-deep slices (C/2 x 64, 20 KB at C = 320) with
+//     TMA, 1.6 MB from L2 per tile. (Sharing each slice between the two
+//     CTAs of a cluster by TMA multicast halves that traffic but measured no
+//     faster on an H100, 0.777 against 0.763 ms a call at level 0: the
+//     slices come from L2, and the pair then waits for its slower CTA.) The
+//     stage count is even, so each stage always feeds the same warpgroup
+//     (slice s goes to stage s % stages and warpgroup s % 2), which then
+//     consumes its fills in order, as a parity wait needs.
+//     Products run in the order k, v, q, o of each sub-block, so q, the
+//     last one reading the LN output, overwrites it, and k and v take two
+//     more buffers: 3 x 40 KB plus 4 ring stages at C = 320.
+//   * the F x F attention on the tensor cores (mma.sync m16n8k16, fragments
+//     by ldmatrix): one warp per (position, head, 16 query rows); S = q k^T
+//     with the head width (a multiple of 8) zero-padded to a multiple of 16
+//     and the frames to a multiple of 16 (keys past F masked at -inf),
+//     softmax in registers, P straight from the S fragments as the A
+//     operand of P.V; the output overwrites q in place (each warp reads its
+//     own query rows before writing them).
+//   * LN3's h and the final x go to device memory for the two GEGLU
+//     products of geglu_gemm.cuh (geglu_in into the (rows, I) inner tensor,
+//     geglu_out with the residual epilogue). Nothing runs between launches.
+// Determinism: launch shape and summation orders depend on the shapes only;
+// no atomics, no sum across blocks.
 #include "fused_rows.cuh"
 #include "geglu_gemm.cuh"
 
@@ -35,118 +69,470 @@ using namespace dvdx;
 namespace {
 
 constexpr int MAX_DIM = 384;
-constexpr int MAX_FRAMES = 32;
+constexpr int MAX_FRAMES = 64;
+constexpr int TILE = 64;             // rows per tile: one wgmma m64
+constexpr int CHAIN_THREADS = 288;   // warpgroups 0-1 consume, warp 8 loads
+constexpr int MAX_STAGES = 6;
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may use
+constexpr int CONSUMERS = 256;
+constexpr int BAR_CONSUMERS = 1;     // named barrier of the two consumer warpgroups
 
-struct AttnWeights {
-  const bf16 *ln_s, *ln_b, *wq, *wk, *wv, *wo, *bo;
+// the eight C x C weights in the order the chain multiplies by them
+struct ChainMaps {
+  CUtensorMap w[8];  // k1 v1 q1 o1 k2 v2 q2 o2
 };
 
-// One attention sub-block on the tile: x += (bf16(Attn(LN(x)) Wo^T) + bo).
-__device__ __forceinline__ void attention_sub_block(
-    const AttnWeights& w, bf16* xs, bf16* hs, bf16* qs, bf16* ks, bf16* vs,
-    float* pw, int ld, int C, int F, int P, int heads, float scale,
-    float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  rows_layernorm(xs, ld, hs, ld, C, FUSED_ROWS, w.ln_s, w.ln_b, eps);
-  __syncthreads();
-  rows_gemm(hs, ld, w.wq, C, C, [&](int r, int c, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(qs + r * ld + c) = pack_bf16(v0, v1);
-  });
-  rows_gemm(hs, ld, w.wk, C, C, [&](int r, int c, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(ks + r * ld + c) = pack_bf16(v0, v1);
-  });
-  rows_gemm(hs, ld, w.wv, C, C, [&](int r, int c, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(vs + r * ld + c) = pack_bf16(v0, v1);
-  });
-  __syncthreads();
+struct ChainVecs {
+  const bf16* ln_s[3];
+  const bf16* ln_b[3];
+  const bf16* bo[2];
+};
 
-  // one warp per (position, head, query frame), lanes over key frames; the
-  // output goes to hs, free once the projections are done
-  const int d = C / heads;
-  float* p = pw + warp * MAX_FRAMES;
-  for (int item = warp; item < P * heads * F; item += FUSED_THREADS / 32) {
-    const int fi = item % F, h = (item / F) % heads, pos = item / (F * heads);
-    const bf16* qr = qs + (pos * F + fi) * ld + h * d;
-    float s = -INFINITY;
-    if (lane < F) {
-      const bf16* kr = ks + (pos * F + lane) * ld + h * d;
-      float acc = 0.f;
-      for (int i = 0; i < d; ++i)
-        acc = fmaf(__bfloat162float(qr[i]), __bfloat162float(kr[i]), acc);
-      s = acc * scale;
-    }
-    const float m = warp_max(s);
-    const float e = lane < F ? expf(s - m) : 0.f;
-    const float l = warp_sum(e);
-    p[lane] = bf16_round(e);
-    __syncwarp();
-    for (int i = lane; i < d; i += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < F; ++j)
-        acc = fmaf(p[j], __bfloat162float(vs[(pos * F + j) * ld + h * d + i]),
-                   acc);
-      hs[(pos * F + fi) * ld + h * d + i] = __float2bfloat16(acc / l);
-    }
-    __syncwarp();  // p is rewritten by the warp's next item
-  }
-  __syncthreads();
-  rows_gemm(hs, ld, w.wo, C, C, [&](int r, int c, float v0, float v1) {
-    bf16* x = xs + r * ld + c;
-    x[0] = __float2bfloat16(bias_then_resid(__bfloat162float(x[0]), v0,
-                                            __bfloat162float(w.bo[c])));
-    x[1] = __float2bfloat16(bias_then_resid(__bfloat162float(x[1]), v1,
-                                            __bfloat162float(w.bo[c + 1])));
-  });
-  __syncthreads();
+struct ChainShape {
+  int F, N, heads, P, tiles, stages;
+  float scale, eps;
+};
+
+__host__ __device__ constexpr int chain_stage_bytes(int C) { return C / 2 * 128; }
+
+constexpr int chain_smem_bytes(int C, int stages) {
+  return 1024 + 3 * TILE * C * 2 + stages * chain_stage_bytes(C) + 2 * MAX_STAGES * 8 +
+         2 * TILE * 2 * 4;
 }
 
-// Tile row r = pos * F + f is (b, f, n0 + pos); rows past P * F and
-// positions past N stay zero and are never written.
-__global__ void __launch_bounds__(FUSED_THREADS)
-temporal_block_chain(const bf16* __restrict__ x, AttnWeights a1,
-                     AttnWeights a2, const bf16* __restrict__ ln3_s,
-                     const bf16* __restrict__ ln3_b, bf16* __restrict__ x_out,
-                     bf16* __restrict__ h_out, int F, int N, int C, int heads,
-                     float scale, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = C + 8;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* hs = xs + FUSED_ROWS * ld;
-  bf16* qs = hs + FUSED_ROWS * ld;
-  bf16* ks = qs + FUSED_ROWS * ld;
-  bf16* vs = ks + FUSED_ROWS * ld;
-  float* pw = reinterpret_cast<float*>(vs + FUSED_ROWS * ld);  // 8 x 32
+// Byte offset of (row r, column c) in a 64 x C buffer laid out as TMA's
+// 128-byte swizzle writes it: 64-column boxes of 64 rows x 128 bytes, the
+// 16-byte chunk j of row r at j ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 6) * (TILE * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
 
-  const int P = FUSED_ROWS / F;
-  const int n0 = blockIdx.x * P, b = blockIdx.y;
-  const int valid_pos = min(P, N - n0);
-  auto row_off = [&](int r) {
-    return ((long long)(b * F + r % F) * N + n0 + r / F) * C;
+__device__ __forceinline__ float bf_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// What a consumer thread knows of its place: warpgroup wg owns columns
+// [wg C/2, (wg+1) C/2); the thread holds rows r0 and r0 + 8 at columns
+// cb + 8 j, cb + 8 j + 1.
+struct Consumer {
+  int wg, warp, lane, r0, cb;
+  unsigned char *hs, *ks, *vs, *ring;
+  uint64_t *full, *empty;
+  float* red;
+  int stages;
+};
+
+__device__ __forceinline__ void consumers_sync() { named_bar_sync(BAR_CONSUMERS, CONSUMERS); }
+
+// acc = A (hs, 64 x C) * W_m^T for this warpgroup's columns; weight slices
+// s = (m * KS + kb) * 2 + wg of the ring. A slice is released once the next
+// slice's products are issued and its own are done, so two products are in
+// flight (releasing each slice as soon as its products were done measured
+// slower, utils/kernel_probe); with one stage per warpgroup (C = 384) it
+// must be released before its refill is awaited.
+template <int C>
+__device__ __forceinline__ void chain_product(const Consumer& t, int m, float (&acc)[C / 4]) {
+  constexpr int KS = C / 64;
+#pragma unroll
+  for (int i = 0; i < C / 4; ++i) acc[i] = 0.f;
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (t.lane == 0)
+      mbar_arrive(&t.empty[stage]);
   };
-  // valid rows are not contiguous in r when positions run out mid-tile, so
-  // load row by row through the position check
-  for (int i = threadIdx.x; i < FUSED_ROWS * (C / 8); i += FUSED_THREADS) {
-    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < P * F && r / F < valid_pos)
-      v = *reinterpret_cast<const uint4*>(x + row_off(r) + c8);
-    *reinterpret_cast<uint4*>(&xs[r * ld + c8]) = v;
+  const uint32_t a0 = smem_u32(t.hs);
+  const bool one_stage = t.stages == 2;
+  int prev = -1;
+  for (int kb = 0; kb < KS; ++kb) {
+    const int s = (m * KS + kb) * 2 + t.wg;
+    const int st = s % t.stages;
+    mbar_wait(&t.full[st], (s / t.stages) & 1);
+    const uint32_t a = a0 + kb * (TILE * 128);
+    const uint32_t b = smem_u32(t.ring + st * chain_stage_bytes(C));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(acc, sw128_desc(a + kk * 32, 16, 1024), sw128_desc(b + kk * 32, 16, 1024), 1);
+    wgmma_commit();
+    if (one_stage) {
+      wgmma_wait<0>();
+      release(st);
+      continue;
+    }
+    wgmma_wait<1>();  // the previous slice's products are done
+    if (prev >= 0) release(prev);
+    prev = st;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (prev >= 0) release(prev);
+}
+
+// bf16(acc) into a 64 x C buffer at this thread's places
+template <int C>
+__device__ __forceinline__ void store_acc(const Consumer& t, unsigned char* buf,
+                                          const float (&acc)[C / 4]) {
+#pragma unroll
+  for (int j = 0; j < C / 16; ++j) {
+    const int c = t.cb + 8 * j;
+    *reinterpret_cast<uint32_t*>(buf + swz(t.r0, c)) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(buf + swz(t.r0 + 8, c)) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// LayerNorm of x (registers) with flax's math: f32 moments with the fast
+// variance, (x - mean) / sqrt(var + eps) * scale + bias, rounded to bf16.
+// Writes pairs through put(row index 0/1, column, packed pair).
+template <int C, typename Put>
+__device__ __forceinline__ void chain_layernorm(const Consumer& t, const uint32_t (&xr)[C / 16][2],
+                                                const bf16* __restrict__ scale,
+                                                const bf16* __restrict__ bias, float eps,
+                                                Put put) {
+  float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < C / 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a = bf_lo(xr[j][h]), b = bf_hi(xr[j][h]);
+      s[h] += a + b;
+      q[h] += a * a + b * b;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] = quad_sum(s[h]);
+    q[h] = quad_sum(q[h]);
+    if ((t.lane & 3) == 0) {
+      t.red[(t.wg * TILE + t.r0 + 8 * h) * 2] = s[h];
+      t.red[(t.wg * TILE + t.r0 + 8 * h) * 2 + 1] = q[h];
+    }
+  }
+  consumers_sync();
+  float mean[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = t.r0 + 8 * h;
+    const float sum = t.red[r * 2] + t.red[(TILE + r) * 2];
+    const float sq = t.red[r * 2 + 1] + t.red[(TILE + r) * 2 + 1];
+    mean[h] = sum / C;
+    inv[h] = 1.f / sqrtf(sq / C - mean[h] * mean[h] + eps);
+  }
+  uint32_t sc[C / 16], bi[C / 16];  // this thread's column pairs, all loads in flight
+#pragma unroll
+  for (int j = 0; j < C / 16; ++j) {
+    sc[j] = __ldg(reinterpret_cast<const unsigned int*>(scale + t.cb + 8 * j));
+    bi[j] = __ldg(reinterpret_cast<const unsigned int*>(bias + t.cb + 8 * j));
+  }
+#pragma unroll
+  for (int j = 0; j < C / 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float y0 = (bf_lo(xr[j][h]) - mean[h]) * inv[h] * bf_lo(sc[j]) + bf_lo(bi[j]);
+      const float y1 = (bf_hi(xr[j][h]) - mean[h]) * inv[h] * bf_hi(sc[j]) + bf_hi(bi[j]);
+      put(h, t.cb + 8 * j, pack_bf16(y0, y1));
+    }
+}
+
+// ldmatrix of four 8 x 8 bf16 matrices, lane l giving the address of row
+// l % 8 of matrix l / 8; .trans hands each thread a column pair instead.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The F x F attention of every (position, head) of the tile: q in hs, k in
+// ks, v in vs; the output overwrites q in hs. MT = ceil(F / 16): 16-row
+// query tiles and 16-key steps. Fragments come by ldmatrix from the
+// swizzled buffers (head width d % 8 == 0, so every 8-column piece of a
+// head is one 16-byte chunk); pieces past d (d = 40 pads to 48) are zeroed
+// in q and k and not stored from the output, and their addresses are
+// clamped to the head's first piece.
+template <int C, int MT>
+__device__ __forceinline__ void chain_attention(const Consumer& t, const ChainShape& sh) {
+  const int F = sh.F, d = C / sh.heads;
+  constexpr int NKT = 2 * MT;  // 8-key tiles
+  const int g = t.lane >> 2, q4 = t.lane & 3;
+  const int lr = t.lane & 15, lhi = t.lane >> 4;  // ldmatrix: row in 16, which half
+  const uint32_t hs = smem_u32(t.hs), ks = smem_u32(t.ks), vs = smem_u32(t.vs);
+  const int items = sh.P * sh.heads * MT;
+  for (int item = t.warp + 4 * t.wg; item < items; item += CONSUMERS / 32) {
+    const int qt = item % MT, h = (item / MT) % sh.heads, pos = item / (MT * sh.heads);
+    const int rk = pos * F, rq = rk + qt * 16, c0 = h * d;
+    float s[NKT][4];
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += 16) {
+      const bool hi_ok = k0 + 8 < d;  // the step's second 8 dims are in the head
+      const int col = c0 + (lhi && hi_ok ? k0 + 8 : k0);
+      uint32_t a[4];
+      ldsm_x4(a, hs + swz(rq + lr, col));  // rows 0-7 / 8-15 x dims k0 / k0 + 8
+      if (!hi_ok) a[2] = a[3] = 0u;
+#pragma unroll
+      for (int np = 0; np < MT; ++np) {  // two 8-key tiles a load
+        // matrices: keys 0-7 @ k0, keys 0-7 @ k0 + 8, keys 8-15 @ k0, @ k0 + 8
+        const int key = rk + np * 16 + (t.lane & 7) + ((t.lane >> 4) << 3);
+        const int kc = c0 + (((t.lane >> 3) & 1) && hi_ok ? k0 + 8 : k0);
+        uint32_t b[4];
+        ldsm_x4(b, ks + swz(key, kc));
+        if (!hi_ok) b[1] = b[3] = 0u;
+        mma_16816(s[2 * np], a, b[0], b[1]);
+        mma_16816(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    // softmax over the keys of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = nt * 8 + 2 * q4 + (e & 1) < F ? s[nt][e] * sh.scale : -INFINITY;
+        m[e >> 1] = fmaxf(m[e >> 1], s[nt][e]);
+      }
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
+        l[e >> 1] += s[nt][e];
+      }
+    // (p v) / l as (p v) * (1 / l): within an f32 ulp of the division, far
+    // below the bf16 rounding that follows
+    const float inv_l[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+    // unnormalised bf16 probabilities as the A fragments of P.V
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int kk = 0; kk < MT; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    for (int dn = 0; dn < d; dn += 16) {  // two 8-dim output tiles a pass
+      const bool hi_ok = dn + 8 < d;
+      float o[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        // matrices: keys 0-7 / 8-15 @ dims dn, keys 0-7 / 8-15 @ dn + 8
+        const int key = rk + kk * 16 + (t.lane & 15);
+        const int vc = c0 + (lhi && hi_ok ? dn + 8 : dn);
+        uint32_t b[4];
+        ldsm_x4_trans(b, vs + swz(key, vc));
+        mma_16816(o[0], pa[kk], b[0], b[1]);
+        mma_16816(o[1], pa[kk], b[2], b[3]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (half == 1 && !hi_ok) break;
+        const int cc = c0 + dn + 8 * half + 2 * q4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int fq = qt * 16 + g + 8 * r;
+          if (fq < F)
+            *reinterpret_cast<uint32_t*>(t.hs + swz(rk + fq, cc)) =
+                pack_bf16(o[half][2 * r] * inv_l[r], o[half][2 * r + 1] * inv_l[r]);
+        }
+      }
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1)
+temporal_block_chain(const __grid_constant__ ChainMaps maps, const ChainVecs vec,
+                     const bf16* __restrict__ x, bf16* __restrict__ x_out,
+                     bf16* __restrict__ h_out, const ChainShape sh) {
+  constexpr int NH = C / 2;      // columns of one consumer warpgroup
+  constexpr int NJ = C / 16;     // its 8-column tiles
+  constexpr int KS = C / 64;     // 64-deep slices of one product
+  constexpr int STAGE = chain_stage_bytes(C);
+  constexpr int BUF = TILE * C * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  Consumer t;
+  t.hs = base;
+  t.ks = base + BUF;
+  t.vs = base + 2 * BUF;
+  t.ring = base + 3 * BUF;
+  t.full = reinterpret_cast<uint64_t*>(t.ring + sh.stages * STAGE);
+  t.empty = t.full + MAX_STAGES;
+  t.red = reinterpret_cast<float*>(t.empty + MAX_STAGES);
+  t.stages = sh.stages;
+  t.wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < sh.stages; ++s) {
+      mbar_init(&t.full[s], 1);
+      mbar_init(&t.empty[s], 4);  // the consuming warpgroup's warps
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  attention_sub_block(a1, xs, hs, qs, ks, vs, pw, ld, C, F, valid_pos, heads,
-                      scale, eps);
-  attention_sub_block(a2, xs, hs, qs, ks, vs, pw, ld, C, F, valid_pos, heads,
-                      scale, eps);
-  rows_layernorm(xs, ld, hs, ld, C, FUSED_ROWS, ln3_s, ln3_b, eps);
-  __syncthreads();
-  for (int i = threadIdx.x; i < valid_pos * F * (C / 8); i += FUSED_THREADS) {
-    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-    *reinterpret_cast<uint4*>(x_out + row_off(r) + c8) =
-        *reinterpret_cast<const uint4*>(&xs[r * ld + c8]);
-    *reinterpret_cast<uint4*>(h_out + row_off(r) + c8) =
-        *reinterpret_cast<const uint4*>(&hs[r * ld + c8]);
+  if (t.wg == 2) {
+    // ---- producer: slice (m, kb, half) of the eight weights, in order ----
+    if (threadIdx.x == 256) {
+      int st = 0;
+      uint32_t ph = 0;
+      auto advance = [&] {
+        if (++st == sh.stages) {
+          st = 0;
+          ph ^= 1;
+        }
+      };
+      for (int m = 0; m < 8; ++m)
+        for (int kb = 0; kb < KS; ++kb)
+          for (int half = 0; half < 2; ++half) {
+            mbar_wait(&t.empty[st], ph ^ 1);
+            unsigned char* sp = t.ring + st * STAGE;
+            mbar_expect_tx(&t.full[st], STAGE);
+            tma_load_2d(sp, &maps.w[m], &t.full[st], kb * 64, half * NH);
+            tma_load_2d(sp + STAGE / 2, &maps.w[m], &t.full[st], kb * 64, half * NH + NH / 2);
+            advance();
+          }
+    }
+    return;
   }
+
+  // ---- consumers ----
+  t.warp = (threadIdx.x >> 5) & 3;
+  t.lane = threadIdx.x & 31;
+  t.r0 = t.warp * 16 + (t.lane >> 2);
+  t.cb = t.wg * NH + 2 * (t.lane & 3);
+  const int F = sh.F;
+  const int tiles_per_b = (sh.N + sh.P - 1) / sh.P;
+  const int tile = blockIdx.x;
+  const int b = tile / tiles_per_b, n0 = (tile % tiles_per_b) * sh.P;
+  // element offset of tile row r, or -1: a row past P * F or a position past N
+  auto row_off = [&](int r) -> long long {
+    const int pos = r / F;
+    return tile < sh.tiles && r < sh.P * F && n0 + pos < sh.N
+               ? ((long long)(b * F + r % F) * sh.N + n0 + pos) * C
+               : -1;
+  };
+  // x in by 16-byte loads through hs (all of a thread's loads in flight at
+  // once), then into registers
+  {
+    constexpr int PER = TILE * (C / 8) / CONSUMERS;
+    uint4 v[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * CONSUMERS, r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+      const long long o = row_off(r);
+      v[u] = o >= 0 ? *reinterpret_cast<const uint4*>(x + o + c8) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * CONSUMERS;
+      *reinterpret_cast<uint4*>(t.hs + swz(i / (C / 8), (i % (C / 8)) * 8)) = v[u];
+    }
+  }
+  consumers_sync();
+  uint32_t xr[NJ][2];  // x as bf16 pairs, rows r0 / r0 + 8, columns cb + 8 j
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      xr[j][h] = *reinterpret_cast<const uint32_t*>(t.hs + swz(t.r0 + 8 * h, t.cb + 8 * j));
+
+  float acc[C / 4];
+  auto to_hs = [&](int h, int c, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(t.hs + swz(t.r0 + 8 * h, c)) = v;
+  };
+#pragma unroll 1
+  for (int sub = 0; sub < 2; ++sub) {
+    chain_layernorm<C>(t, xr, vec.ln_s[sub], vec.ln_b[sub], sh.eps, to_hs);
+    fence_proxy_async();
+    consumers_sync();  // the LN output is whole before either warpgroup reads it
+    chain_product<C>(t, 4 * sub + 0, acc);
+    store_acc<C>(t, t.ks, acc);
+    chain_product<C>(t, 4 * sub + 1, acc);
+    store_acc<C>(t, t.vs, acc);
+    chain_product<C>(t, 4 * sub + 2, acc);
+    consumers_sync();  // both warpgroups are done reading the LN output
+    store_acc<C>(t, t.hs, acc);
+    consumers_sync();  // q, k, v are whole
+    switch ((F + 15) / 16) {
+      case 1: chain_attention<C, 1>(t, sh); break;
+      case 2: chain_attention<C, 2>(t, sh); break;
+      case 3: chain_attention<C, 3>(t, sh); break;
+      default: chain_attention<C, 4>(t, sh); break;
+    }
+    fence_proxy_async();
+    consumers_sync();  // the attention output is whole
+    chain_product<C>(t, 4 * sub + 3, acc);
+    uint32_t bo[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      bo[j] = __ldg(reinterpret_cast<const unsigned int*>(vec.bo[sub] + t.cb + 8 * j));
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xr[j][h] = pack_bf16(bias_then_resid(bf_lo(xr[j][h]), acc[4 * j + 2 * h], bf_lo(bo[j])),
+                             bias_then_resid(bf_hi(xr[j][h]), acc[4 * j + 2 * h + 1], bf_hi(bo[j])));
+  }
+  // h = LN3(x) into ks and x into vs (both free now), then out by 16-byte
+  // stores of the valid rows
+  chain_layernorm<C>(t, xr, vec.ln_s[2], vec.ln_b[2], sh.eps, [&](int h, int c, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(t.ks + swz(t.r0 + 8 * h, c)) = v;
+  });
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(t.vs + swz(t.r0 + 8 * h, t.cb + 8 * j)) = xr[j][h];
+  consumers_sync();
+  for (int i = threadIdx.x; i < TILE * (C / 8); i += CONSUMERS) {
+    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    const long long o = row_off(r);
+    if (o < 0) continue;
+    *reinterpret_cast<uint4*>(h_out + o + c8) = *reinterpret_cast<const uint4*>(t.ks + swz(r, c8));
+    *reinterpret_cast<uint4*>(x_out + o + c8) = *reinterpret_cast<const uint4*>(t.vs + swz(r, c8));
+  }
+}
+
+template <int C>
+int chain_launch(const void* const* w, const ChainVecs& vec, const void* x, void* x_out,
+                 void* h, const ChainShape& sh, cudaStream_t stream) {
+  ChainMaps maps;
+  for (int i = 0; i < 8; ++i) {
+    const int err = make_matrix_map(&maps.w[i], w[i], C, C, C / 4);
+    if (err != 0) return err;
+  }
+  const int smem = chain_smem_bytes(C, sh.stages);
+  auto kernel = temporal_block_chain<C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<sh.tiles, CHAIN_THREADS, smem, stream>>>(maps, vec, static_cast<const bf16*>(x),
+                                                    static_cast<bf16*>(x_out),
+                                                    static_cast<bf16*>(h), sh);
+  return static_cast<int>(cudaGetLastError());
 }
 
 struct temporal_block_ff {};  // names the FF launches in profiles
@@ -156,8 +542,9 @@ struct temporal_block_ff {};  // names the FF launches in profiles
 // x, out (B, F, N, C) contiguous; x_mid and h (B, F, N, C) scratch, inner
 // (B * F * N, I) scratch. Weights in nn.Linear's (out, in) layout: q/k/v/o
 // (C, C) for both attentions, ffi_w (2I, C) value rows first, ffo_w (C, I);
-// vectors of C (2I for ffi_b). All bf16. C % 64 == 0, C <= 384, heads
-// dividing C, F <= 32, I % 128 == 0.
+// vectors of C (2I for ffi_b). All bf16, 16-byte aligned. C % 64 == 0,
+// C <= 384, heads dividing C with C / heads % 8 == 0, F <= 64, I % 128 == 0;
+// P (positions per tile) and stages (weight ring) from the wrapper's plan.
 extern "C" int dvdx_temporal_block(
     const void* x, const void* ln1_s, const void* ln1_b, const void* q1,
     const void* k1, const void* v1, const void* o1_w, const void* o1_b,
@@ -165,31 +552,35 @@ extern "C" int dvdx_temporal_block(
     const void* v2, const void* o2_w, const void* o2_b, const void* ln3_s,
     const void* ln3_b, const void* ffi_w, const void* ffi_b,
     const void* ffo_w, const void* ffo_b, void* x_mid, void* h, void* inner,
-    void* out, int B, int F, int N, int C, int heads, int I, float scale, float eps,
-    void* stream) {
-  if (C % 64 || C > MAX_DIM || heads < 1 || C % heads || F < 1 ||
-      F > MAX_FRAMES || N < 1 || B < 1 || B > 65535 || I % FF_IN_BN)
+    void* out, int B, int F, int N, int C, int heads, int I, int P, int stages,
+    float scale, float eps, void* stream) {
+  const int fpad = (F + 15) / 16 * 16;
+  if (C < 64 || C % 64 || C > MAX_DIM || heads < 1 || C % heads || (C / heads) % 8 || F < 1 ||
+      F > MAX_FRAMES || N < 1 || B < 1 || I % FF_IN_BN || P < 1 || P * F > TILE ||
+      (P - 1) * F + fpad > TILE || stages < 2 || stages > MAX_STAGES || stages % 2 ||
+      chain_smem_bytes(C, stages) > SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (long long)B * ((N + P - 1) / P);
+  if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto bf = [](const void* p) { return static_cast<const bf16*>(p); };
-  const AttnWeights a1 = {bf(ln1_s), bf(ln1_b), bf(q1), bf(k1), bf(v1),
-                          bf(o1_w), bf(o1_b)};
-  const AttnWeights a2 = {bf(ln2_s), bf(ln2_b), bf(q2), bf(k2), bf(v2),
-                          bf(o2_w), bf(o2_b)};
-  const int smem = 5 * FUSED_ROWS * (C + 8) * 2 +
-                   (FUSED_THREADS / 32) * MAX_FRAMES * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      temporal_block_chain, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int P = FUSED_ROWS / F;
-  dim3 grid((N + P - 1) / P, B);
-  temporal_block_chain<<<grid, FUSED_THREADS, smem, st>>>(
-      bf(x), a1, a2, bf(ln3_s), bf(ln3_b), static_cast<bf16*>(x_mid),
-      static_cast<bf16*>(h), F, N, C, heads, scale, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* w[8] = {k1, v1, q1, o1_w, k2, v2, q2, o2_w};
+  const ChainVecs vec = {{bf(ln1_s), bf(ln2_s), bf(ln3_s)},
+                         {bf(ln1_b), bf(ln2_b), bf(ln3_b)},
+                         {bf(o1_b), bf(o2_b)}};
+  const ChainShape sh = {F, N, heads, P, static_cast<int>(tiles), stages, scale, eps};
+  int rc;
+  switch (C) {
+    case 64: rc = chain_launch<64>(w, vec, x, x_mid, h, sh, st); break;
+    case 128: rc = chain_launch<128>(w, vec, x, x_mid, h, sh, st); break;
+    case 192: rc = chain_launch<192>(w, vec, x, x_mid, h, sh, st); break;
+    case 256: rc = chain_launch<256>(w, vec, x, x_mid, h, sh, st); break;
+    case 320: rc = chain_launch<320>(w, vec, x, x_mid, h, sh, st); break;
+    default: rc = chain_launch<384>(w, vec, x, x_mid, h, sh, st); break;
+  }
+  if (rc != 0) return rc;
   const int rows = B * F * N;
-  const int rc = geglu_in_launch<temporal_block_ff>(h, ffi_w, ffi_b, inner, rows, C, I, st);
+  rc = geglu_in_launch<temporal_block_ff>(h, ffi_w, ffi_b, inner, rows, C, I, st);
   if (rc != 0) return rc;
   return geglu_out_launch<temporal_block_ff>(inner, ffo_w, ffo_b, x_mid, out, rows, C, I, st);
 }

@@ -38,6 +38,7 @@ from ..ops.groupnorm import group_norm_act
 from ..ops.kernels.geglu_ff import geglu_ff
 from ..ops.kernels.spatial_tail import fused_spatial_tail
 from ..ops.kernels.temporal_attention import temporal_attention
+from ..ops.kernels import temporal_block
 from ..ops.kernels.temporal_block import fused_temporal_block
 
 # Shape gates of the fused branches (the JAX package's
@@ -45,12 +46,14 @@ from ..ops.kernels.temporal_block import fused_temporal_block
 # choosers): the fused tail at S >= 512 rows with a context of <= 512 tokens
 # and widths <= 384 (the resident-weight bound; the JAX package's streamed
 # C = 640 route is a measured loss and is not taken), the fused block at
-# N >= 64 positions, F <= 128 frames, C <= 384.
+# N >= 64 positions and exactly the shapes its kernel takes (C % 64 == 0,
+# C <= 384, F <= 64, heads x head_dim == C with head_dim % 8 == 0); a
+# longer clip runs the unfused block.
 SPATIAL_TAIL_MIN_SEQ = 512
 FUSED_MAX_DIM = 384
 FUSED_MAX_CONTEXT = 512
 TEMPORAL_BLOCK_MIN_POSITIONS = 64
-TEMPORAL_BLOCK_MAX_FRAMES = 128
+TEMPORAL_BLOCK_MAX_FRAMES = temporal_block.MAX_FRAMES
 
 
 def fused_spatial_tail_wants(s: int, dim: int, inner: int, ctx_tokens: int) -> bool:
@@ -58,9 +61,12 @@ def fused_spatial_tail_wants(s: int, dim: int, inner: int, ctx_tokens: int) -> b
             and inner <= FUSED_MAX_DIM and ctx_tokens <= FUSED_MAX_CONTEXT)
 
 
-def fused_temporal_block_wants(frames: int, positions: int, dim: int) -> bool:
+def fused_temporal_block_wants(frames: int, positions: int, dim: int, heads: int,
+                               head_dim: int) -> bool:
     return (positions >= TEMPORAL_BLOCK_MIN_POSITIONS
-            and frames <= TEMPORAL_BLOCK_MAX_FRAMES and dim <= FUSED_MAX_DIM)
+            and frames <= TEMPORAL_BLOCK_MAX_FRAMES
+            and dim % 64 == 0 and dim <= temporal_block.MAX_DIM
+            and heads * head_dim == dim and head_dim % 8 == 0)
 
 
 class Dense(nn.Linear):
@@ -333,7 +339,9 @@ class _TemporalBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim)
 
     def fused(self, x: torch.Tensor) -> bool:
-        return fused_temporal_block_wants(x.shape[1], x.shape[2], x.shape[3])
+        heads = self.attn1.heads
+        return fused_temporal_block_wants(x.shape[1], x.shape[2], x.shape[3], heads,
+                                          self.attn1.to_q.out_features // heads)
 
     def block_params(self) -> dict:
         """The fused block's flat parameter dict (the JAX keys, nn.Linear

@@ -1,10 +1,12 @@
 """GroupNorm(+pre-bias)(+SiLU): the CUDA kernel and its plain version.
 
 Replaces ``dvdx_tpu/ops/groupnorm.py:group_norm_act`` (``_gn_pallas`` /
-``_gn_kernel``). Kernel: ``csrc/groupnorm.cu`` -- a deterministic two-phase
-reduction (per-chunk channel sums in a fixed order, then per-group totals in
-chunk order) followed by a fused normalise / affine / SiLU pass. Bounded by
-bytes.
+``_gn_kernel``). Kernel: ``csrc/groupnorm.cu`` -- one cooperative launch
+of co-resident blocks in three phases split by grid-wide barriers: per-chunk
+group partial sums, per-group statistics by a fixed tree over the chunks,
+then the normalise / affine / SiLU pass over the chunks in reverse order (a
+UNet row read last in phase 1 is still in L2). Every sum has a fixed order,
+set by ``plan`` from the shape alone. Bounded by bytes.
 
 The JAX package sends only deep-level rows (<= 512 KB) to its TPU kernel
 (``groupnorm.py:165-176``, a TPU measurement gate) and runs flax GroupNorm
@@ -17,7 +19,7 @@ dtype first (tests state how far that moves the result).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,7 +27,28 @@ from . import _build
 
 LAUNCHES = 0  # kernel launches since the last reset (a plain count)
 MAX_CHANNELS = 2560
-_ROWS = 64  # rows per reduction chunk (csrc/groupnorm.cu ROWS)
+CHUNK_ELEMS = 16384        # elements of one work item (32 KB of bf16) ...
+LARGE_CHUNK_ELEMS = 32768  # ... and of one in a call of LARGE_CALL elements or more,
+LARGE_CALL = 1 << 24       # where fewer, longer items read faster (utils/kernel_probe)
+
+
+class GroupNormPlan(NamedTuple):
+    chunk_rows: int  # rows of one work item of phases 1 and 3
+    nchunks: int     # chunks per sample; the last may be short
+    items: int       # (sample, chunk) work items
+
+
+def plan(n: int, length: int, c: int, chunk_elems: Optional[int] = None) -> GroupNormPlan:
+    """The kernel's chunking of (N, L, C): chunks of about ``chunk_elems``
+    elements (whole rows; by default CHUNK_ELEMS, or LARGE_CHUNK_ELEMS from
+    LARGE_CALL elements on), covering every row of every sample exactly
+    once. A function of the shape only, so the kernel's sums run in one
+    order."""
+    if chunk_elems is None:
+        chunk_elems = LARGE_CHUNK_ELEMS if n * length * c >= LARGE_CALL else CHUNK_ELEMS
+    chunk_rows = max(1, min(length, chunk_elems // c))
+    nchunks = -(-length // chunk_rows)
+    return GroupNormPlan(chunk_rows, nchunks, n * nchunks)
 
 
 def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -59,7 +82,7 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """Fused GroupNorm over the non-leading axes of x (N, ..., C), with an
     optional per-sample channel bias (N, C) added before normalisation and
     an optional SiLU. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16, C <= 2560) or raise."""
+    launch the kernel (bf16, C % 8 == 0, C <= 2560) or raise."""
     if act not in ("none", "silu"):
         raise ValueError(f"group_norm_act: unknown act {act!r}")
     if x.device.type == "cpu":
@@ -71,7 +94,7 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError("group_norm_act: the kernel takes bfloat16")
     shape = x.shape
     n, c = shape[0], shape[-1]
-    if c % groups or c > MAX_CHANNELS or gamma.numel() != c or beta.numel() != c:
+    if c % groups or c % 8 or c > MAX_CHANNELS or gamma.numel() != c or beta.numel() != c:
         raise ValueError(f"group_norm_act: C={c} with {groups} groups unsupported")
     if any(t is not None and t.device != x.device for t in (gamma, beta, bias)):
         raise ValueError("group_norm_act: x, the affine and the bias must share one device")
@@ -80,20 +103,22 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     g32 = gamma.to(torch.float32).contiguous()
     b32 = beta.to(torch.float32).contiguous()
     bias_t = None if bias is None else bias.to(x.dtype).reshape(n, c).contiguous()
+    if any(t is not None and t.data_ptr() % 16 for t in (x3, bias_t)):
+        raise ValueError("group_norm_act: x and the bias must be 16-byte aligned")
     y = torch.empty_like(x3)
-    nchunks = -(-length // _ROWS)
-    part = torch.empty((n, nchunks, groups, 2), dtype=torch.float32, device=x.device)
+    pl = plan(n, length, c)
+    part = torch.empty((n, pl.nchunks, groups, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
     lib = _build.library("groupnorm")
     fn = lib.dvdx_group_norm
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     rc = fn(_build.ptr(x3),
             ctypes.c_void_p(None if bias_t is None else bias_t.data_ptr()),
             _build.ptr(g32), _build.ptr(b32), _build.ptr(y), _build.ptr(part),
-            _build.ptr(stats), n, length, c, groups, float(eps),
+            _build.ptr(stats), n, length, c, groups, pl.chunk_rows, pl.nchunks, float(eps),
             int(act == "silu"), _build.stream(x.device))
     _build.check(lib, rc, "group_norm_act")
     global LAUNCHES

@@ -10,19 +10,20 @@ exp(s - max) rounded to bf16 before P.V and the sum divided after, and the FF
 output bias added in float32 before its one rounding.
 
 Kernel: ``csrc/temporal_block.cu``, three launches with nothing between
-them -- both attention sub-blocks and LN3 on 32-row tiles (P = 32 / F
-positions x F frames, gathered by the frame stride; the F x F attention runs
-per position), then the GEGLU feed-forward as the two wgmma products of
+them -- the chain (both attention sub-blocks and LN3) on 64-row tiles of
+P positions x F frames (``plan``), its eight C x C products on wgmma with
+the weights streamed by TMA, its F x F attention on the tensor cores; then
+the GEGLU feed-forward as the two wgmma products of
 ``csrc/geglu_gemm.cuh``, the second with the residual epilogue; the inner
-tensor goes through a (rows, I) scratch. Bounded by tensor-core operations at
-the UNet's level 0; it takes C <= 384 (C % 64 == 0), F <= 32 and
-I % 128 == 0.
+tensor goes through a (rows, I) scratch. Bounded by tensor-core
+operations at the UNet's level 0; it takes C <= 384 (C % 64 == 0), head
+widths that are multiples of 8, F <= 64 and I % 128 == 0.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -31,10 +32,58 @@ from .fused_math import dense, geglu_residual, layer_norm
 
 LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
 MAX_DIM = 384
-MAX_FRAMES = 32
+MAX_FRAMES = 64
+TILE_ROWS = 64      # rows of one chain tile (one wgmma m64)
+MAX_STAGES = 6      # weight-ring stages (csrc/temporal_block.cu MAX_STAGES)
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on the H100
 KEYS = ("ln1_s", "ln1_b", "q1", "k1", "v1", "o1_w", "o1_b",
         "ln2_s", "ln2_b", "q2", "k2", "v2", "o2_w", "o2_b",
         "ln3_s", "ln3_b", "ffi_w", "ffi_b", "ffo_w", "ffo_b")
+
+
+class ChainPlan(NamedTuple):
+    positions: int   # P: positions per 64-row tile
+    tiles: int       # tiles per call (B * ceil(N / P))
+    stages: int      # weight-ring stages (even: each feeds one warpgroup)
+    smem_bytes: int  # dynamic shared memory of the chain kernel
+
+
+def chain_smem_bytes(c: int, stages: int) -> int:
+    """Alignment slack, the LN-output / k / v buffers (64 x C bf16 each),
+    the ring of half-width 64-deep weight slices, mbarriers, the LayerNorm
+    exchange."""
+    return 1024 + 3 * TILE_ROWS * c * 2 + stages * (c // 2) * 128 + 2 * MAX_STAGES * 8 \
+        + 2 * TILE_ROWS * 2 * 4
+
+
+def plan(b: int, f: int, n: int, c: int) -> ChainPlan:
+    """The chain kernel's tiling of x (B, F, N, C): the most positions P
+    whose P * F rows fit a 64-row tile with the last position's frames,
+    padded to 16 for the attention's tensor-core tiles, still inside it; and
+    the most ring stages, even, that fit the shared memory."""
+    if not 1 <= f <= MAX_FRAMES or c % 64 or not 64 <= c <= MAX_DIM:
+        raise ValueError(f"temporal block chain: no plan for F={f}, C={c}")
+    fpad = -(-f // 16) * 16
+    p = TILE_ROWS // f
+    while (p - 1) * f + fpad > TILE_ROWS:
+        p -= 1
+    stages = MAX_STAGES
+    while chain_smem_bytes(c, stages) > SMEM_LIMIT:
+        stages -= 2
+    return ChainPlan(p, b * -(-n // p), stages, chain_smem_bytes(c, stages))
+
+
+def check_shape(shape, heads: int, inner: int, q_shape) -> ChainPlan:
+    """The kernel's plan for x of ``shape`` (B, F, N, C) with ``heads``
+    heads, FF width ``inner`` and (C, C) projections, or ValueError where
+    the kernel does not take the block."""
+    b, f, n, c = shape
+    if (c % 64 or not 64 <= c <= MAX_DIM or c % heads or (c // heads) % 8
+            or not 1 <= f <= MAX_FRAMES
+            or inner % 128 or tuple(q_shape) != (c, c) or min(b, n) < 1):
+        raise ValueError(f"fused_temporal_block: unsupported shape {tuple(shape)} "
+                         f"with {heads} heads")
+    return plan(b, f, n, c)
 
 
 def _frame_attention(x: torch.Tensor, p: Dict[str, torch.Tensor], i: int,
@@ -82,10 +131,7 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         raise ValueError("fused_temporal_block: the kernel takes bfloat16")
     b, f, n, c = x.shape
     inner = params["ffi_w"].shape[0] // 2
-    if c % 64 or c > MAX_DIM or c % heads or f > MAX_FRAMES or inner % 128 \
-            or params["q1"].shape != (c, c):
-        raise ValueError(f"fused_temporal_block: unsupported shape {tuple(x.shape)} "
-                         f"with {heads} heads")
+    pl = check_shape(tuple(x.shape), heads, inner, tuple(params["q1"].shape))
     ops = [x] + [params[k] for k in KEYS]
     if any(a.device != x.device for a in ops):
         raise ValueError("fused_temporal_block: every operand must be on x's device")
@@ -98,12 +144,13 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     lib = _build.library("temporal_block")
     fn = lib.dvdx_temporal_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     scale = (c // heads) ** -0.5 if scale is None else scale
     rc = fn(*(_build.ptr(a) for a in ops + [x_mid, h, ff_inner, out]), b, f, n, c, heads,
-            inner, float(scale), float(eps), _build.stream(x.device))
+            inner, pl.positions, pl.stages, float(scale), float(eps),
+            _build.stream(x.device))
     _build.check(lib, rc, "fused_temporal_block")
     global LAUNCHES
     LAUNCHES += 1

@@ -30,15 +30,17 @@ OUT = os.path.join("chiprun_out", "profile_step.json")
 
 # kernel-name fragments -> group (first match wins): the GEGLU products of
 # the fused kernels (geglu_stage<spatial_tail_ff, ...>, geglu_stage<
-# temporal_block_ff, ...>) land in their fused kernel's group, geglu_ff's own
-# (geglu_stage<geglu_ff_site, ...>) in geglu_ff's
+# temporal_block_ff, ...>) land in their fused kernel's group beside its
+# chain (spatial_tail_chain, temporal_block_chain<C>), geglu_ff's own
+# (geglu_stage<geglu_ff_site, ...>) in geglu_ff's; GroupNorm is one kernel,
+# gn_fused (a bare "gn_" would also match ATen's sign_ and assign_ kernels)
 GROUPS = (
     ("fused_spatial_tail", ("spatial_tail_",)),
     ("fused_temporal_block", ("temporal_block_",)),
     ("flash_attention", ("flash_fwd",)),
     ("temporal_attention", ("temporal_attn",)),
     ("geglu_ff", ("geglu_ff_", "geglu_stage")),
-    ("group_norm_act", ("gn_partial", "gn_finalize", "gn_apply")),
+    ("group_norm_act", ("gn_fused",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )

@@ -131,15 +131,25 @@ def test_redesigned_kernels_repeat_bitwise(cuda):
         assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
+def _group_norm_args(n, l, c, with_bias, device):
+    x = _randn((n, l, c), 0, device, 2.0, 0.5).bfloat16()
+    gamma = _randn((c,), 1, device, 0.2, 1.0)
+    beta = _randn((c,), 2, device, 0.1)
+    bias = _randn((n, c), 3, device).bfloat16() if with_bias else None
+    return x, gamma, beta, bias
+
+
+# the UNet's widest row (32, 45, 2560), its largest sample (2, 46080, 320),
+# with and without the pre-bias, L not a multiple of the planned chunk
+# (1000 rows in chunks of 51), one sample, and the VAE's largest rows
 @pytest.mark.parametrize("n,l,c,act,with_bias", [
     (32, 2880, 320, "silu", True), (2, 46080, 320, "none", False),
-    (4, 45, 2560, "silu", False), (1, 70, 512, "silu", False),
-    (1, 184320, 128, "silu", False)])
+    (2, 46080, 320, "none", True), (4, 45, 2560, "silu", False),
+    (32, 45, 2560, "silu", False), (3, 1000, 320, "silu", True),
+    (1, 70, 512, "silu", False), (1, 184320, 128, "silu", False),
+    (1, 184320, 256, "silu", False)])
 def test_group_norm_kernel_matches_plain(cuda, n, l, c, act, with_bias):
-    x = _randn((n, l, c), 0, cuda, 2.0, 0.5).bfloat16()
-    gamma = _randn((c,), 1, cuda, 0.2, 1.0)
-    beta = _randn((c,), 2, cuda, 0.1)
-    bias = _randn((n, c), 3, cuda).bfloat16() if with_bias else None
+    x, gamma, beta, bias = _group_norm_args(n, l, c, with_bias, cuda)
     kw = dict(groups=32, eps=1e-5, act=act, bias=bias)
     before = tgn.LAUNCHES
     got = tgn.group_norm_act(x, gamma, beta, **kw)
@@ -202,18 +212,48 @@ def test_spatial_tail_kernel_matches_plain(cuda, n, s, c, heads, t):
     _check(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=heads))
 
 
-@pytest.mark.parametrize("b,f,n,c,heads", [(2, 16, 100, 320, 5), (1, 16, 77, 320, 8),
-                                           (1, 4, 70, 64, 8), (1, 24, 10, 64, 1)])
-def test_temporal_block_kernel_matches_plain(cuda, b, f, n, c, heads):
+def _temporal_block_args(b, f, n, c, device):
     shapes = {k: (c, c) for k in ("q1", "k1", "v1", "o1_w", "q2", "k2", "v2", "o2_w")}
     shapes.update({k: (c,) for k in tblock.KEYS if k[:2] in ("ln", "o1", "o2")
                    and not k.endswith("_w")})
     shapes.update({"ffi_w": (8 * c, c), "ffi_b": (8 * c,), "ffo_w": (c, 4 * c),
                    "ffo_b": (c,)})
-    params = _params(tblock.KEYS, shapes, 20, cuda)
-    x = _randn((b, f, n, c), 0, cuda).bfloat16()
+    return _randn((b, f, n, c), 0, device).bfloat16(), _params(tblock.KEYS, shapes, 20, device)
+
+
+# F = 16 (4 positions a tile) with N = 101 and 77 not multiples of it, F =
+# 24 (the XL geometry: 2 positions, keys padded to 32) with heads 5 x 64 and
+# 8 x 40, F = 40 and 64 (one position, 3 and 4 query tiles), C = 64 / 128 /
+# 384 (other wgmma widths and ring depths), an odd tile count
+@pytest.mark.parametrize("b,f,n,c,heads", [
+    (2, 16, 100, 320, 5), (1, 16, 77, 320, 8), (2, 16, 101, 320, 5), (1, 24, 45, 320, 5),
+    (1, 24, 45, 320, 8), (1, 4, 70, 64, 8), (1, 24, 10, 64, 1), (1, 40, 5, 128, 2),
+    (1, 64, 3, 384, 6)])
+def test_temporal_block_kernel_matches_plain(cuda, b, f, n, c, heads):
+    x, params = _temporal_block_args(b, f, n, c, cuda)
     before = tblock.LAUNCHES
     got = tblock.fused_temporal_block(x, params, heads=heads)
     torch.cuda.synchronize()
     assert tblock.LAUNCHES == before + 1
     _check(got, tblock.fused_temporal_block_plain(x, params, heads=heads))
+
+
+def test_chain_and_group_norm_repeat_bitwise(cuda):
+    """The temporal block (its chain and FF launches) and GroupNorm (the
+    grid-wide reduction) give the same bits on the same inputs: the tiling
+    and the chunking depend on the shapes alone, and no sum goes through an
+    atomic."""
+    runs = []
+    for b, f, n, c, heads in ((2, 16, 101, 320, 5), (1, 24, 45, 320, 8)):
+        x, params = _temporal_block_args(b, f, n, c, cuda)
+        runs.append(lambda x=x, p=params, h=heads: tblock.fused_temporal_block(x, p, heads=h))
+    for n, l, c, with_bias in ((2, 46080, 320, True), (32, 45, 2560, False),
+                               (1, 184320, 256, False)):
+        x, gamma, beta, bias = _group_norm_args(n, l, c, with_bias, cuda)
+        runs.append(lambda x=x, g=gamma, be=beta, bi=bias: tgn.group_norm_act(
+            x, g, be, groups=32, eps=1e-6, act="silu", bias=bi))
+    for run in runs:
+        first = run()
+        second = run()
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16))

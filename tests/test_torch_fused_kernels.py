@@ -258,6 +258,29 @@ def test_fused_temporal_block_matches_jax_module(dtype, heads, d, monkeypatch):
     _check(_f32(got), _f32(want), dtype)
 
 
+@pytest.mark.parametrize("frames,heads,d", [(40, 4, 8), (72, 2, 32)])
+def test_ungated_temporal_block_matches_jax_module(frames, heads, d, monkeypatch):
+    """Blocks the fused kernel does not take -- 40 frames at C = 32 (not a
+    multiple of 64), 72 frames at C = 64 (past the kernel's 64) -- run the
+    port's unfused branch at N = 64 positions and equal the JAX
+    _TemporalBlock's unfused (XLA) branch in float32, within TOL_F32 (the
+    two sides sum in other orders)."""
+    c = heads * d
+    (jx,), (tx,) = _inputs([(1, frames, 64, c)], 13, "float32")
+    monkeypatch.setenv("DVDX_TEMPORAL_BLOCK_IMPL", "xla")
+    jmod = jlayers._TemporalBlock(c, heads, d, dtype=jnp.float32)
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(3), jx)
+    params = jax.tree.map(lambda a: a + 0.05 * np.random.default_rng(14).normal(
+        size=a.shape).astype(np.float32), params)  # no zero leaves
+    want = jax.jit(jmod.apply)(params, jx)
+    port = layers._TemporalBlock(c, heads, d)
+    load_jax_params(port, jax.tree.map(np.asarray, params))
+    assert not port.fused(tx)
+    with torch.no_grad():
+        got = port(tx)
+    _check(_f32(got), _f32(want), "float32")
+
+
 # --- the UNet -------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
