@@ -9,12 +9,15 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
   2. build of every CUDA kernel from ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the main path's full-width shapes (and a few off it: the fused tail at
-     C = 640, flash_attention_mh, GEGLU's two launches on their own at
-     level 2, GroupNorm with a level-0 pre-bias and with ragged chunks, the
-     fused block at a ragged N and at F = 24), with kernel / plain / library
-     times (CUDA events, the launches queued behind a device spin), the
-     roofline bound (the fused block's also split into its chain and FF
-     launches), and a second call that must give the same bits;
+     C = 384, with tiles spanning two images, at T = 300, at C = 64 with T =
+     16, at head width 40 and at C = 640 (the wide chain); frame-axis
+     attention at 24-128 frames with head widths 40 / 64 / 128 in both
+     layouts; flash_attention_mh, GEGLU's two launches on their own at level
+     2, GroupNorm with a level-0 pre-bias and with ragged chunks, the fused
+     block at a ragged N and at F = 24), with kernel / plain / library times
+     (CUDA events, the launches queued behind a device spin), the roofline
+     bound (the fused kernels' also split into their chain and FF launches),
+     and a second call that must give the same bits;
   4. the reference check: one UNet call of a small model of the same
      structure on the card (kernels) and on the CPU (plain versions) from
      the same weights and inputs, every kernel of the model path launched;
@@ -116,6 +119,15 @@ def spatial_tail_cost(rows, c, hd1, hd, t, n):
     return flops, (rows * (2 * c + hd1) + weights + 2 * n * t * hd) * 2.0
 
 
+def spatial_chain_cost(rows, c, hd, t, n):
+    # the chain launch: three C x C products and the cross-attention (S and
+    # P.V over T tokens, 2 T HD multiply-adds a row); x and o1 read, x2 and h
+    # written, the three weights, six bias / LN vectors and the context K / V
+    # read once
+    return (2.0 * rows * (3 * c * hd + 2 * t * hd),
+            (4 * rows * c + 3 * c * hd + 6 * c + 2 * n * t * hd) * 2.0)
+
+
 def temporal_chain_cost(rows, f, c):
     # the chain launch: eight C x C products and two attentions (S and P.V,
     # 2 F C multiply-adds a row each); x and 8 C^2 weights and 8 LN / bias
@@ -179,6 +191,14 @@ def kernel_cases():
             return F.scaled_dot_product_attention(*t)
         return fn
 
+    # the main path's four frame-major shapes, then off it: level 0 and
+    # transformer_in's shapes (the fused block takes them on the path), the
+    # position-major layout, and longer clips (up to the kernel's 128
+    # frames) at head widths 40, 64 and 128 in both layouts
+    long_clips = tuple(
+        (f"f{f}_{h}x{d}" + ("_posmajor" if layout == "pm" else ""), (2, f, 180, h, d), layout)
+        for f in (24, 40, 64, 128) for h, d in ((8, 40), (5, 64), (3, 128))
+        for layout in ("fm", "pm"))
     for label, (b, f, n, heads, d), layout in (
             ("level0", (2, 16, 2880, 5, 64), "fm"),
             ("transformer_in_d40", (2, 16, 2880, 8, 40), "fm"),
@@ -186,7 +206,7 @@ def kernel_cases():
             ("level2", (2, 16, 180, 20, 64), "fm"),
             ("level3", (2, 16, 45, 20, 64), "fm"),
             ("level0_posmajor", (2, 16, 2880, 5, 64), "pm"),
-            ("transformer_in_d40_posmajor", (2, 16, 2880, 8, 40), "pm")):
+            ("transformer_in_d40_posmajor", (2, 16, 2880, 8, 40), "pm")) + long_clips:
         shape = (b, f, n, heads * d) if layout == "fm" else (b, n, f, heads * d)
 
         def mk(gen, shape=shape):
@@ -203,7 +223,8 @@ def kernel_cases():
             lib = lambda q, k, v, h=heads: sdpa_fm(h)(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         cases.append(("temporal_attention", label, mk, kern, plain, lib,
-                      temporal_cost(b, f, n, heads, d), layout == "fm"))
+                      temporal_cost(b, f, n, heads, d),
+                      label in ("level0", "transformer_in_d40", "level1", "level2", "level3")))
 
     for label, (t, c) in (("level0", (92160, 320)), ("level1", (23040, 640)),
                           ("level2", (5760, 1280)), ("level3", (1440, 1280))):
@@ -304,7 +325,15 @@ def kernel_cases():
                 out[key] = randn(shape, gen, 0.1, 1.0 if key.endswith("_s") else 0.0)
         return out
 
+    # the main path's level 0, then off it: C = 384 (two ring stages), S =
+    # 721 (tiles spanning two images), T = 300 (two sweeps over 128-token
+    # fills), C = 64 with T = 16, head width 40, and C = 640 (the wide chain)
     for label, (n, s_, c, heads, t), main in (("level0", (32, 2880, 320, 5, 77), True),
+                                              ("c384", (8, 2880, 384, 6, 77), False),
+                                              ("s721_spanning", (32, 721, 320, 5, 77), False),
+                                              ("t300_two_sweeps", (8, 2880, 320, 5, 300), False),
+                                              ("c64_t16", (8, 1024, 64, 1, 16), False),
+                                              ("d40", (8, 2880, 320, 8, 77), False),
                                               ("c640", (32, 720, 640, 10, 77), False)):
         shapes = {k: (c,) for k in st.KEYS}
         shapes.update({"o1_w": (c, c), "q2_w": (c, c), "o2_w": (c, c),
@@ -318,6 +347,9 @@ def kernel_cases():
                       lambda *a, h=heads: st.fused_spatial_tail(*a, heads=h),
                       lambda *a, h=heads: st.fused_spatial_tail_plain(*a, heads=h), None,
                       spatial_tail_cost(n * s_, c, c, c, t, n), main))
+        BOUND_PARTS[("fused_spatial_tail", label)] = {
+            "chain": bound_ms(*spatial_chain_cost(n * s_, c, c, t, n))[0],
+            "ff": bound_ms(*temporal_ff_cost(n * s_, c))[0]}
 
     # the main path's two blocks, then off it: N not a multiple of the 4
     # positions a tile, and F = 24 (the XL geometry's frames: 2 positions a
@@ -537,6 +569,7 @@ def launch_bounds(module, run):
 
     acc = {k: [0, 0.0] for k in MODEL_PATH}
     chain_ff = [0.0, 0.0]  # the fused block's bound split: chain launch, FF launches
+    tail_chain_ff = [0.0, 0.0]  # the fused tail's
 
     def add(name, cost):
         acc[name][0] += 1
@@ -553,8 +586,9 @@ def launch_bounds(module, run):
 
     def on_frame_attn(mod, args, kwargs, out):
         b, f, n = args[0].shape[:3]
-        add("temporal_attention",
-            temporal_cost(b, f, n, mod.heads, mod.to_q.out_features // mod.heads))
+        d = mod.to_q.out_features // mod.heads
+        if layers.temporal_attention_wants(f, d):
+            add("temporal_attention", temporal_cost(b, f, n, mod.heads, d))
 
     def on_attn(mod, args, kwargs, out):
         x = args[0]
@@ -575,6 +609,8 @@ def launch_bounds(module, run):
         hd = mod.attn2.to_q.out_features
         add("fused_spatial_tail", spatial_tail_cost(n * s, c, a1.heads * a1.head_dim,
                                                     hd, ctx.shape[1], n))
+        tail_chain_ff[0] += bound_ms(*spatial_chain_cost(n * s, c, hd, ctx.shape[1], n))[0]
+        tail_chain_ff[1] += bound_ms(*temporal_ff_cost(n * s, c))[0]
 
     def on_temporal_block(mod, args, kwargs, out):
         x = args[0]
@@ -602,6 +638,8 @@ def launch_bounds(module, run):
                                  f"{n} seen by the bound's hooks")
     out = {k: {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
     out["fused_temporal_block"].update(bound_ms_chain=chain_ff[0], bound_ms_ff=chain_ff[1])
+    out["fused_spatial_tail"].update(bound_ms_chain=tail_chain_ff[0],
+                                     bound_ms_ff=tail_chain_ff[1])
     return out
 
 
@@ -786,7 +824,9 @@ def main():
         for k, v in build.items():
             f.write(f"==== {k}\n{v['ptxas']}\n")
     # registers, spills and shared memory of the redesigned kernels
-    for k, names in (("groupnorm", ("gn_fused",)), ("temporal_block", ("temporal_block_chain",))):
+    for k, names in (("groupnorm", ("gn_fused",)), ("temporal_block", ("temporal_block_chain",)),
+                     ("spatial_tail", ("spatial_tail_chain",)),
+                     ("temporal_attention", ("temporal_attn_tma",))):
         lines = build[k]["ptxas"].splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(n in line for n in names):

@@ -1,6 +1,7 @@
-// Shared helpers for the port's Hopper kernels: bf16 packing, the
-// m16n8k16 bf16 tensor-core product (mma.sync), and the error-string export
-// each shared library carries for its ctypes wrapper.
+// Shared helpers for the port's Hopper kernels: bf16 packing, warp and quad
+// reductions, ldmatrix, the m16n8k16 bf16 tensor-core product (mma.sync),
+// and the error-string export each shared library carries for its ctypes
+// wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +46,31 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Sum / max over the 4 lanes of a quad (the lanes that share an mma row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// ldmatrix of four 8 x 8 bf16 matrices, lane l giving the address of row
+// l % 8 of matrix l / 8; .trans hands each thread a column pair instead.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // D += A(16x16, row) * B(16x8, col); bf16 inputs, f32 accumulate.

@@ -1,10 +1,10 @@
-// Row-tile building blocks of the fused spatial tail (spatial_tail.cu; the
-// residual epilogues below also serve temporal_block.cu): a block of
-// FUSED_THREADS (8 warps) owns FUSED_ROWS token rows held in shared memory as
-// bf16, multiplies them
-// by weights streamed from global memory (L2-resident; a weight set of a few
-// MB does not fit the 227 KB of shared memory), and normalises whole rows,
-// each of which the block holds in full.
+// Row-tile building blocks of the fused spatial tail's wide chain
+// (spatial_tail.cu: spatial_tail_chain_wide, 384 < C <= 768; the residual
+// epilogues below also serve both 64-row chains of chain_tile.cuh): a block
+// of FUSED_THREADS (8 warps) owns FUSED_ROWS token rows held in shared
+// memory as bf16, multiplies them by weights streamed from global memory
+// (L2-resident; a weight set of a few MB does not fit the 227 KB of shared
+// memory), and normalises whole rows, each of which the block holds in full.
 #pragma once
 
 #include "common.cuh"

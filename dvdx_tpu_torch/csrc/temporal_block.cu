@@ -23,7 +23,9 @@
 // time goes (utils/kernel_probe).
 //
 // Design of the chain, temporal_block_chain (one CTA per 64-row tile, 288
-// threads -- two consumer warpgroups and a producer warp -- one CTA per SM):
+// threads -- two consumer warpgroups and a producer warp -- one CTA per SM;
+// the register-resident x, the LayerNorm, the weight ring and the products
+// are chain_tile.cuh's, shared with the spatial tail's chain):
 //   * tile: P positions x F frames (ChainPlan in ops/kernels/temporal_block
 //     .py: P = 64 / F, fewer where the last position's 16-row-padded frames
 //     would pass row 64), gathered by the frame stride; tile row r is frame
@@ -61,21 +63,17 @@
 //     geglu_out with the residual epilogue). Nothing runs between launches.
 // Determinism: launch shape and summation orders depend on the shapes only;
 // no atomics, no sum across blocks.
-#include "fused_rows.cuh"
+#include "chain_tile.cuh"
 #include "geglu_gemm.cuh"
 
 using namespace dvdx;
+using namespace dvdx::chain;
 
 namespace {
 
 constexpr int MAX_DIM = 384;
 constexpr int MAX_FRAMES = 64;
-constexpr int TILE = 64;             // rows per tile: one wgmma m64
-constexpr int CHAIN_THREADS = 288;   // warpgroups 0-1 consume, warp 8 loads
-constexpr int MAX_STAGES = 6;
-constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may use
-constexpr int CONSUMERS = 256;
-constexpr int BAR_CONSUMERS = 1;     // named barrier of the two consumer warpgroups
+constexpr int CHAIN_THREADS = THREADS;
 
 // the eight C x C weights in the order the chain multiplies by them
 struct ChainMaps {
@@ -93,172 +91,23 @@ struct ChainShape {
   float scale, eps;
 };
 
-__host__ __device__ constexpr int chain_stage_bytes(int C) { return C / 2 * 128; }
+__host__ __device__ constexpr int chain_stage_bytes(int C) { return slice_bytes(C); }
 
 constexpr int chain_smem_bytes(int C, int stages) {
   return 1024 + 3 * TILE * C * 2 + stages * chain_stage_bytes(C) + 2 * MAX_STAGES * 8 +
          2 * TILE * 2 * 4;
 }
 
-// Byte offset of (row r, column c) in a 64 x C buffer laid out as TMA's
-// 128-byte swizzle writes it: 64-column boxes of 64 rows x 128 bytes, the
-// 16-byte chunk j of row r at j ^ (r % 8).
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 6) * (TILE * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-
-__device__ __forceinline__ float bf_hi(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// What a consumer thread knows of its place: warpgroup wg owns columns
-// [wg C/2, (wg+1) C/2); the thread holds rows r0 and r0 + 8 at columns
-// cb + 8 j, cb + 8 j + 1.
-struct Consumer {
-  int wg, warp, lane, r0, cb;
-  unsigned char *hs, *ks, *vs, *ring;
-  uint64_t *full, *empty;
-  float* red;
-  int stages;
+// chain_tile.cuh's thread with the k and v buffers of the attentions
+struct Consumer : Tile {
+  unsigned char *ks, *vs;
 };
 
-__device__ __forceinline__ void consumers_sync() { named_bar_sync(BAR_CONSUMERS, CONSUMERS); }
-
-// acc = A (hs, 64 x C) * W_m^T for this warpgroup's columns; weight slices
-// s = (m * KS + kb) * 2 + wg of the ring. A slice is released once the next
-// slice's products are issued and its own are done, so two products are in
-// flight (releasing each slice as soon as its products were done measured
-// slower, utils/kernel_probe); with one stage per warpgroup (C = 384) it
-// must be released before its refill is awaited.
+// the products in the order k, v, q, o of each sub-block: product m takes
+// the ring's fills from 2 m (C / 64)
 template <int C>
 __device__ __forceinline__ void chain_product(const Consumer& t, int m, float (&acc)[C / 4]) {
-  constexpr int KS = C / 64;
-#pragma unroll
-  for (int i = 0; i < C / 4; ++i) acc[i] = 0.f;
-  auto release = [&](int stage) {
-    __syncwarp();
-    if (t.lane == 0)
-      mbar_arrive(&t.empty[stage]);
-  };
-  const uint32_t a0 = smem_u32(t.hs);
-  const bool one_stage = t.stages == 2;
-  int prev = -1;
-  for (int kb = 0; kb < KS; ++kb) {
-    const int s = (m * KS + kb) * 2 + t.wg;
-    const int st = s % t.stages;
-    mbar_wait(&t.full[st], (s / t.stages) & 1);
-    const uint32_t a = a0 + kb * (TILE * 128);
-    const uint32_t b = smem_u32(t.ring + st * chain_stage_bytes(C));
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss(acc, sw128_desc(a + kk * 32, 16, 1024), sw128_desc(b + kk * 32, 16, 1024), 1);
-    wgmma_commit();
-    if (one_stage) {
-      wgmma_wait<0>();
-      release(st);
-      continue;
-    }
-    wgmma_wait<1>();  // the previous slice's products are done
-    if (prev >= 0) release(prev);
-    prev = st;
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  if (prev >= 0) release(prev);
-}
-
-// bf16(acc) into a 64 x C buffer at this thread's places
-template <int C>
-__device__ __forceinline__ void store_acc(const Consumer& t, unsigned char* buf,
-                                          const float (&acc)[C / 4]) {
-#pragma unroll
-  for (int j = 0; j < C / 16; ++j) {
-    const int c = t.cb + 8 * j;
-    *reinterpret_cast<uint32_t*>(buf + swz(t.r0, c)) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(buf + swz(t.r0 + 8, c)) =
-        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
-// LayerNorm of x (registers) with flax's math: f32 moments with the fast
-// variance, (x - mean) / sqrt(var + eps) * scale + bias, rounded to bf16.
-// Writes pairs through put(row index 0/1, column, packed pair).
-template <int C, typename Put>
-__device__ __forceinline__ void chain_layernorm(const Consumer& t, const uint32_t (&xr)[C / 16][2],
-                                                const bf16* __restrict__ scale,
-                                                const bf16* __restrict__ bias, float eps,
-                                                Put put) {
-  float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < C / 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float a = bf_lo(xr[j][h]), b = bf_hi(xr[j][h]);
-      s[h] += a + b;
-      q[h] += a * a + b * b;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    s[h] = quad_sum(s[h]);
-    q[h] = quad_sum(q[h]);
-    if ((t.lane & 3) == 0) {
-      t.red[(t.wg * TILE + t.r0 + 8 * h) * 2] = s[h];
-      t.red[(t.wg * TILE + t.r0 + 8 * h) * 2 + 1] = q[h];
-    }
-  }
-  consumers_sync();
-  float mean[2], inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = t.r0 + 8 * h;
-    const float sum = t.red[r * 2] + t.red[(TILE + r) * 2];
-    const float sq = t.red[r * 2 + 1] + t.red[(TILE + r) * 2 + 1];
-    mean[h] = sum / C;
-    inv[h] = 1.f / sqrtf(sq / C - mean[h] * mean[h] + eps);
-  }
-  uint32_t sc[C / 16], bi[C / 16];  // this thread's column pairs, all loads in flight
-#pragma unroll
-  for (int j = 0; j < C / 16; ++j) {
-    sc[j] = __ldg(reinterpret_cast<const unsigned int*>(scale + t.cb + 8 * j));
-    bi[j] = __ldg(reinterpret_cast<const unsigned int*>(bias + t.cb + 8 * j));
-  }
-#pragma unroll
-  for (int j = 0; j < C / 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float y0 = (bf_lo(xr[j][h]) - mean[h]) * inv[h] * bf_lo(sc[j]) + bf_lo(bi[j]);
-      const float y1 = (bf_hi(xr[j][h]) - mean[h]) * inv[h] * bf_hi(sc[j]) + bf_hi(bi[j]);
-      put(h, t.cb + 8 * j, pack_bf16(y0, y1));
-    }
-}
-
-// ldmatrix of four 8 x 8 bf16 matrices, lane l giving the address of row
-// l % 8 of matrix l / 8; .trans hands each thread a column pair instead.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+  ring_product<C>(t, m * 2 * (C / 64), acc);
 }
 
 // The F x F attention of every (position, head) of the tile: q in hs, k in
@@ -368,7 +217,6 @@ temporal_block_chain(const __grid_constant__ ChainMaps maps, const ChainVecs vec
                      bf16* __restrict__ h_out, const ChainShape sh) {
   constexpr int NH = C / 2;      // columns of one consumer warpgroup
   constexpr int NJ = C / 16;     // its 8-column tiles
-  constexpr int KS = C / 64;     // 64-deep slices of one product
   constexpr int STAGE = chain_stage_bytes(C);
   constexpr int BUF = TILE * C * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -382,38 +230,20 @@ temporal_block_chain(const __grid_constant__ ChainMaps maps, const ChainVecs vec
   t.empty = t.full + MAX_STAGES;
   t.red = reinterpret_cast<float*>(t.empty + MAX_STAGES);
   t.stages = sh.stages;
+  t.stage_bytes = STAGE;
   t.wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < sh.stages; ++s) {
-      mbar_init(&t.full[s], 1);
-      mbar_init(&t.empty[s], 4);  // the consuming warpgroup's warps
-    }
+    ring_init(t);
     mbar_fence_init();
   }
   __syncthreads();
 
   if (t.wg == 2) {
-    // ---- producer: slice (m, kb, half) of the eight weights, in order ----
-    if (threadIdx.x == 256) {
-      int st = 0;
-      uint32_t ph = 0;
-      auto advance = [&] {
-        if (++st == sh.stages) {
-          st = 0;
-          ph ^= 1;
-        }
-      };
-      for (int m = 0; m < 8; ++m)
-        for (int kb = 0; kb < KS; ++kb)
-          for (int half = 0; half < 2; ++half) {
-            mbar_wait(&t.empty[st], ph ^ 1);
-            unsigned char* sp = t.ring + st * STAGE;
-            mbar_expect_tx(&t.full[st], STAGE);
-            tma_load_2d(sp, &maps.w[m], &t.full[st], kb * 64, half * NH);
-            tma_load_2d(sp + STAGE / 2, &maps.w[m], &t.full[st], kb * 64, half * NH + NH / 2);
-            advance();
-          }
+    // ---- producer: the eight weights' slices, in order ----
+    if (threadIdx.x == PRODUCER) {
+      RingCursor cur;
+      for (int m = 0; m < 8; ++m) produce_weight<C>(t, cur, &maps.w[m]);
     }
     return;
   }
@@ -453,11 +283,7 @@ temporal_block_chain(const __grid_constant__ ChainMaps maps, const ChainVecs vec
   }
   consumers_sync();
   uint32_t xr[NJ][2];  // x as bf16 pairs, rows r0 / r0 + 8, columns cb + 8 j
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      xr[j][h] = *reinterpret_cast<const uint32_t*>(t.hs + swz(t.r0 + 8 * h, t.cb + 8 * j));
+  load_x<C>(t, t.hs, xr);
 
   float acc[C / 4];
   auto to_hs = [&](int h, int c, uint32_t v) {
@@ -485,27 +311,15 @@ temporal_block_chain(const __grid_constant__ ChainMaps maps, const ChainVecs vec
     fence_proxy_async();
     consumers_sync();  // the attention output is whole
     chain_product<C>(t, 4 * sub + 3, acc);
-    uint32_t bo[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      bo[j] = __ldg(reinterpret_cast<const unsigned int*>(vec.bo[sub] + t.cb + 8 * j));
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        xr[j][h] = pack_bf16(bias_then_resid(bf_lo(xr[j][h]), acc[4 * j + 2 * h], bf_lo(bo[j])),
-                             bias_then_resid(bf_hi(xr[j][h]), acc[4 * j + 2 * h + 1], bf_hi(bo[j])));
+    residual<C>(t, xr, acc, vec.bo[sub],
+                [](float x, float mm, float b) { return bias_then_resid(x, mm, b); });
   }
   // h = LN3(x) into ks and x into vs (both free now), then out by 16-byte
   // stores of the valid rows
   chain_layernorm<C>(t, xr, vec.ln_s[2], vec.ln_b[2], sh.eps, [&](int h, int c, uint32_t v) {
     *reinterpret_cast<uint32_t*>(t.ks + swz(t.r0 + 8 * h, c)) = v;
   });
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<uint32_t*>(t.vs + swz(t.r0 + 8 * h, t.cb + 8 * j)) = xr[j][h];
+  store_x<C>(t, t.vs, xr);
   consumers_sync();
   for (int i = threadIdx.x; i < TILE * (C / 8); i += CONSUMERS) {
     const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;

@@ -36,29 +36,37 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 from ..ops.groupnorm import group_norm_act
 from ..ops.kernels.geglu_ff import geglu_ff
-from ..ops.kernels.spatial_tail import fused_spatial_tail
-from ..ops.kernels.temporal_attention import temporal_attention
+from ..ops.kernels import spatial_tail
+from ..ops.kernels import temporal_attention as frame_attention
 from ..ops.kernels import temporal_block
+from ..ops.kernels.spatial_tail import fused_spatial_tail
+from ..ops.kernels.temporal_attention import temporal_attention, temporal_attention_plain
 from ..ops.kernels.temporal_block import fused_temporal_block
 
-# Shape gates of the fused branches (the JAX package's
-# _fused_spatial_tail_wants / _fused_block_wants without the TPU's VMEM
-# choosers): the fused tail at S >= 512 rows with a context of <= 512 tokens
-# and widths <= 384 (the resident-weight bound; the JAX package's streamed
-# C = 640 route is a measured loss and is not taken), the fused block at
-# N >= 64 positions and exactly the shapes its kernel takes (C % 64 == 0,
-# C <= 384, F <= 64, heads x head_dim == C with head_dim % 8 == 0); a
-# longer clip runs the unfused block.
+# Shape gates of the kernels (the JAX package's _fused_spatial_tail_wants /
+# _fused_block_wants and its fm kernel's limits, without the TPU's VMEM
+# choosers). Each takes exactly the shapes its kernel takes:
+# * the fused tail at S >= 512 rows per image and the 64-row chain's shapes
+#   (C % 64 == 0, C <= 384, heads x head_dim == C with head_dim a multiple
+#   of 8 up to 128, a context of <= 512 tokens; the JAX package's streamed
+#   C = 640 route is a measured loss and is not taken);
+# * the fused block at N >= 64 positions and C % 64 == 0, C <= 384, F <= 64,
+#   heads x head_dim == C with head_dim % 8 == 0;
+# * frame-axis attention at F <= 128 and head_dim a multiple of 8 up to 128.
+# Blocks a gate refuses run unfused, and frame-axis attention the kernel
+# refuses runs its plain tensor math, on the card too, as the JAX package
+# falls to its XLA branches.
 SPATIAL_TAIL_MIN_SEQ = 512
-FUSED_MAX_DIM = 384
-FUSED_MAX_CONTEXT = 512
 TEMPORAL_BLOCK_MIN_POSITIONS = 64
 TEMPORAL_BLOCK_MAX_FRAMES = temporal_block.MAX_FRAMES
 
 
-def fused_spatial_tail_wants(s: int, dim: int, inner: int, ctx_tokens: int) -> bool:
-    return (s >= SPATIAL_TAIL_MIN_SEQ and dim <= FUSED_MAX_DIM
-            and inner <= FUSED_MAX_DIM and ctx_tokens <= FUSED_MAX_CONTEXT)
+def fused_spatial_tail_wants(s: int, dim: int, heads: int, head_dim: int,
+                             ctx_tokens: int) -> bool:
+    return (s >= SPATIAL_TAIL_MIN_SEQ and dim % 64 == 0
+            and dim <= spatial_tail.CHAIN_MAX_DIM and heads * head_dim == dim
+            and head_dim % 8 == 0 and 8 <= head_dim <= spatial_tail.MAX_HEAD_DIM
+            and 1 <= ctx_tokens <= spatial_tail.MAX_CONTEXT)
 
 
 def fused_temporal_block_wants(frames: int, positions: int, dim: int, heads: int,
@@ -67,6 +75,11 @@ def fused_temporal_block_wants(frames: int, positions: int, dim: int, heads: int
             and frames <= TEMPORAL_BLOCK_MAX_FRAMES
             and dim % 64 == 0 and dim <= temporal_block.MAX_DIM
             and heads * head_dim == dim and head_dim % 8 == 0)
+
+
+def temporal_attention_wants(frames: int, head_dim: int) -> bool:
+    return (frames <= frame_attention.MAX_FRAMES and head_dim % 8 == 0
+            and 8 <= head_dim <= frame_attention.MAX_HEAD_DIM)
 
 
 class Dense(nn.Linear):
@@ -256,9 +269,8 @@ class BasicTransformerBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim)
 
     def fused(self, x: torch.Tensor, context: torch.Tensor) -> bool:
-        return fused_spatial_tail_wants(x.shape[1], x.shape[-1],
-                                        self.attn1.heads * self.attn1.head_dim,
-                                        context.shape[1])
+        return fused_spatial_tail_wants(x.shape[1], x.shape[-1], self.attn1.heads,
+                                        self.attn1.head_dim, context.shape[1])
 
     def tail_params(self) -> dict:
         """The fused tail's flat parameter dict (the JAX keys, nn.Linear
@@ -306,7 +318,9 @@ class SpatialTransformer(nn.Module):
 class _FrameAxisAttention(nn.Module):
     """Self-attention over the frame axis of frame-major (B, F, N, C), through
     the ``temporal_attention`` kernel: an F x F softmax per (batch, position,
-    head), with no transposes of the activations."""
+    head), with no transposes of the activations. Where
+    ``temporal_attention_wants`` refuses the shape (F > 128), the plain
+    tensor math runs instead, on the card too (the JAX layer's XLA einsum)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int):
         super().__init__()
@@ -318,9 +332,10 @@ class _FrameAxisAttention(nn.Module):
         self.to_out = Dense(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        o = temporal_attention(self.to_q(x), self.to_k(x), self.to_v(x),
-                               heads=self.heads)
-        return self.to_out(o)
+        attend = (temporal_attention
+                  if temporal_attention_wants(x.shape[1], self.to_q.out_features // self.heads)
+                  else temporal_attention_plain)
+        return self.to_out(attend(self.to_q(x), self.to_k(x), self.to_v(x), heads=self.heads))
 
 
 class _TemporalBlock(nn.Module):

@@ -10,18 +10,20 @@ unfused branch computes x + (mm + b)), so the fused configuration is a step
 program of its own.
 
 Kernel: ``csrc/spatial_tail.cu``, three launches with nothing between them
--- the row-local chain up to LN3 on 32-row tiles held in shared memory
-(weights stream from L2: they do not fit shared memory), then the GEGLU
-feed-forward as the two wgmma products of ``csrc/geglu_gemm.cuh``, the second
-with the residual epilogue; the inner tensor goes through a (rows, I)
-scratch. Bounded by tensor-core operations at the UNet's level 0; it takes
-C <= 768 (C % 64 == 0) and I % 128 == 0.
+-- the chain up to LN3, then the GEGLU feed-forward as the two wgmma
+products of ``csrc/geglu_gemm.cuh``, the second with the residual epilogue;
+the inner tensor goes through a (rows, I) scratch. The chain is one of two
+kernels by width: at C <= 384 (C % 64 == 0) 64-row tiles (``plan``) with
+the three C x C products on wgmma, the weights and each head's context K / V
+streamed by TMA through one ring, and the cross-attention on the tensor
+cores; at 384 < C <= 768 32-row tiles held in shared memory. Bounded by
+tensor-core operations at the UNet's level 0; I % 128 == 0.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,10 +31,88 @@ from .. import _build
 from .fused_math import dense, geglu_residual, layer_norm
 
 LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
-MAX_DIM = 768
+MAX_DIM = 768        # the wide chain's widths
+CHAIN_MAX_DIM = 384  # the 64-row chain's
 MAX_CONTEXT = 512
+MAX_HEAD_DIM = 128
+TILE_ROWS = 64       # rows of one chain tile (one wgmma m64)
+KV_CHUNK = 128       # context tokens of one K / V fill at most (csrc KV_CHUNK)
+MAX_STAGES = 6       # ring stages (csrc/chain_tile.cuh MAX_STAGES)
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on the H100
 KEYS = ("o1_w", "o1_b", "ln2_s", "ln2_b", "q2_w", "o2_w", "o2_b",
         "ln3_s", "ln3_b", "ffi_w", "ffi_b", "ffo_w", "ffo_b")
+
+
+class TailPlan(NamedTuple):
+    tiles: int        # 64-row tiles of the rows
+    tokens: int       # keys of one K / V fill: T padded to 16, at most KV_CHUNK
+    chunks: int       # fills per (head, image) sweep; two sweeps where chunks > 1
+    stages: int       # ring stages (even: each feeds one warpgroup)
+    stage_bytes: int  # a ring stage: a weight slice or one head's K and V
+    smem_bytes: int   # dynamic shared memory of the chain kernel
+
+
+def kv_fill_bytes(d: int, tokens: int) -> int:
+    """One head's K and V of ``tokens`` tokens in 64-lane boxes."""
+    return 2 * -(-d // 64) * tokens * 128
+
+
+def chain_smem_bytes(c: int, stages: int, stage_bytes: int) -> int:
+    """Alignment slack, the A-operand and x buffers (64 x C bf16 each), the
+    ring, its mbarriers and the x / o1 ones, the LayerNorm exchange."""
+    return 1024 + 2 * TILE_ROWS * c * 2 + stages * stage_bytes + (2 * MAX_STAGES + 2) * 8 \
+        + 2 * TILE_ROWS * 2 * 4
+
+
+def plan(rows: int, s: int, c: int, hd: int, t: int, heads: int) -> TailPlan:
+    """The 64-row chain's tiling of (rows, C) = (N * S, C) with ``heads``
+    heads over hd = C lanes and T context tokens: 64-row tiles, the context
+    in fills of T padded to 16 tokens (one pass) or of 128 tokens (two
+    sweeps, T > 128), and the most ring stages, even, that fit the shared
+    memory beside the two 64 x C buffers."""
+    d = hd // heads if heads >= 1 else 0
+    if (c % 64 or not 64 <= c <= CHAIN_MAX_DIM or hd != c or heads < 1 or hd % heads
+            or d % 8 or not 8 <= d <= MAX_HEAD_DIM or not 1 <= t <= MAX_CONTEXT
+            or s < 1 or rows < 1 or rows % s):
+        raise ValueError(f"spatial tail chain: no plan for rows={rows}, S={s}, C={c}, "
+                         f"HD={hd}, T={t}, heads={heads}")
+    tokens = min(-(-t // 16) * 16, KV_CHUNK)
+    stage = max(c // 2 * 128, kv_fill_bytes(d, tokens))
+    stages = MAX_STAGES
+    while stages > 2 and chain_smem_bytes(c, stages, stage) > SMEM_LIMIT:
+        stages -= 2
+    if chain_smem_bytes(c, stages, stage) > SMEM_LIMIT:
+        raise ValueError(f"spatial tail chain: C={c}, d={d}, T={t} do not fit shared memory")
+    return TailPlan(-(-rows // TILE_ROWS), tokens, -(-t // KV_CHUNK), stages, stage,
+                    chain_smem_bytes(c, stages, stage))
+
+
+def tile_images(tile: int, rows: int, s: int) -> Tuple[int, int]:
+    """The first and last image whose rows a 64-row chain tile holds."""
+    r0 = tile * TILE_ROWS
+    return r0 // s, min(r0 + TILE_ROWS - 1, rows - 1) // s
+
+
+def check_shape(n: int, s: int, c: int, hd1: int, hd: int, t: int, heads: int,
+                inner: int) -> Optional[TailPlan]:
+    """The 64-row chain's plan for x (N, S, C), o1 (N, S, HD1), a context of
+    T tokens projected to HD lanes of ``heads`` heads and FF width
+    ``inner``; None where the wide chain (384 < C <= 768) takes the block;
+    ValueError where neither kernel does."""
+    if inner % 128 or not 1 <= t <= MAX_CONTEXT or heads < 1 or hd % heads:
+        raise ValueError(f"fused_spatial_tail: unsupported FF width {inner}, context {t} "
+                         f"or heads {heads}")
+    if c <= CHAIN_MAX_DIM:
+        if hd1 != hd:
+            raise ValueError(f"fused_spatial_tail: needs HD1 == HD == C (C={c}, HD1={hd1}, "
+                             f"HD={hd})")
+        return plan(n * s, s, c, hd, t, heads)
+    d = hd // heads
+    if (c % 64 or c > MAX_DIM or hd1 % 16 or hd1 > MAX_DIM or hd % 16 or hd > MAX_DIM
+            or d % 16 or d > MAX_HEAD_DIM):
+        raise ValueError(f"fused_spatial_tail: unsupported widths C={c}, HD1={hd1}, HD={hd}, "
+                         f"heads={heads}")
+    return None
 
 
 def _scale(params: Dict[str, torch.Tensor], heads: int,
@@ -88,12 +168,11 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     n, s, c = x.shape
     hd1, hd, t = o1.shape[-1], params["q2_w"].shape[0], ctx_k.shape[1]
     inner = params["ffi_w"].shape[0] // 2
-    if (c % 64 or c > MAX_DIM or hd1 % 16 or hd1 > MAX_DIM or hd % 16
-            or hd > MAX_DIM or hd % heads or not 1 <= t <= MAX_CONTEXT
-            or inner % 128 or o1.shape[:2] != (n, s)
-            or ctx_k.shape != (n, t, hd) or ctx_v.shape != (n, t, hd)):
+    if (o1.shape[:2] != (n, s) or ctx_k.shape != (n, t, hd) or ctx_v.shape != (n, t, hd)
+            or tuple(params["q2_w"].shape) != (hd, c)):
         raise ValueError(f"fused_spatial_tail: unsupported shapes x {tuple(x.shape)}, "
                          f"o1 {tuple(o1.shape)}, ctx {tuple(ctx_k.shape)}")
+    pl = check_shape(n, s, c, hd1, hd, t, heads, inner)
     ops = [x, o1, ctx_k, ctx_v] + [params[k] for k in KEYS]
     if any(a.device != x.device for a in ops):
         raise ValueError("fused_spatial_tail: every operand must be on x's device")
@@ -106,11 +185,12 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     lib = _build.library("spatial_tail")
     fn = lib.dvdx_spatial_tail
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 9
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     rc = fn(*(_build.ptr(a) for a in ops + [x2, h, ff_inner, out]), n * s, s, c, hd1, hd,
-            t, heads, inner, float(_scale(params, heads, scale)), float(eps),
+            t, heads, inner, 0 if pl is None else pl.stages,
+            float(_scale(params, heads, scale)), float(eps),
             _build.stream(x.device))
     _build.check(lib, rc, "fused_spatial_tail")
     global LAUNCHES

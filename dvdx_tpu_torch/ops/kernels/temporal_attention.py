@@ -6,20 +6,70 @@ Replaces ``dvdx_tpu/ops/pallas/temporal_attention.py``:
 (``_temporal_kernel``). One kernel, ``csrc/temporal_attention.cu``, takes a
 batch, a frame and a position stride, so the position-major
 (B, N, F, H*D) and frame-major (B, F, N, H*D) entry points both launch it.
-One block per (batch, position, head) unit; F <= 32 frames held in shared
-memory. Bounded by bytes (about F/2 flops per byte moved).
+Persistent CTAs walk over tiles of P positions x one head x all F frames
+(``plan``), brought in by TMA through a ring and computed on the tensor
+cores; F <= 128 frames and head dims that are multiples of 8 up to 128 (the
+JAX fm kernel's limit). Bounded by bytes (about F/2 flops per byte moved).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _build
 
 LAUNCHES = 0  # kernel launches since the last reset (a plain count)
+MAX_FRAMES = 128
+MAX_HEAD_DIM = 128
+MAX_STAGES = 4       # ring stages (csrc/temporal_attention.cu MAX_STAGES)
+TILE_ROW_BYTES = 16384  # one 64-lane box of a tile's q, k or v: 128 rows of 128 bytes
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on the H100
+
+
+class Plan(NamedTuple):
+    positions: int   # P: positions per tile (one head, all frames)
+    frames: int      # F padded to 16 (keys past F masked)
+    head_dim: int    # D padded to 16 (lanes past D zero)
+    boxes: int       # 64-lane boxes per row
+    tiles: int       # B * heads * ceil(N / P)
+    stages: int      # ring stages, each q, k and v of one tile
+    smem_bytes: int  # dynamic shared memory of the kernel
+
+
+def plan(b: int, f: int, n: int, heads: int, d: int, layout: str = "fm") -> Plan:
+    """The kernel's tiling of q/k/v with F frames, N positions and ``heads``
+    heads of width d in either layout ("fm" (B, F, N, H*D), "pm" (B, N, F,
+    H*D)): P positions whose frames, padded to 16, make about 128 rows of
+    one 64-lane box (64 rows where D takes two boxes), and the most ring
+    stages, at most 4, that fit the shared memory. The layout changes only
+    the order of a tile's rows, not the plan."""
+    if layout not in ("fm", "pm"):
+        raise ValueError(f"temporal attention: unknown layout {layout!r}")
+    if not 1 <= f <= MAX_FRAMES or d % 8 or not 8 <= d <= MAX_HEAD_DIM or min(b, n, heads) < 1:
+        raise ValueError(f"temporal attention: no plan for F={f}, D={d}")
+    fpad = -(-f // 16) * 16
+    boxes = -(-d // 64)
+    p = max(1, TILE_ROW_BYTES // 128 // boxes // fpad)
+    stage = 3 * boxes * p * fpad * 128
+    stages = MAX_STAGES
+    while 1024 + stages * stage + 2 * MAX_STAGES * 8 > SMEM_LIMIT:
+        stages -= 1
+    return Plan(p, fpad, -(-d // 16) * 16, boxes, b * heads * -(-n // p), stages,
+                1024 + stages * stage + 2 * MAX_STAGES * 8)
+
+
+def check_shape(b: int, f: int, n: int, heads: int, d: int, layout: str = "fm") -> Plan:
+    """The kernel's plan for these shapes, or ValueError where the kernel
+    does not take them."""
+    try:
+        return plan(b, f, n, heads, d, layout)
+    except ValueError:
+        raise ValueError(f"temporal_attention: needs F <= {MAX_FRAMES} and a head dim that is "
+                         f"a multiple of 8 <= {MAX_HEAD_DIM} (F={f}, D={d})") from None
+
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,9 +106,7 @@ def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
         raise ValueError("temporal_attention: q, k, v must share one device")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError("temporal_attention: the kernel takes bfloat16")
-    if f > 32 or d > 128 or d % 8:
-        raise ValueError(f"temporal_attention: needs F <= 32 and head dim a "
-                         f"multiple of 8 <= 128 (F={f}, D={d})")
+    pl = check_shape(b, f, n, heads, d, "fm" if frame_axis == 1 else "pm")
     if q.stride() != k.stride() or q.stride() != v.stride() \
             or q.stride(3) != 1 or any(st % 8 for st in q.stride()[:3]) \
             or any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -72,10 +120,10 @@ def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
     if fn.argtypes is None:
         ll = ctypes.c_longlong
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ll] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            b, f, n, heads, d, sb, sf, sn, osb, osf, osn, float(scale),
+            b, f, n, heads, d, sb, sf, sn, osb, osf, osn, pl.positions, pl.stages, float(scale),
             _build.stream(q.device))
     _build.check(lib, rc, "temporal_attention")
     global LAUNCHES

@@ -1,20 +1,22 @@
-"""Where the time goes inside the fused temporal block's chain and GroupNorm
-on the card, and what GroupNorm's chunk size is worth.
+"""Where the time goes inside the fused kernels' chains and GroupNorm on the
+card, and what GroupNorm's chunk size is worth.
 
     python -m dvdx_tpu_torch.utils.kernel_probe
 
 1. Device time per call from ``torch.profiler`` (kernel time only,
    whatever the host does): the chain and the FF launches of the fused
    temporal block at zeroscope-v2-576w's level 0 (2, 16, 2880, 320), 5
-   heads; GroupNorm at the UNet's and the VAE's shapes at five chunk sizes
-   (the plan takes ``ops.groupnorm.CHUNK_ELEMS``, or ``LARGE_CHUNK_ELEMS``
-   for large calls). Each run is also held to its plain version (2 bf16
-   ulps of max |plain|).
-2. Phase timings from instrumented copies of the two sources, built beside
-   the kernels' own builds: the chain's cycles per tile in each phase, read
-   by one consumer thread of every CTA and summed; GroupNorm's timeline of
-   block 0 (phase 1, barrier, phase 2, barrier, phase 3) in microseconds.
-   The copies add clock reads at the phase boundaries and nothing else.
+   heads, and of the fused spatial tail at level 0 (32 x 2880 rows, C = 320,
+   5 heads, 77 context tokens); GroupNorm at the UNet's and the VAE's
+   shapes at five chunk sizes (the plan takes ``ops.groupnorm.CHUNK_ELEMS``,
+   or ``LARGE_CHUNK_ELEMS`` for large calls). Each run is also held to its
+   plain version (2 bf16 ulps of max |plain|).
+2. Phase timings from instrumented copies of the three sources, built beside
+   the kernels' own builds: each chain's cycles per 64-row tile in each
+   phase, read by one consumer thread of every CTA and summed; GroupNorm's
+   timeline of block 0 (phase 1, barrier, phase 2, barrier, phase 3) in
+   microseconds. The copies add clock reads at the phase boundaries and
+   nothing else.
 
 Needs a CUDA card; writes ``chiprun_out/kernel_probe.json``.
 """
@@ -70,11 +72,56 @@ def _instrument_chain(src: str) -> str:
     src = src[:j] + "    PROBE(5);\n  }\n" + src[j + 4:]
     k = src.rindex("}\n", 0, src.index("template <int C>\nint chain_launch"))
     src = src[:k] + "  PROBE(3);\n}\n" + src[k + 2:]
-    return src + ('\nextern "C" int dvdx_probe_read(unsigned long long* out, int reset) {\n'
-                  '  cudaError_t e = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n'
-                  '  unsigned long long z[8] = {0};\n'
-                  '  if (reset && e == cudaSuccess) e = cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n'
-                  '  return (int)e;\n}\n')
+    return src + _PROBE_READ
+
+
+TAIL_PHASES = ("x and o1 in", "o1 product and residual", "LN2", "q product", "attention",
+               "o2 product and residual", "LN3 and stores",
+               "attention's waits for K / V")  # in probe index order; the last is part of attention
+
+# clock reads at the spatial tail chain's phase boundaries (one consumer
+# thread per CTA)
+_TAIL_MARKS = (
+    ("using namespace dvdx;\n",
+     "using namespace dvdx;\n__device__ unsigned long long g_probe[8];\n"
+     "#define PROBE(i) do { if (threadIdx.x == 0) { long long now_ = clock64(); "
+     "atomicAdd(&g_probe[i], (unsigned long long)(now_ - last_)); last_ = now_; } } while (0)\n"),
+    ("  uint32_t xr[NJ][2];  // x as bf16 pairs", "  long long last_ = clock64();\n"
+     "  uint32_t xr[NJ][2];  // x as bf16 pairs"),
+    ("  mbar_wait(o1_bar, 0);\n", "  mbar_wait(o1_bar, 0);\n  PROBE(0);\n"),
+    ("  residual<C>(t, xr, acc, vec.o1_b, resid);\n",
+     "  residual<C>(t, xr, acc, vec.o1_b, resid);\n  PROBE(1);\n"),
+    ("  consumers_sync();  // the LN output is whole before either warpgroup reads it\n",
+     "  consumers_sync();  // the LN output is whole before either warpgroup reads it\n"
+     "  PROBE(2);\n"),
+    ("  consumers_sync();  // q is whole\n", "  consumers_sync();  // q is whole\n  PROBE(3);\n"),
+    ("  consumers_sync();  // the attention output is whole\n",
+     "  consumers_sync();  // the attention output is whole\n  PROBE(4);\n"),
+    ("  residual<C>(t, xr, acc, vec.o2_b, resid);\n",
+     "  residual<C>(t, xr, acc, vec.o2_b, resid);\n  PROBE(5);\n"),
+    ("      fill_slot(t, g, st, parity);\n      mbar_wait(&t.full[st], parity);\n      if (h < sh.heads",
+     "      fill_slot(t, g, st, parity);\n      const long long w0_ = clock64();\n"
+     "      mbar_wait(&t.full[st], parity);\n"
+     "      if (threadIdx.x == 0) atomicAdd(&g_probe[7], (unsigned long long)(clock64() - w0_));\n"
+     "      if (h < sh.heads"),
+)
+
+
+def _instrument_tail(src: str) -> str:
+    for old, new in _TAIL_MARKS:
+        if old not in src:
+            raise RuntimeError(f"kernel_probe: the spatial tail source changed at {old!r}")
+        src = src.replace(old, new, 1)
+    k = src.rindex("}\n", 0, src.index("// The context's K or V"))
+    src = src[:k] + "  PROBE(6);\n}\n" + src[k + 2:]
+    return src + _PROBE_READ
+
+
+_PROBE_READ = ('\nextern "C" int dvdx_probe_read(unsigned long long* out, int reset) {\n'
+               '  cudaError_t e = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n'
+               '  unsigned long long z[8] = {0};\n'
+               '  if (reset && e == cudaSuccess) e = cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n'
+               '  return (int)e;\n}\n')
 
 
 def _instrument_gn(src: str) -> str:
@@ -96,14 +143,16 @@ def _instrument_gn(src: str) -> str:
 
 
 def build_instrumented() -> dict:
-    """{"temporal_block": CDLL, "groupnorm": CDLL}: the instrumented copies,
-    compiled with the kernels' own flags into build/torch_kernels/probe/."""
+    """{"temporal_block": CDLL, "spatial_tail": CDLL, "groupnorm": CDLL}: the
+    instrumented copies, compiled with the kernels' own flags into
+    build/torch_kernels/probe/."""
     from ..ops import _build
 
     out_dir = _build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name, patch in (("temporal_block", _instrument_chain), ("groupnorm", _instrument_gn)):
+    for name, patch in (("temporal_block", _instrument_chain), ("spatial_tail", _instrument_tail),
+                        ("groupnorm", _instrument_gn)):
         src = out_dir / f"{name}.cu"
         src.write_text(patch((_build.CSRC / f"{name}.cu").read_text()))
         lib = out_dir / f"{name}.so"
@@ -155,6 +204,7 @@ def main() -> int:
     import dvdx_tpu_torch
     from ..ops import _build
     from ..ops import groupnorm as gn
+    from ..ops.kernels import spatial_tail as st
     from ..ops.kernels import temporal_block as tb
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -166,7 +216,7 @@ def main() -> int:
     def randn(shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).bfloat16()
 
-    result = {"device": smi, "chain": {}, "group_norm": {}}
+    result = {"device": smi, "chain": {}, "tail": {}, "group_norm": {}}
     c = 320
     params = {k: randn((c,), 0.1, 1.0 if k.endswith("_s") else 0.0) for k in tb.KEYS}
     params.update({k: randn((c, c), c ** -0.5)
@@ -180,29 +230,54 @@ def main() -> int:
     def block():
         return tb.fused_temporal_block(x, params, heads=5)
 
-    def chain_phases(lib):
-        buf = (ctypes.c_ulonglong * 8)()
-        block()
-        torch.cuda.synchronize()
-        lib.dvdx_probe_read(buf, 1)
-        for _ in range(5):
-            block()
-        torch.cuda.synchronize()
-        lib.dvdx_probe_read(buf, 1)
-        return {CHAIN_PHASES[i]: buf[i] / 5 / tiles for i in range(len(CHAIN_PHASES))}
+    def phases_of(name, run, names, tiles):
+        """Cycles per tile in each phase over 5 calls of the instrumented
+        copy of csrc/<name>.cu."""
+        lib = libs[name]
+        own = _build._libs[name]
+        _build._libs[name] = lib
+        try:
+            buf = (ctypes.c_ulonglong * 8)()
+            run()
+            torch.cuda.synchronize()
+            lib.dvdx_probe_read(buf, 1)
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+            lib.dvdx_probe_read(buf, 1)
+        finally:
+            _build._libs[name] = own
+        return {names[i]: buf[i] / 5 / tiles for i in range(len(names))}
 
     libs = build_instrumented()
     ok = _within(block(), ref)
     ms = device_ms(block, ["temporal_block_chain", "geglu_stage"])
-    own = _build._libs["temporal_block"]
-    _build._libs["temporal_block"] = libs["temporal_block"]
-    try:
-        phases = chain_phases(libs["temporal_block"])
-    finally:
-        _build._libs["temporal_block"] = own
+    phases = phases_of("temporal_block", block, CHAIN_PHASES, tiles)
     result["chain"] = {"ms": ms, "within_2_ulps": ok, "cycles_per_tile": phases}
     print(f"chain: device ms {json.dumps(ms)}, within 2 ulps {ok}; cycles per tile by phase "
           f"{json.dumps({k: round(v) for k, v in phases.items()})}", flush=True)
+    del x, ref, params
+
+    # the spatial tail at level 0: x, o1 (32, 2880, 320), the 77-token
+    # context projected to 5 heads of 64
+    n, s_, t = 32, 2880, 77
+    tparams = {k: randn((c,), 0.1, 1.0 if k.endswith("_s") else 0.0) for k in st.KEYS}
+    tparams.update({k: randn((c, c), c ** -0.5) for k in ("o1_w", "q2_w", "o2_w")})
+    tparams.update({"ffi_w": randn((8 * c, c), c ** -0.5), "ffi_b": randn((8 * c,), 0.1),
+                    "ffo_w": randn((c, 4 * c), (4 * c) ** -0.5)})
+    targs = [randn((n, s_, c)), randn((n, s_, c)), randn((n, t, c)), randn((n, t, c))]
+    tref = st.fused_spatial_tail_plain(*targs, tparams, heads=5)
+
+    def tail():
+        return st.fused_spatial_tail(*targs, tparams, heads=5)
+
+    ok = _within(tail(), tref)
+    ms = device_ms(tail, ["spatial_tail_chain", "geglu_stage"])
+    phases = phases_of("spatial_tail", tail, TAIL_PHASES, st.plan(n * s_, s_, c, c, t, 5).tiles)
+    result["tail"] = {"ms": ms, "within_2_ulps": ok, "cycles_per_tile": phases}
+    print(f"tail: device ms {json.dumps(ms)}, within 2 ulps {ok}; cycles per tile by phase "
+          f"{json.dumps({k: round(v) for k, v in phases.items()})}", flush=True)
+    del targs, tref, tparams
 
     gn_plan = gn.plan
     for label, (n, length, ch) in GN_SHAPES.items():

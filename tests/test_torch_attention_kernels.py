@@ -102,6 +102,20 @@ def test_temporal_plain_matches_pallas_frame_major(dtype, b, f, n, heads, d):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,f,n,heads,d", [(1, 40, 5, 2, 40), (1, 128, 3, 1, 40)])
+def test_temporal_plain_matches_pallas_long_clips(dtype, b, f, n, heads, d):
+    """The frame counts the CUDA kernel takes past the UNet's 16 (its limit is
+    the fm kernel's F <= 128): the plain version against the fm kernel and
+    the einsum reference, with the tolerance of the F <= 8 cases above. (At
+    F = 128 the fm kernel's VMEM model takes H*D <= 48 only.)"""
+    xs = _inputs((b, f, n, heads * d), seed=f)
+    q, k, v = _jax(xs, dtype)
+    got = ttemp.temporal_attention(*_torch(xs, dtype), heads=heads)
+    _check(got, jtemp.temporal_attention_fm(q, k, v, heads=heads, interpret=True), dtype)
+    _check(got, jtemp.temporal_attention_reference(q, k, v, heads=heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("heads,d", [(2, 40), (3, 64)])
 def test_temporal_plain_matches_pallas_position_major(dtype, heads, d):
     """Position-major (B, N, F, H*D) against row 3's kernel (needs F % 8 == 0)."""

@@ -58,8 +58,12 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, d):
     _check(got, tflash.flash_attention_plain(q, k, v))
 
 
+# then every frame count the redesigned kernel plans for (one to eight
+# 16-frame query tiles, 8 down to 1 positions a tile) at the one-box and
+# two-box head widths, N = 45 leaving a ragged last tile
 @pytest.mark.parametrize("layout", ["frame_major", "position_major"])
-@pytest.mark.parametrize("f,n,heads,d", [(16, 45, 5, 64), (16, 100, 8, 40), (24, 7, 2, 128)])
+@pytest.mark.parametrize("f,n,heads,d", [(16, 45, 5, 64), (16, 100, 8, 40), (24, 7, 2, 128)]
+                         + [(f, 45, 3, d) for f in (16, 24, 40, 64, 128) for d in (40, 64, 128)])
 def test_temporal_kernel_matches_plain(cuda, layout, f, n, heads, d):
     shape = (2, f, n, heads * d) if layout == "frame_major" else (2, n, f, heads * d)
     q, k, v = (_randn(shape, i, cuda).bfloat16() for i in range(3))
@@ -193,23 +197,79 @@ def test_flash_mh_kernel_matches_plain(cuda, b, sq, sk, heads, d):
     _check(got, tflash.flash_attention_mh_plain(q, k, v, heads=heads, head_dim=d))
 
 
-@pytest.mark.parametrize("n,s,c,heads,t", [(2, 300, 320, 5, 77), (1, 100, 640, 10, 77),
-                                           (2, 70, 64, 1, 16)])
-def test_spatial_tail_kernel_matches_plain(cuda, n, s, c, heads, t):
+def _spatial_tail_args(n, s, c, t, device):
     shapes = {"o1_w": (c, c), "o1_b": (c,), "ln2_s": (c,), "ln2_b": (c,),
               "q2_w": (c, c), "o2_w": (c, c), "o2_b": (c,), "ln3_s": (c,),
               "ln3_b": (c,), "ffi_w": (8 * c, c), "ffi_b": (8 * c,),
               "ffo_w": (c, 4 * c), "ffo_b": (c,)}
-    params = _params(ttail.KEYS, shapes, 10, cuda)
-    x = _randn((n, s, c), 0, cuda).bfloat16()
-    o1 = _randn((n, s, c), 1, cuda).bfloat16()
-    ctx_k = _randn((n, t, c), 2, cuda).bfloat16()
-    ctx_v = _randn((n, t, c), 3, cuda).bfloat16()
+    params = _params(ttail.KEYS, shapes, 10, device)
+    return ([_randn(shape, i, device).bfloat16()
+             for i, shape in enumerate(((n, s, c), (n, s, c), (n, t, c), (n, t, c)))], params)
+
+
+# then the 64-row chain at the UNet's level 0 (45 tiles an image), C = 384
+# (two ring stages of 24 KB), S = 721 (tiles spanning two images), T = 300
+# (two sweeps over 128-token fills), C = 64 with T = 16 and S = 20 (three
+# images in one tile), head width 40 (the mma.sync path, zero-filled
+# lanes), and the wide chain at C = 640
+@pytest.mark.parametrize("n,s,c,heads,t", [
+    (2, 300, 320, 5, 77), (1, 100, 640, 10, 77), (2, 70, 64, 1, 16),
+    (32, 2880, 320, 5, 77), (2, 600, 384, 6, 77), (3, 721, 320, 5, 77), (2, 300, 320, 5, 300),
+    (3, 20, 64, 1, 16), (2, 130, 320, 8, 77), (2, 720, 640, 10, 77)])
+def test_spatial_tail_kernel_matches_plain(cuda, n, s, c, heads, t):
+    (x, o1, ctx_k, ctx_v), params = _spatial_tail_args(n, s, c, t, cuda)
     before = ttail.LAUNCHES
     got = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=heads)
     torch.cuda.synchronize()
     assert ttail.LAUNCHES == before + 1
     _check(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=heads))
+
+
+def test_spatial_chain_and_frame_attention_repeat_bitwise(cuda):
+    """The redesigned chain (one pass, two sweeps, spanning tiles) and
+    frame-axis attention (both layouts, 16 and 128 frames) give the same
+    bits on the same inputs: persistent CTAs take tiles in any order, but
+    each tile's sums have one order."""
+    runs = []
+    for n, s, c, heads, t in ((3, 721, 320, 5, 77), (2, 300, 320, 5, 300)):
+        (x, o1, ck, cv), params = _spatial_tail_args(n, s, c, t, cuda)
+        runs.append(lambda a=(x, o1, ck, cv), p=params, h=heads:
+                    ttail.fused_spatial_tail(*a, p, heads=h))
+    for f, layout in ((16, "fm"), (128, "fm"), (16, "pm"), (40, "pm")):
+        shape = (2, f, 180, 320) if layout == "fm" else (2, 180, f, 320)
+        q, k, v = (_randn(shape, i, cuda).bfloat16() for i in range(3))
+        fn = ttemp.temporal_attention if layout == "fm" else ttemp.temporal_attention_posmajor
+        runs.append(lambda q=q, k=k, v=v, fn=fn: fn(q, k, v, heads=5))
+    for run in runs:
+        first = run()
+        second = run()
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_unfused_temporal_block_at_40_frames_matches_cpu(cuda):
+    """A _TemporalBlock at C = 640 (past the fused block's widths) over 40
+    frames -- which raised on the card before frame-axis attention took
+    F > 32 -- runs its frame-axis attention kernel and GEGLU on the card and
+    agrees with its CPU run (the plain versions) within the kernels'
+    tolerance."""
+    from dvdx_tpu_torch.models import layers
+
+    torch.manual_seed(0)
+    block = layers._TemporalBlock(640, 10, 64)
+    with torch.no_grad():
+        for prm in block.parameters():
+            prm.add_(0.05 * torch.randn_like(prm))
+    block = block.bfloat16()
+    x = _randn((1, 40, 45, 640), 7, "cpu").bfloat16()
+    assert not block.fused(x) and layers.temporal_attention_wants(40, 64)
+    with torch.no_grad():
+        want = block(x)
+        before = ttemp.LAUNCHES
+        got = block.to(cuda)(x.to(cuda))
+        torch.cuda.synchronize()
+    assert ttemp.LAUNCHES == before + 2
+    _check(got.cpu(), want)
 
 
 def _temporal_block_args(b, f, n, c, device):

@@ -281,6 +281,31 @@ def test_ungated_temporal_block_matches_jax_module(frames, heads, d, monkeypatch
     _check(_f32(got), _f32(want), "float32")
 
 
+@pytest.mark.parametrize("frames", [40, 130])
+def test_frame_axis_temporal_block_matches_jax_module(frames, monkeypatch):
+    """A _TemporalBlock at C = 64 over N = 8 positions (fewer than the fused
+    block takes) runs unfused, its frame-axis attention through the gate
+    ``temporal_attention_wants``: the kernel's wrapper at 40 frames, the
+    plain tensor math past the kernel's 128; both equal the JAX block's
+    unfused branch in float32 within TOL_F32."""
+    heads, d = 2, 32
+    c = heads * d
+    (jx,), (tx,) = _inputs([(1, frames, 8, c)], 15, "float32")
+    monkeypatch.setenv("DVDX_TEMPORAL_BLOCK_IMPL", "xla")
+    jmod = jlayers._TemporalBlock(c, heads, d, dtype=jnp.float32)
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(4), jx)
+    params = jax.tree.map(lambda a: a + 0.05 * np.random.default_rng(16).normal(
+        size=a.shape).astype(np.float32), params)  # no zero leaves
+    want = jax.jit(jmod.apply)(params, jx)
+    port = layers._TemporalBlock(c, heads, d)
+    load_jax_params(port, jax.tree.map(np.asarray, params))
+    assert not port.fused(tx)
+    assert layers.temporal_attention_wants(frames, d) == (frames <= 128)
+    with torch.no_grad():
+        got = port(tx)
+    _check(_f32(got), _f32(want), "float32")
+
+
 # --- the UNet -------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
