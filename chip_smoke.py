@@ -5,24 +5,27 @@
 
 Phases, each printing on its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi), torch / CUDA versions;
-     determinism flags set;
-  2. build of every CUDA kernel from ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, in bf16, at
-     the main path's full-width shapes (and a few off it: the fused tail at
+     determinism flags set; build of every CUDA kernel from
+     ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
+  2. each kernel against its plain PyTorch version on the card, in bf16, at
+     the main path's full-width shapes, and the float32 kernels at phase 6's
+     (and a few off it: the fused tail at
      C = 384, with tiles spanning two images, at T = 300, at C = 64 with T =
      16, at head width 40 and at C = 640 (the wide chain); frame-axis
      attention at 24-128 frames with head widths 40 / 64 / 128 in both
      layouts; flash_attention_mh, GEGLU's two launches on their own at level
      2, GroupNorm with a level-0 pre-bias and with ragged chunks, the fused
-     block at a ragged N and at F = 24), with kernel / plain / library times
+     block at a ragged N and at F = 24; GEGLU's CUDA-core pair in bf16 at C
+     = 40; flash and frame-axis attention in float32), with kernel / plain /
+     library times
      (CUDA events, the launches queued behind a device spin), the roofline
      bound (the fused kernels' also split into their chain and FF launches),
      and a second call that must give the same bits;
-  4. the reference check: one UNet call of a small model of the same
+  3. the reference check: one UNet call of a small model of the same
      structure on the card (kernels) and on the CPU (plain versions) from
      the same weights and inputs, every kernel of the model path launched;
      the base noise's bits on the card and on the CPU;
-  5. the main path: zeroscope-v2-576w with seeded random weights (zero-init
+  4. the main path: zeroscope-v2-576w with seeded random weights (zero-init
      leaves perturbed so every layer carries signal). Request A: 16 frames at
      576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root; every
      kernel of the model path must have launched, as often per UNet call as
@@ -32,7 +35,22 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      Request A must reproduce them bit for bit, bind the video, and refuse a
      tampered eps leaf. Then each kernel's bound summed over one UNet call
      and one frame's VAE decode, from the shapes its layers hand it;
-  6. a ``kernels`` JSON line, then the result line.
+  5. a network round at full width on the same pipeline
+     (``network.mock.build_mock_network``): an honest, a lazy and a
+     wrong-video miner generate 16 frames at 576x320, 25 steps, at once in
+     three threads; the validator (3 re-executed steps) must pass the honest
+     one bit for bit in the same-program regime, catch the lazy one at
+     ``reexecution`` (its stake slashed) and the wrong-video one at
+     ``video_binding``, and settle the request on the ledger; every kernel
+     of the model path must launch during the round;
+  6. a cross-device round: zeroscope-tiny (the rotary temporal style,
+     float32) miners on the card, a validator on the CPU with the same
+     weights; the honest miner must pass in the cross-platform regime (atol
+     5e-2) and the lazy one be caught at ``reexecution``; GroupNorm's float32
+     kernel and GEGLU's CUDA-core pair must launch during the round;
+  then a ``kernels`` JSON line (each kernel's ``launches`` from the path
+  that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
+  phase 2 alone holds), and the result line.
 
 Imports nothing of JAX or of the JAX package. Detail too long for the end of
 the output goes to ``chiprun_out/``.
@@ -50,6 +68,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 OUT_DIR = "chiprun_out"
 
@@ -75,14 +94,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def randn(shape, gen, scale=1.0, shift=0.0):
+def randn(shape, gen, scale=1.0, shift=0.0, dtype=torch.bfloat16):
     x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
-    return (x * scale + shift).to(torch.bfloat16)
+    return (x * scale + shift).to(dtype)
 
 
 # (flops, bytes) of one launch: each input read once, each output written
@@ -148,12 +167,18 @@ def temporal_block_cost(rows, f, c):
     return flops, (2 * rows * c + 20 * c * c + 15 * c) * 2.0
 
 
-def gn_cost(n, l, c, bias):
-    # x read, y written (bf16), the (N, C) bias (bf16), gamma and beta (f32)
-    return 8.0 * n * l * c, 2.0 * n * l * c * 2 + (n * c * 2 if bias else 0) + 8 * c
+def gn_cost(n, l, c, bias, elem=2):
+    # x read, y written and the (N, C) bias, of elem bytes each; gamma and
+    # beta (f32)
+    return 8.0 * n * l * c, 2.0 * n * l * c * elem + (n * c * elem if bias else 0) + 8 * c
 
 
-# --- phase 3: kernels against their plain versions --------------------------
+def f32_cost(cost):
+    # a bf16 (flops, bytes) with every operand in float32 instead
+    return cost[0], cost[1] * 2
+
+
+# --- phase 2: kernels against their plain versions --------------------------
 
 def kernel_cases():
     """(kernel, label, inputs(gen), kernel_fn, plain_fn, library_fn, (flops,
@@ -374,6 +399,73 @@ def kernel_cases():
         BOUND_PARTS[("fused_temporal_block", label)] = {
             "chain": bound_ms(*temporal_chain_cost(b * f * n, f, c))[0],
             "ff": bound_ms(*temporal_ff_cost(b * f * n, c))[0]}
+
+    # float32 (the CUDA-core kernels): phase 6's zeroscope-tiny path at 4
+    # frames of 32x32 (latent 16x16, CFG batch 2) hands GroupNorm and GEGLU
+    # these shapes; GEGLU also in bf16 at a width the wgmma pair does not
+    # take, flash at zeroscope-tiny's level 0 for 64x64 frames and
+    # frame-axis attention at zeroscope-tiny-hf's level 0, both off the paths
+    f32 = torch.float32
+    for label, (n, l, c, act, bias, eps, groups) in (
+            ("tiny_resnet_l0", (8, 256, 32, "silu", True, 1e-5, 8)),
+            ("tiny_temp_conv_l0", (2, 1024, 32, "silu", False, 1e-5, 8)),
+            ("tiny_resnet_l1", (8, 64, 64, "silu", True, 1e-5, 8)),
+            ("tiny_vae_32x32", (1, 1024, 32, "silu", False, 1e-6, 4))):
+        def mk(gen, n=n, l=l, c=c, bias=bias):
+            xs = [randn((n, l, c), gen, 2.0, 0.5, f32),
+                  torch.rand((c,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((c,), generator=gen, device="cuda") * 0.1]
+            xs.append(randn((n, c), gen, dtype=f32) if bias else None)
+            return xs
+
+        def kern(x, w, b_, bias, act=act, eps=eps, g=groups):
+            return gn.group_norm_act(x, w, b_, groups=g, eps=eps, act=act, bias=bias)
+
+        def plain(x, w, b_, bias, act=act, eps=eps, g=groups):
+            return gn.group_norm_act_plain(x, w, b_, groups=g, eps=eps, act=act, bias=bias)
+
+        def lib(x, w, b_, bias, act=act, eps=eps, g=groups):
+            xb = x if bias is None else x + bias[:, None, :]
+            y = F.group_norm(xb.transpose(1, 2), g, w, b_, eps)
+            return F.silu(y) if act == "silu" else y
+        cases.append(("group_norm_act_f32", label, mk, kern, plain, lib,
+                      gn_cost(n, l, c, bias, 4), True))
+
+    for label, (t, c, dtype, main) in (("tiny_l0", (2048, 32, f32, True)),
+                                       ("tiny_l1", (512, 64, f32, True)),
+                                       ("bf16_c40", (300, 40, torch.bfloat16, False))):
+        inner = 4 * c
+
+        def mk(gen, t=t, c=c, inner=inner, dtype=dtype):
+            return [randn((t, c), gen, dtype=dtype),
+                    randn((2 * inner, c), gen, c ** -0.5, dtype=dtype),
+                    randn((2 * inner,), gen, 0.1, dtype=dtype),
+                    randn((c, inner), gen, inner ** -0.5, dtype=dtype),
+                    randn((c,), gen, 0.1, dtype=dtype)]
+        cost = geglu_cost(t, c, inner)
+        cases.append(("geglu_ff_simt", label, mk, gf.geglu_ff, gf.geglu_ff_plain, None,
+                      f32_cost(cost) if dtype == f32 else cost, main))
+
+    def mk_flash(gen):
+        return [randn((2, 1024, 2, 16), gen, dtype=f32) for _ in range(3)]
+    cases.append(("flash_attention_f32", "tiny_64x64_level0", mk_flash, fa.flash_attention,
+                  fa.flash_attention_plain, sdpa_bshd, f32_cost(flash_cost(2, 1024, 2, 16)),
+                  False))
+    for label, shape, kern, plain, lib in (
+            ("tiny_hf_level0", (2, 4, 256, 32),
+             lambda q, k, v: ta.temporal_attention(q, k, v, heads=2),
+             lambda q, k, v: ta.temporal_attention_plain(q, k, v, heads=2), sdpa_fm(2)),
+            ("tiny_hf_level0_posmajor", (2, 256, 4, 32),
+             lambda q, k, v: ta.temporal_attention_posmajor(q, k, v, heads=2),
+             lambda q, k, v: ta.temporal_attention_plain(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 heads=2).transpose(1, 2),
+             lambda q, k, v: sdpa_fm(2)(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2)))):
+        def mk(gen, shape=shape):
+            return [randn(shape, gen, dtype=f32) for _ in range(3)]
+        cases.append(("temporal_attention_f32", label, mk, kern, plain, lib,
+                      f32_cost(temporal_cost(2, 4, 256, 2, 16)), False))
     return cases
 
 
@@ -397,11 +489,27 @@ KERNEL_META = {
                            "dvdx_tpu/ops/pallas/spatial_tail.py:304"),
     "fused_temporal_block": ("dvdx_tpu_torch/csrc/temporal_block.cu",
                              "dvdx_tpu/ops/pallas/temporal_block.py:146"),
+    # the float32 forms (float32 test models) and GEGLU at any width, on the
+    # CUDA cores
+    "group_norm_act_f32": ("dvdx_tpu_torch/csrc/groupnorm.cu",
+                           "dvdx_tpu/ops/groupnorm.py:179"),
+    "geglu_ff_simt": ("dvdx_tpu_torch/csrc/geglu_ff.cu",
+                      "dvdx_tpu/ops/pallas/geglu_ff.py:98"),
+    "flash_attention_f32": ("dvdx_tpu_torch/csrc/attention_f32.cu",
+                            "dvdx_tpu/ops/pallas/flash_attention.py:470"),
+    "temporal_attention_f32": ("dvdx_tpu_torch/csrc/attention_f32.cu",
+                               "dvdx_tpu/ops/pallas/temporal_attention.py:183"),
 }
+# kernels whose operations run on the CUDA cores in f32 (their bound takes
+# the float32 peak)
+CUDA_CORE_KERNELS = ("group_norm_act_f32", "geglu_ff_simt", "flash_attention_f32",
+                     "temporal_attention_f32")
 # the kernels the UNet / VAE path runs (flash_attention_mh is opt-in in the
-# JAX package and off the port's path: phase 3 alone holds it)
+# JAX package and off the port's path: phase 2 alone holds it)
 MODEL_PATH = ("flash_attention", "temporal_attention", "geglu_ff", "group_norm_act",
               "fused_spatial_tail", "fused_temporal_block")
+# the kernels phase 6's float32 zeroscope-tiny miners run on the card
+CROSS_DEVICE_PATH = ("group_norm_act_f32", "geglu_ff_simt")
 # launches per batched UNet call of zeroscope-v2-576w at 16 x 576x320: flash
 # in the 10 spatial transformers of levels 0-1 (S >= 512), the fused tail in
 # the 5 of level 0, the fused block in transformer_in and the 5 level-0
@@ -416,6 +524,11 @@ EXPECTED_PER_UNET_CALL = {"flash_attention": 10, "temporal_attention": 22,
 # flash kernel rounds unnormalised probabilities (the plain version rounds
 # normalised ones)
 TOL_ULPS = 2.0
+# float32 outputs: max |kernel - plain| <= this share of max |plain| (both in
+# f32, summed in other orders; GroupNorm's one-pass variance cancels most
+# of its sums)
+F32_REL_TOL = {"group_norm_act_f32": 1e-4}
+F32_REL_TOL_DEFAULT = 1e-5
 
 
 def check_kernels():
@@ -432,7 +545,10 @@ def check_kernels():
         ref = plain(*inputs)
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
-        tol = TOL_ULPS * 2.0 ** -7 * max(scale, 1e-6)
+        if out.dtype == torch.float32:
+            tol = F32_REL_TOL.get(name, F32_REL_TOL_DEFAULT) * max(scale, 1e-6)
+        else:
+            tol = TOL_ULPS * 2.0 ** -7 * max(scale, 1e-6)
         # the same inputs again must give the same bits (PoI re-execution)
         repeat = torch.equal(out.view(torch.int16), kern(*inputs).view(torch.int16))
         ok = bool(np.isfinite(err)) and err <= tol and repeat
@@ -440,7 +556,8 @@ def check_kernels():
         ms = cuda_ms(lambda: kern(*inputs), iters)
         plain_ms = cuda_ms(lambda: plain(*inputs), 2)
         lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
-        bms, bby = bound_ms(flops, nbytes)
+        peak = PEAK_F32_FLOPS if name in CUDA_CORE_KERNELS else PEAK_BF16_FLOPS
+        bms, bby = bound_ms(flops, nbytes, peak)
         parts = BOUND_PARTS.get((name, label))
         row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
                    max_abs_ref=scale, repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
@@ -465,7 +582,7 @@ def check_kernels():
         s["ms"] += ms
         s["plain_ms"] += plain_ms
         s["bound_ms"] += bms
-        s["t_ops"] += flops / PEAK_BF16_FLOPS
+        s["t_ops"] += flops / peak
         s["t_bytes"] += nbytes / PEAK_BYTES
         s["library_ms"] = None if lib_ms is None or s["library_ms"] is None \
             else s["library_ms"] + lib_ms
@@ -479,7 +596,7 @@ def check_kernels():
     return summary, rows
 
 
-# --- phase 4: the main path ---------------------------------------------------
+# --- phases 3-4: the reference check and the main path ------------------------
 
 def launch_counters():
     """{kernel: (module, name of its launch counter)} for every kernel."""
@@ -494,7 +611,10 @@ def launch_counters():
             "geglu_ff": (gf, "LAUNCHES"), "group_norm_act": (gn, "LAUNCHES"),
             "flash_attention_mh": (fa, "MH_LAUNCHES"),
             "fused_spatial_tail": (st, "LAUNCHES"),
-            "fused_temporal_block": (tb, "LAUNCHES")}
+            "fused_temporal_block": (tb, "LAUNCHES"),
+            "group_norm_act_f32": (gn, "F32_LAUNCHES"), "geglu_ff_simt": (gf, "SIMT_LAUNCHES"),
+            "flash_attention_f32": (fa, "F32_LAUNCHES"),
+            "temporal_attention_f32": (ta, "F32_LAUNCHES")}
 
 
 def read_counts() -> dict:
@@ -685,6 +805,9 @@ def run_path(steps_a: int):
     missing = [k for k in MODEL_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"request A never launched: {missing}")
+    stray = [k for k in CUDA_CORE_KERNELS if launches[k]]
+    if stray:
+        raise AssertionError(f"request A (bf16) launched CUDA-core kernels: {stray}")
 
     runs = []
     reset_counts()
@@ -733,7 +856,7 @@ def run_path(steps_a: int):
     vae_bounds = launch_bounds(pipe.vae_decoder, decode_one_frame)
     log(f"path: bound per UNet call {json.dumps(unet_bounds)}")
     log(f"path: bound per frame's VAE decode {json.dumps(vae_bounds)}")
-    return launches, dict(seconds_per_request=sec_a, steps=steps_a,
+    return pipe, launches, dict(seconds_per_request=sec_a, steps=steps_a,
                           peak_bytes=peak, root=root_a,
                           seconds_request_b=[s1, s2], seconds_per_step=step_s,
                           launches_request_b=launches_b,
@@ -783,6 +906,8 @@ def check_reexecution(pipe, prompt, seed, video, zs, epss, ts, root_hex):
                "tampered_refused": not refused[12].passed,
                "tampered_reason": refused[12].reason, "seconds": seconds,
                "launches": counts}
+    if engine.platform_tag != "torch-cuda":
+        raise AssertionError(f"engine platform tag {engine.platform_tag!r} on the card")
     log(f"re-execution: {engine.platform_tag}, steps {checks} passed "
         f"{summary['passed']} bitwise {summary['bitwise']}; base latent bitwise "
         f"{base_bitwise}; video binding on frames {frames}: {bound} (mean |err| "
@@ -797,6 +922,111 @@ def check_reexecution(pipe, prompt, seed, video, zs, epss, ts, root_hex):
     if missing:
         raise AssertionError(f"re-execution never launched: {missing}")
     return summary
+
+
+# --- phases 5-6: the network roles ------------------------------------------
+
+def _round_line(report: dict, wall: float) -> dict:
+    """Per-miner summary of a round report."""
+    return {"wall_s": wall, "miners": {
+        uid: {k: d.get(k) for k in ("failed_check", "cheat", "score", "same_platform",
+                                   "regime_atol", "reexec_bitwise", "reexec_max_err",
+                                   "video_binding_err", "gen_time_s", "timings_s",
+                                   "miner_timings_s")}
+        for uid, d in report["miners"].items()}}
+
+
+def _run_round(net, request_id: str, prompt: str):
+    import asyncio
+
+    reset_counts()
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        report = loop.run_until_complete(net.run_request(request_id, prompt))
+    finally:
+        loop.close()
+    torch.cuda.synchronize()
+    return report, time.perf_counter() - t0, read_counts()
+
+
+def _require(cond: bool, what: str, detail) -> None:
+    if not cond:
+        raise AssertionError(f"{what}: {json.dumps(detail, default=str)[:4000]}")
+
+
+def run_network_round(pipe):
+    """Phase 5: one validator round over three miners of the full-width
+    pipeline on the card (honest, lazy, wrong-video)."""
+    from dvdx_tpu_torch.network.mock import build_mock_network
+    from dvdx_tpu_torch.network.validator import ValidatorConfig
+
+    cfg = ValidatorConfig(width=576, height=320, num_frames=16, num_steps=25,
+                          num_checkpoints=3, sample_size=3, ping_timeout_s=30,
+                          timeout_s=600, results_dir=os.path.join(OUT_DIR, "network"))
+    net = build_mock_network(n_miners=3, adversaries=["honest", "lazy", "wrong_video"],
+                             pipeline=pipe, validator_config=cfg)
+    stake = dict(net.ledger.stakes)
+    report, wall, counts = _run_round(net, "round-576w",
+                                      "a red panda rides a bicycle through a snowy forest")
+    line = _round_line(report, wall)
+    line["launches"] = counts
+    log(f"network round: {json.dumps(line)}")
+    miners = report["miners"]
+    _require(set(miners) == {"0", "1", "2"}, "network round: miners answered", miners)
+    honest, lazy, wrong = miners["0"], miners["1"], miners["2"]
+    _require(not honest.get("failed_check") and not honest.get("cheat")
+             and all(honest["checks"].values()) and honest["same_platform"] is True
+             and honest["reexec_bitwise"] is True and honest["score"] > 0,
+             "network round: the honest miner", honest)
+    _require(lazy.get("failed_check") == "reexecution" and lazy.get("cheat") is True,
+             "network round: the lazy miner", lazy)
+    slashed = stake["miner-1"] - int(stake["miner-1"] * cfg.slash_fraction)
+    _require(net.ledger.stake_of("miner-1") == slashed, "network round: lazy stake",
+             {"before": stake["miner-1"], "after": net.ledger.stake_of("miner-1")})
+    _require(wrong.get("failed_check") == "video_binding",
+             "network round: the wrong-video miner", wrong)
+    status = net.ledger.requests["round-576w"].status
+    _require(status == "distributed", "network round: ledger status", status)
+    missing = [k for k in MODEL_PATH if counts[k] == 0]
+    _require(not missing, "network round: kernels never launched", missing)
+    return line
+
+
+def run_cross_device_round():
+    """Phase 6: zeroscope-tiny miners (the rotary style, float32: GroupNorm's
+    float32 kernel and GEGLU's CUDA-core pair on the card) on the card, and a
+    validator on the CPU with the same weights: the cross-platform regime."""
+    from dvdx_tpu_torch.network.mock import build_mock_network
+    from dvdx_tpu_torch.network.validator import ValidatorConfig
+    from dvdx_tpu_torch.pipelines.text2video import build_pipeline
+    from dvdx_tpu_torch.utils.testing import perturb_zero_params
+
+    card = perturb_zero_params(build_pipeline("zeroscope-tiny", seed=0, device="cuda"),
+                               seed=99)
+    cpu = build_pipeline("zeroscope-tiny", seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cfg = ValidatorConfig(sample_size=2, num_checkpoints=3, num_frames=4, width=32,
+                          height=32, num_steps=3, ping_timeout_s=30, timeout_s=600,
+                          results_dir=os.path.join(OUT_DIR, "network"))
+    net = build_mock_network(n_miners=2, adversaries=["honest", "lazy"], pipeline=card,
+                             validator_pipeline=cpu, validator_config=cfg)
+    report, wall, counts = _run_round(net, "round-tiny-cross", "a blue cube spinning")
+    line = _round_line(report, wall)
+    line["launches"] = {k: v for k, v in counts.items() if v}
+    log(f"cross-device round: miners {net.miners[0].platform_tag}, validator "
+        f"{net.validator.engine.platform_tag}: {json.dumps(line)}")
+    honest, lazy = report["miners"]["0"], report["miners"]["1"]
+    _require(not honest.get("failed_check") and not honest.get("cheat")
+             and all(honest["checks"].values()) and honest["same_platform"] is False
+             and honest["regime_atol"] == 5e-2 and honest["score"] > 0,
+             "cross-device round: the honest miner", honest)
+    _require(lazy.get("failed_check") == "reexecution" and lazy.get("cheat") is True
+             and lazy["same_platform"] is False and lazy["regime_atol"] == 5e-2,
+             "cross-device round: the lazy miner", lazy)
+    missing = [k for k in CROSS_DEVICE_PATH if counts[k] == 0]
+    _require(not missing, "cross-device round: kernels never launched", missing)
+    return line
 
 
 def main():
@@ -840,19 +1070,30 @@ def main():
     t0 = time.perf_counter()
     check_against_cpu()
     log(f"reference check: {time.perf_counter() - t0:.1f} s")
-    launches, path = run_path(steps_a=25)
+    pipe, launches, path = run_path(steps_a=25)
+    path["network_round"] = run_network_round(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    path["cross_device_round"] = run_cross_device_round()
     with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
-        json.dump({"device": smi, "launches": launches, **path}, f, indent=1)
+        json.dump({"device": smi, "launches": launches, **path}, f, indent=1, default=str)
 
     kernels = []
+    cross = path["cross_device_round"]["launches"]
     for name, s in summary.items():
         src, replaces = KERNEL_META[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "path": ("request_a" if name in MODEL_PATH else "cross_device_round"
+                                 if name in CROSS_DEVICE_PATH else None),
+                        "launches": cross.get(name, 0) if name in CUDA_CORE_KERNELS
+                        else launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": "operations" if s["t_ops"] > s["t_bytes"]
-                        else "bytes", "library_ms": s["library_ms"]})
+                        else "bytes", "library_ms": s["library_ms"],
+                        "launches_network_round": path["network_round"]["launches"][name]})
+    log(smi)  # again near the end: the start of a long output may be cut off
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

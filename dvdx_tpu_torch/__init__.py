@@ -17,9 +17,14 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 def enable_determinism() -> None:
     """Deterministic cuDNN / cuBLAS algorithm choice for re-executable steps
-    (no atomics, no autotuned algorithm swaps between runs)."""
+    (no atomics, no autotuned algorithm swaps between runs), and float32
+    convolutions and products in float32, not TF32: a float32 model then
+    computes on the card what it computes on the CPU, to float32 rounding,
+    which the validator's cross-platform tolerance is set for."""
     import torch
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.use_deterministic_algorithms(True)

@@ -10,12 +10,149 @@
 // Bound on the H100: 6*T*C*I flops against (2*T*C + 3*C*I)*2 bytes; at the
 // UNet's token counts (>= 1440 tokens) the operations dominate, so the work
 // is bounded by tensor-core operations.
+//
+// The wgmma products take bf16 with C % 64 == 0 and I % 128 == 0. Every other
+// input the Pallas kernel takes (float32, as in the float32 test models, and
+// any width, as zeroscope-tiny's C = 32) goes to the second pair below:
+// plain tiled products on the CUDA cores (geglu_ff_simt_in / _out), 64 x 64
+// output tiles of 256 threads, 4 x 4 outputs a thread, K in slices of 16
+// through shared memory, f32 accumulation in K order, the same epilogues and
+// rounding points in the activation type. Bound there by f32 operations.
 #include "geglu_gemm.cuh"
 
 using namespace dvdx;
 
 namespace {
 struct geglu_ff_site {};
+
+constexpr int SIMT_TILE = 64, SIMT_K = 16, SIMT_THREADS = 256;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+template <typename T> __device__ __forceinline__ float round_t(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// rows [r0, r0 + 64) x K slice [k0, k0 + 16) of a (rows, K) row-major
+// matrix into dst[k][row] as f32, zeros past the edges
+template <typename T>
+__device__ __forceinline__ void simt_tile(float (*dst)[SIMT_TILE + 4], const T* src,
+                                          int rows, int K, int r0, int k0) {
+#pragma unroll
+  for (int i = 0; i < SIMT_TILE * SIMT_K / SIMT_THREADS; ++i) {
+    const int e = threadIdx.x + i * SIMT_THREADS;
+    const int r = e / SIMT_K, k = e % SIMT_K;
+    dst[k][r] = (r0 + r < rows && k0 + k < K) ? to_f(src[(long long)(r0 + r) * K + k0 + k])
+                                              : 0.f;
+  }
+}
+
+// h (T, I) = round(round(x Wv + bv) * gelu(round(x Wg + bg))): x (T, C),
+// w_in (2I, C) value rows first, b_in (2I). Block (column tile, row tile).
+template <typename T>
+__global__ void __launch_bounds__(SIMT_THREADS)
+geglu_ff_simt_in(const T* x, const T* w_in, const T* b_in, T* h, int rows, int C, int I) {
+  __shared__ float xs[SIMT_K][SIMT_TILE + 4], vs[SIMT_K][SIMT_TILE + 4],
+      gs[SIMT_K][SIMT_TILE + 4];
+  const int r0 = blockIdx.y * SIMT_TILE, n0 = blockIdx.x * SIMT_TILE;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float av[4][4] = {}, ag[4][4] = {};
+  for (int k0 = 0; k0 < C; k0 += SIMT_K) {
+    simt_tile(xs, x, rows, C, r0, k0);
+    simt_tile(vs, w_in, I, C, n0, k0);
+    simt_tile(gs, w_in + (long long)I * C, I, C, n0, k0);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < SIMT_K; ++k) {
+      float a[4], bv[4], bg[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = xs[k][ty * 4 + i];
+        bv[i] = vs[k][tx * 4 + i];
+        bg[i] = gs[k][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          av[i][j] = fmaf(a[i], bv[j], av[i][j]);
+          ag[i][j] = fmaf(a[i], bg[j], ag[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + tx * 4 + j;
+    if (n >= I) continue;
+    const float bv = to_f(b_in[n]), bg = to_f(b_in[I + n]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + ty * 4 + i;
+      if (r >= rows) continue;
+      const float v = round_t<T>(av[i][j] + bv), g = round_t<T>(ag[i][j] + bg);
+      h[(long long)r * I + n] = from_f<T>(v * gelu_erf(g));
+    }
+  }
+}
+
+// out (T, C) = round(h Wo^T + bo): h (T, I), w_out (C, I), b_out (C).
+template <typename T>
+__global__ void __launch_bounds__(SIMT_THREADS)
+geglu_ff_simt_out(const T* h, const T* w_out, const T* b_out, T* out, int rows, int C, int I) {
+  __shared__ float hs[SIMT_K][SIMT_TILE + 4], ws[SIMT_K][SIMT_TILE + 4];
+  const int r0 = blockIdx.y * SIMT_TILE, n0 = blockIdx.x * SIMT_TILE;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < I; k0 += SIMT_K) {
+    simt_tile(hs, h, rows, I, r0, k0);
+    simt_tile(ws, w_out, C, I, n0, k0);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < SIMT_K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = hs[k][ty * 4 + i];
+        b[i] = ws[k][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + tx * 4 + j;
+    if (n >= C) continue;
+    const float bo = to_f(b_out[n]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + ty * 4 + i;
+      if (r < rows) out[(long long)r * C + n] = from_f<T>(acc[i][j] + bo);
+    }
+  }
+}
+
+template <typename T>
+int geglu_simt_launch(const void* x, const void* w_in, const void* b_in, void* h,
+                      const void* w_out, const void* b_out, void* out, int rows, int C,
+                      int I, cudaStream_t stream) {
+  const dim3 block(SIMT_THREADS);
+  const int row_tiles = (rows + SIMT_TILE - 1) / SIMT_TILE;
+  geglu_ff_simt_in<T><<<dim3((I + SIMT_TILE - 1) / SIMT_TILE, row_tiles), block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_in), static_cast<const T*>(b_in),
+      static_cast<T*>(h), rows, C, I);
+  geglu_ff_simt_out<T><<<dim3((C + SIMT_TILE - 1) / SIMT_TILE, row_tiles), block, 0, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w_out), static_cast<const T*>(b_out),
+      static_cast<T*>(out), rows, C, I);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 // x (T, C), w_in (2I, C), b_in (2I), h (T, I); all contiguous bf16.
@@ -33,4 +170,17 @@ extern "C" int dvdx_geglu_out(const void* h, const void* w_out, const void* b_ou
                               void* stream) {
   return geglu_out_launch<geglu_ff_site>(h, w_out, b_out, resid, out, T, C, I,
                                          static_cast<cudaStream_t>(stream));
+}
+
+// The CUDA-core pair: x (T, C), w_in (2I, C), b_in (2I), h (T, I) scratch,
+// w_out (C, I), b_out (C), out (T, C); all contiguous, bf16 (f32 == 0) or
+// float32 (f32 == 1). Any T, C, I >= 1; row tiles in gridDim.y (T < 2^22).
+extern "C" int dvdx_geglu_simt(const void* x, const void* w_in, const void* b_in, void* h,
+                               const void* w_out, const void* b_out, void* out, int T,
+                               int C, int I, int f32, void* stream) {
+  if (T < 1 || C < 1 || I < 1 || (T + SIMT_TILE - 1) / SIMT_TILE > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? geglu_simt_launch<float>(x, w_in, b_in, h, w_out, b_out, out, T, C, I, s)
+             : geglu_simt_launch<bf16>(x, w_in, b_in, h, w_out, b_out, out, T, C, I, s);
 }

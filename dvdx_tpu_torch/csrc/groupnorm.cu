@@ -1,4 +1,5 @@
-// GroupNorm (+ per-sample channel pre-bias) (+ SiLU) over (N, L, C) bf16.
+// GroupNorm (+ per-sample channel pre-bias) (+ SiLU) over (N, L, C) bf16 or
+// float32 (one template; the float32 model's norms take the second).
 //
 // Replaces dvdx_tpu/ops/groupnorm.py:group_norm_act (_gn_pallas / _gn_kernel).
 // The TPU kernel holds one whole (L, C) row in VMEM; the H100 has 227 KB of
@@ -7,7 +8,8 @@
 // the grid in a fixed order instead.
 //
 // Bound on the H100: a few f32 operations per element against 2 bytes read
-// and 2 written, so bytes: one read of x and one write of y at 3.35 TB/s.
+// and 2 written (4 and 4 in float32), so bytes: one read of x and one write
+// of y at 3.35 TB/s.
 //
 // Design: ONE launch, a persistent grid of co-resident blocks (cooperative
 // launch, occupancy x SMs, no more blocks than work items) running three
@@ -15,8 +17,8 @@
 // is the only atomic and no sum goes through it):
 //   1. partial sums: work item (sample, chunk of chunk_rows rows), items
 //      walked blockIdx.x, +gridDim.x, ... Each thread owns a fixed octet of
-//      8 channels and one of R row lanes, loads 16 bytes a time, UNROLL
-//      rows in flight, and sums x + bias and its square over its rows in
+//      8 channels and one of R row lanes, loads an octet (16 bytes of bf16,
+//      32 of float32) a time, Rows<T>::unroll rows in flight, and sums x + bias and its square over its rows in
 //      order; the block adds the row lanes per channel, then a warp per
 //      group the group's channels (a fixed butterfly) ->
 //      part[sample][chunk][group].
@@ -29,7 +31,7 @@
 //      last, still in the 50 MB L2, are read again first (a UNet sample is
 //      at most 29.5 MB; the VAE's rows, up to 94 MB, are read twice from
 //      HBM). Per octet the scale, shift and bias live in registers; there is
-//      no per-element modulus; loads and stores are 16 bytes; SiLU as
+//      no per-element modulus; loads and stores are whole octets; SiLU as
 //      v / (1 + exp(-v)).
 // The chunking is planned by the wrapper (ops/groupnorm.py plan) and depends
 // on the shape only, so the sums, whatever the grid, run in one fixed order
@@ -41,7 +43,6 @@ using namespace dvdx;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int UNROLL = 4;  // rows a thread loads before it sums them
 constexpr int MAXC = 2560;  // widest GN input: the UNet's 1280+1280 skip concat
 
 // Grid-wide barrier state. A launch leaves the count at 0; the generation
@@ -77,32 +78,64 @@ __device__ __forceinline__ void grid_barrier() {
   __syncthreads();
 }
 
+// One octet of 8 channels in registers as loaded, and its rows in flight:
+// bf16 is one 16-byte load and 4 rows, float32 two and 2 rows (the same
+// registers).
+template <typename T> struct Octet;
+template <> struct Octet<bf16> {
+  uint4 v;
+  static constexpr int unroll = 4;
+  __device__ __forceinline__ static Octet load(const bf16* p) {
+    return {__ldg(reinterpret_cast<const uint4*>(p))};
+  }
+  __device__ __forceinline__ void unpack(float (&f)[8]) const {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+      const float2 p = __bfloat1622float2(h);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  __device__ __forceinline__ static void store(bf16* p, const float (&f)[8]) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                                              pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+  }
+};
+template <> struct Octet<float> {
+  float4 a, b;
+  static constexpr int unroll = 2;
+  __device__ __forceinline__ static Octet load(const float* p) {
+    return {__ldg(reinterpret_cast<const float4*>(p)), __ldg(reinterpret_cast<const float4*>(p + 4))};
+  }
+  __device__ __forceinline__ void unpack(float (&f)[8]) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&f)[8]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
+  }
+};
+
+template <typename T>
 struct GnArgs {
-  const bf16* x;      // (N, L, C)
-  const bf16* bias;   // (N, C) or null
+  const T* x;         // (N, L, C)
+  const T* bias;      // (N, C) or null
   const float* gamma; // (C)
   const float* beta;  // (C)
-  bf16* y;            // (N, L, C)
+  T* y;               // (N, L, C)
   float* part;        // (N, nchunks, G, 2)
   float* stats;       // (N, G, 2): mean, rstd
   int N, L, C, G, chunk_rows, nchunks, silu;
   float eps;
 };
 
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    const float2 p = __bfloat1622float2(h);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-
-__device__ __forceinline__ void octet_bias(const GnArgs& a, int n, int c0, float (&b)[8]) {
+template <typename T>
+__device__ __forceinline__ void octet_bias(const GnArgs<T>& a, int n, int c0, float (&b)[8]) {
   if (a.bias != nullptr) {
-    unpack8(*reinterpret_cast<const uint4*>(a.bias + (long long)n * a.C + c0), b);
+    Octet<T>::load(a.bias + (long long)n * a.C + c0).unpack(b);
   } else {
 #pragma unroll
     for (int e = 0; e < 8; ++e) b[e] = 0.f;
@@ -111,8 +144,10 @@ __device__ __forceinline__ void octet_bias(const GnArgs& a, int n, int c0, float
 
 // 4 blocks of 256 threads on each SM (at most 64 registers a thread), so
 // that an SM keeps 1024 x UNROLL 16-byte loads in flight
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 4)
-gn_fused(const GnArgs a) {
+gn_fused(const GnArgs<T> a) {
+  constexpr int UNROLL = Octet<T>::unroll;  // rows a thread loads before it sums them
   __shared__ float csum[MAXC];
   __shared__ float csq[MAXC];
   __shared__ float tree[2][THREADS];
@@ -133,10 +168,10 @@ gn_fused(const GnArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) s[e] = q[e] = 0.f;
       const long long step = (long long)lanes * C;
-      const bf16* xp = a.x + ((long long)n * a.L + l0 + rl) * C + c0;
-      auto add = [&](const uint4& v) {
+      const T* xp = a.x + ((long long)n * a.L + l0 + rl) * C + c0;
+      auto add = [&](const Octet<T>& v) {
         float f[8];
-        unpack8(v, f);
+        v.unpack(f);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const float y = f[e] + b[e];
@@ -147,13 +182,13 @@ gn_fused(const GnArgs a) {
       int l = l0 + rl;
       // UNROLL loads in flight, then the sums in row order
       for (; l + (UNROLL - 1) * lanes < l1; l += UNROLL * lanes, xp += UNROLL * step) {
-        uint4 v[UNROLL];
+        Octet<T> v[UNROLL];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) v[u] = __ldg(reinterpret_cast<const uint4*>(xp + u * step));
+        for (int u = 0; u < UNROLL; ++u) v[u] = Octet<T>::load(xp + u * step);
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) add(v[u]);
       }
-      for (; l < l1; l += lanes, xp += step) add(__ldg(reinterpret_cast<const uint4*>(xp)));
+      for (; l < l1; l += lanes, xp += step) add(Octet<T>::load(xp));
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         csum[rl * C + c0 + e] = s[e];
@@ -241,52 +276,41 @@ gn_fused(const GnArgs a) {
       }
       const long long off0 = ((long long)n * a.L + l0 + rl) * C + c0;
       const long long step = (long long)lanes * C;
-      const bf16* xp = a.x + off0;
-      bf16* yp = a.y + off0;
-      auto apply = [&](const uint4& v) {
+      const T* xp = a.x + off0;
+      T* yp = a.y + off0;
+      auto apply = [&](const Octet<T>& v, T* dst) {
         float f[8];
-        unpack8(v, f);
-        uint32_t w[4];
+        v.unpack(f);
 #pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          float v0 = (f[e] + b[e]) * sc[e] + sh[e];
-          float v1 = (f[e + 1] + b[e + 1]) * sc[e + 1] + sh[e + 1];
-          if (a.silu) {
-            v0 = v0 * (1.f / (1.f + expf(-v0)));
-            v1 = v1 * (1.f / (1.f + expf(-v1)));
-          }
-          w[e / 2] = pack_bf16(v0, v1);
+        for (int e = 0; e < 8; ++e) {
+          f[e] = (f[e] + b[e]) * sc[e] + sh[e];
+          if (a.silu) f[e] = f[e] * (1.f / (1.f + expf(-f[e])));
         }
-        return make_uint4(w[0], w[1], w[2], w[3]);
+        Octet<T>::store(dst, f);
       };
       int l = l0 + rl;
       for (; l + (UNROLL - 1) * lanes < l1; l += UNROLL * lanes) {
-        uint4 v[UNROLL];
+        Octet<T> v[UNROLL];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) v[u] = __ldg(reinterpret_cast<const uint4*>(xp + u * step));
+        for (int u = 0; u < UNROLL; ++u) v[u] = Octet<T>::load(xp + u * step);
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
-          *reinterpret_cast<uint4*>(yp + u * step) = apply(v[u]);
+        for (int u = 0; u < UNROLL; ++u) apply(v[u], yp + u * step);
         xp += UNROLL * step;
         yp += UNROLL * step;
       }
-      for (; l < l1; l += lanes, xp += step, yp += step)
-        *reinterpret_cast<uint4*>(yp) = apply(__ldg(reinterpret_cast<const uint4*>(xp)));
+      for (; l < l1; l += lanes, xp += step, yp += step) apply(Octet<T>::load(xp), yp);
     }
   }
 }
 
 }  // namespace
 
-// x, y: (N, L, C) contiguous bf16, 16-byte aligned; bias: (N, C) bf16 or
-// null; gamma, beta: (C) f32; part: (N, nchunks, G, 2) f32 scratch; stats:
-// (N, G, 2) f32 scratch. C % 8 == 0, C <= 2560, C % G == 0; chunk_rows and
-// nchunks from the wrapper's plan, nchunks * chunk_rows covering L.
-extern "C" int dvdx_group_norm(const void* x, const void* bias,
-                               const void* gamma, const void* beta, void* y,
-                               void* part, void* stats, int N, int L, int C,
-                               int G, int chunk_rows, int nchunks, float eps,
-                               int silu, void* stream) {
+namespace {
+
+template <typename T>
+int group_norm_launch(const void* x, const void* bias, const void* gamma, const void* beta,
+                      void* y, void* part, void* stats, int N, int L, int C, int G,
+                      int chunk_rows, int nchunks, float eps, int silu, cudaStream_t stream) {
   if (N < 1 || L < 1 || C % 8 || C > MAXC || G < 1 || C % G || chunk_rows < 1 ||
       nchunks < 1 || (long long)chunk_rows * nchunks < L ||
       (long long)chunk_rows * (nchunks - 1) >= L)
@@ -297,20 +321,38 @@ extern "C" int dvdx_group_norm(const void* x, const void* bias,
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_fused, THREADS, 0);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_fused<T>, THREADS, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
     capacity = sms * per_sm;
     if (capacity < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const GnArgs a = {static_cast<const bf16*>(x), static_cast<const bf16*>(bias),
-                    static_cast<const float*>(gamma), static_cast<const float*>(beta),
-                    static_cast<bf16*>(y), static_cast<float*>(part),
-                    static_cast<float*>(stats), N, L, C, G, chunk_rows, nchunks,
-                    silu, eps};
+  const GnArgs<T> a = {static_cast<const T*>(x), static_cast<const T*>(bias),
+                       static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                       static_cast<T*>(y), static_cast<float*>(part),
+                       static_cast<float*>(stats), N, L, C, G, chunk_rows, nchunks,
+                       silu, eps};
   const int items = N * nchunks > N * G ? N * nchunks : N * G;
   const int grid = items < capacity ? items : capacity;
-  void* args[] = {const_cast<GnArgs*>(&a)};
+  void* args[] = {const_cast<GnArgs<T>*>(&a)};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(gn_fused), dim3(grid), dim3(THREADS), args, 0,
-      static_cast<cudaStream_t>(stream)));
+      reinterpret_cast<const void*>(gn_fused<T>), dim3(grid), dim3(THREADS), args, 0, stream));
+}
+
+}  // namespace
+
+// x, y: (N, L, C) contiguous, bf16 (f32 == 0) or float32 (f32 == 1), 16-byte
+// aligned; bias: (N, C) of x's type or null; gamma, beta: (C) f32; part:
+// (N, nchunks, G, 2) f32 scratch; stats: (N, G, 2) f32 scratch. C % 8 == 0,
+// C <= 2560, C % G == 0; chunk_rows and nchunks from the wrapper's plan,
+// nchunks * chunk_rows covering L.
+extern "C" int dvdx_group_norm(const void* x, const void* bias,
+                               const void* gamma, const void* beta, void* y,
+                               void* part, void* stats, int N, int L, int C,
+                               int G, int chunk_rows, int nchunks, float eps,
+                               int silu, int f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? group_norm_launch<float>(x, bias, gamma, beta, y, part, stats, N, L, C, G,
+                                        chunk_rows, nchunks, eps, silu, s)
+             : group_norm_launch<bf16>(x, bias, gamma, beta, y, part, stats, N, L, C, G,
+                                       chunk_rows, nchunks, eps, silu, s);
 }

@@ -1,4 +1,5 @@
-"""Building blocks of the zeroscope UNet3D (diffusers temporal style).
+"""Building blocks of the zeroscope UNet3D (diffusers and rotary temporal
+styles).
 
 Counterpart of ``dvdx_tpu/models/layers.py`` with the routing the JAX package
 intends on its TPU: a BasicTransformerBlock with a text context runs its
@@ -7,11 +8,14 @@ post-attn1 tail as ``fused_spatial_tail`` and a ``_TemporalBlock`` runs as
 standard geometry: the five level-0 spatial transformers, and
 ``transformer_in`` and the five level-0 temporal transformers); every other
 module runs the reference's unfused branch. The gates read shapes only, not
-the device, so the CPU (the kernels' plain versions) and the card compute
-one step program. The fused kernels follow the TPU kernels' rounding order,
-which is not the unfused branch's. Submodule and parameter names follow the
-reference's flax tree on both branches (``utils/bridge.py`` maps it leaf for
-leaf).
+the device or the dtype, so the CPU (the kernels' plain versions) and the
+card compute one step program. The fused kernels follow the TPU kernels'
+rounding order, which is not the unfused branch's. GroupNorm, GEGLU, flash
+and frame-axis attention take bf16 and float32 on the card (the small test
+models are float32); the two fused kernels take bf16 and their wrappers
+refuse a float32 model whose shapes a fused gate takes. Submodule and
+parameter names follow the reference's flax tree on both branches
+(``utils/bridge.py`` maps it leaf for leaf).
 
 Layout: activations stay channel-last, (N, H, W, C) per frame and
 (B, F, H, W, C) per video, as in the reference; convolutions view them as
@@ -395,11 +399,64 @@ class TransformerTemporal(nn.Module):
         self.block0 = _TemporalBlock(channels, heads, head_dim)
         self.proj_out_zero = Dense(channels, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                frame_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``frame_positions`` is not read (this style has no positions); it
+        is taken so both temporal styles share one call."""
         b, f, hh, ww, c = x.shape
         h = self.norm(x).reshape(b, f, hh * ww, c)
         h = self.proj_out_zero(self.block0(self.proj_in(h)))
         return x + h.reshape(x.shape)
+
+
+def rotary_embed(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Rotary position embedding over the sequence axis of x (B, S, H, D):
+    the phases of absolute ``positions`` (S,) at frequencies
+    10000^(-i / (D/2)), computed in float32; the halves of D rotate as
+    (x1 cos - x2 sin, x1 sin + x2 cos). Result in x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    angles = positions.to(device=x.device, dtype=torch.float32)[:, None] * freqs[None, :]
+    cos, sin = torch.cos(angles)[None, :, None, :], torch.sin(angles)[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+class TemporalAttention(nn.Module):
+    """The rotary temporal style's mixer: self-attention over the frame axis
+    at every spatial position of (B, F, H, W, C). LayerNorm (eps 1e-6, flax's
+    default), bias-free q / k / v, rotary phases over absolute frame
+    positions (``frame_positions`` (F,), default 0..F-1; a chunk of a longer
+    clip passes its global positions), attention over frames through
+    ``ops.attention.multi_head_attention`` (the plain path below 512
+    frames), a zero-initialised ``to_out_zero``, residual. None of it is a
+    kernel: the JAX package runs it on XLA."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int,
+                 use_rotary: bool = True):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim, self.use_rotary = heads, head_dim, use_rotary
+        self.norm = LayerNorm(channels, eps=1e-6)
+        self.to_q = Dense(channels, inner, bias=False)
+        self.to_k = Dense(channels, inner, bias=False)
+        self.to_v = Dense(channels, inner, bias=False)
+        self.to_out_zero = Dense(inner, channels)
+
+    def forward(self, x: torch.Tensor,
+                frame_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, f, hh, ww, c = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, f, c)
+        q, k, v = (proj(h).view(-1, f, self.heads, self.head_dim)
+                   for proj in (self.to_q, self.to_k, self.to_v))
+        if self.use_rotary:
+            pos = (torch.arange(f, device=x.device) if frame_positions is None
+                   else frame_positions)
+            q, k = rotary_embed(q, pos), rotary_embed(k, pos)
+        o = multi_head_attention(q, k, v).reshape(-1, f, self.heads * self.head_dim)
+        o = self.to_out_zero(o).reshape(b, hh, ww, f, c).permute(0, 3, 1, 2, 4)
+        return x + o
 
 
 class Downsample2D(nn.Module):

@@ -2,7 +2,8 @@
 
 zeroscope-v2-576w and zeroscope-v2-xl share one architecture (the ModelScope
 UNet3D) and differ in their native geometry; zeroscope-tiny-hf is the same
-block structure at CPU-test scale.
+block structure at CPU-test scale, and zeroscope-tiny the CPU-test scale of
+the rotary temporal style, the mock network's default model.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import dataclasses
 from typing import Dict
 
 from .text_encoder import TextEncoderConfig, tiny_text_config
-from .unet3d import UNet3DConfig, tiny_hf_unet_config
+from .unet3d import UNet3DConfig, tiny_hf_unet_config, tiny_unet_config
 from .vae import VAEConfig, tiny_vae_config
 
 
@@ -34,6 +35,10 @@ class ModelSpec:
 
 
 REGISTRY: Dict[str, ModelSpec] = {
+    "zeroscope-tiny": ModelSpec(
+        name="zeroscope-tiny", unet=tiny_unet_config(), text=tiny_text_config(),
+        vae=tiny_vae_config(), default_width=32, default_height=32,
+        default_frames=4, default_steps=4),
     "zeroscope-tiny-hf": ModelSpec(
         name="zeroscope-tiny-hf", unet=tiny_hf_unet_config(),
         text=tiny_text_config(), vae=tiny_vae_config(),

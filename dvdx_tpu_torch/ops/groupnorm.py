@@ -11,7 +11,9 @@ set by ``plan`` from the shape alone. Bounded by bytes.
 The JAX package sends only deep-level rows (<= 512 KB) to its TPU kernel
 (``groupnorm.py:165-176``, a TPU measurement gate) and runs flax GroupNorm
 elsewhere; the port sends every GroupNorm of the UNet and the VAE through
-this one function. Both compute f32 one-pass moments; the pre-bias is added
+this one function. The kernel is one template over bf16 and float32 (the
+float32 test models), as the Pallas kernel takes either. Both compute f32
+one-pass moments; the pre-bias is added
 in f32 here, where the JAX ResnetBlock2D fallback adds it in the activation
 dtype first (tests state how far that moves the result).
 """
@@ -25,7 +27,9 @@ import torch
 
 from . import _build
 
-LAUNCHES = 0  # kernel launches since the last reset (a plain count)
+LAUNCHES = 0      # bf16 kernel launches since the last reset (a plain count)
+F32_LAUNCHES = 0  # float32 kernel launches since the last reset
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_CHANNELS = 2560
 CHUNK_ELEMS = 16384        # elements of one work item (32 KB of bf16) ...
 LARGE_CHUNK_ELEMS = 32768  # ... and of one in a call of LARGE_CALL elements or more,
@@ -82,7 +86,7 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """Fused GroupNorm over the non-leading axes of x (N, ..., C), with an
     optional per-sample channel bias (N, C) added before normalisation and
     an optional SiLU. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16, C % 8 == 0, C <= 2560) or raise."""
+    launch the kernel (bf16 or float32, C % 8 == 0, C <= 2560) or raise."""
     if act not in ("none", "silu"):
         raise ValueError(f"group_norm_act: unknown act {act!r}")
     if x.device.type == "cpu":
@@ -90,8 +94,8 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                     act=act, bias=bias)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_act: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError("group_norm_act: the kernel takes bfloat16")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"group_norm_act: the kernel takes bfloat16 or float32, not {x.dtype}")
     shape = x.shape
     n, c = shape[0], shape[-1]
     if c % groups or c % 8 or c > MAX_CHANNELS or gamma.numel() != c or beta.numel() != c:
@@ -113,14 +117,17 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     fn = lib.dvdx_group_norm
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     rc = fn(_build.ptr(x3),
             ctypes.c_void_p(None if bias_t is None else bias_t.data_ptr()),
             _build.ptr(g32), _build.ptr(b32), _build.ptr(y), _build.ptr(part),
             _build.ptr(stats), n, length, c, groups, pl.chunk_rows, pl.nchunks, float(eps),
-            int(act == "silu"), _build.stream(x.device))
+            int(act == "silu"), int(x.dtype == torch.float32), _build.stream(x.device))
     _build.check(lib, rc, "group_norm_act")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, F32_LAUNCHES
+    if x.dtype == torch.float32:
+        F32_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return y.reshape(shape)

@@ -16,7 +16,9 @@ and the output addressed by strides, a ragged key tail masked. On Hopper the
 128-lane strips buy nothing, so the mh entry point launches it on strided
 views of each strip's first head_dim lanes; the pad lanes of its output come
 from one ``torch.zeros`` allocation. Bounded by tensor-core operations at the
-UNet's spatial shapes (S = 2880 / 720, D = 64).
+UNet's spatial shapes (S = 2880 / 720, D = 64). ``flash_attention`` on
+float32 inputs launches ``csrc/attention_f32.cu`` (``ops/kernels/
+attention_f32``) instead, as the Pallas kernel takes float32 too.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from typing import Optional
 import torch
 
 from .. import _build
+from . import attention_f32
 
 LAUNCHES = 0     # flash_attention kernel launches since the last reset
+F32_LAUNCHES = 0  # flash_attention launches of the float32 kernel
 MH_LAUNCHES = 0  # flash_attention_mh kernel launches since the last reset
 LANES = 128      # the TPU's lane tile: head strips are padded to it
 
@@ -80,7 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal self-attention over (B, S, H, D). CPU tensors take the plain
     version; CUDA tensors launch the kernel (bf16, D % 8 == 0, D <= 128,
-    unit stride on D) or raise."""
+    unit stride on D), or the float32 kernel (float32, D <= 128), or
+    raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -89,9 +94,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash_attention: q, k, v must share (B, S, H, D)")
-    _check_operands("flash_attention", q, k, v)
-    global LAUNCHES
+    global LAUNCHES, F32_LAUNCHES
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32 and k.device == q.device and v.device == q.device:
+        b, s, h, d = q.shape
+        attention_f32.launch(q, k, v, out, batch=b, n=1, heads=h, s_q=s, s_k=s, d=d,
+                             strides=[(t.stride(0), 0, t.stride(1), t.stride(2))
+                                      for t in (q, k, v, out)],
+                             scale=scale, what="flash_attention")
+        F32_LAUNCHES += 1
+        return out
+    _check_operands("flash_attention", q, k, v)
     _launch(q, k, v, out, 1.0, scale)
     LAUNCHES += 1
     return out

@@ -18,6 +18,11 @@ rounds them; GELU is the exact-erf form with CUDA's ``erff`` (the plain
 version uses ``torch.erf``; the JAX kernel's A&S 7.1.26 ``_erf`` is a TPU
 workaround for a missing primitive). Bounded by tensor-core operations at
 the UNet's token counts.
+
+The wgmma pair takes bf16 at C % 64 == 0 and I % 128 == 0. ``geglu_ff``
+launches every other input the Pallas kernel takes (float32, and any width,
+such as zeroscope-tiny's C = 32) on the CUDA-core pair of the same source
+(``dvdx_geglu_simt``), with the same rounding points.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ import torch
 
 from .. import _build
 
-LAUNCHES = 0        # geglu_ff calls that launched the kernels since the last reset
+LAUNCHES = 0        # geglu_ff calls that launched the wgmma pair since the last reset
+SIMT_LAUNCHES = 0   # geglu_ff calls that launched the CUDA-core pair
 STAGE_LAUNCHES = 0  # geglu_in / geglu_out calls on their own (phase-3 rows)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def geglu_in_plain(x: torch.Tensor, w_in: torch.Tensor,
@@ -96,13 +103,36 @@ def _launch_out(h, w_out, b_out, resid) -> torch.Tensor:
     return out
 
 
-def _operands(name, x, *params):
+def wgmma_takes(dtype: torch.dtype, c: int, inner: int) -> bool:
+    """True where ``geglu_ff`` launches the wgmma pair (else the CUDA-core
+    pair)."""
+    return dtype == torch.bfloat16 and c % 64 == 0 and inner % 128 == 0
+
+
+def _launch_simt(x2d, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    t, c = x2d.shape
+    inner = w_in.shape[0] // 2
+    h = torch.empty((t, inner), dtype=x2d.dtype, device=x2d.device)
+    out = torch.empty((t, c), dtype=x2d.dtype, device=x2d.device)
+    lib = _build.library("geglu_ff")
+    fn = lib.dvdx_geglu_simt
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(*(_build.ptr(a) for a in (x2d, w_in, b_in, h, w_out, b_out, out)), t, c, inner,
+            int(x2d.dtype == torch.float32), _build.stream(x2d.device))
+    _build.check(lib, rc, "geglu_ff (CUDA-core pair)")
+    return out
+
+
+def _operands(name, x, *params, dtypes=(torch.bfloat16,)):
     """x as contiguous (T, C) and the parameters cast to x's dtype and made
     contiguous; raises on what the kernels do not take."""
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name}: the kernel takes {', '.join(map(str, dtypes))}, "
+                         f"not {x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bfloat16")
     if any(p.device != x.device for p in params if p is not None):
         raise ValueError(f"{name}: x and the weights must share one device")
     ops = [x.reshape(-1, x.shape[-1]).contiguous()]
@@ -159,18 +189,24 @@ def geglu_out(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
 def geglu_ff(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
              w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
     """GEGLU MLP over the last axis of x (..., C). CPU tensors take the plain
-    version; CUDA tensors launch the two kernels (bf16, C % 64 == 0, I % 128
-    == 0) or raise. Weights are cast to x's dtype, as nn.Dense(dtype=...)
-    does."""
+    version; CUDA tensors launch the wgmma pair (bf16, C % 64 == 0, I % 128
+    == 0) or else the CUDA-core pair (bf16 or float32, any width), or raise.
+    Weights are cast to x's dtype, as nn.Dense(dtype=...) does."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, w_in, b_in, w_out, b_out)
     c = x.shape[-1]
-    _check_in("geglu_ff", c, w_in, b_in)
-    _check_out("geglu_ff", w_in.shape[0] // 2, w_out, b_out)
-    if w_out.shape[0] != c:
-        raise ValueError(f"geglu_ff: w_out {tuple(w_out.shape)} does not map back to C={c}")
-    xt, wi, bi, wo, bo = _operands("geglu_ff", x, w_in, b_in, w_out, b_out)
-    out = _launch_out(_launch_in(xt, wi, bi), wo, bo, None)
-    global LAUNCHES
-    LAUNCHES += 1
+    inner = w_in.shape[0] // 2
+    if w_in.shape != (2 * inner, c) or b_in.shape != (2 * inner,) \
+            or w_out.shape != (c, inner) or b_out.shape != (c,):
+        raise ValueError(f"geglu_ff: weights {tuple(w_in.shape)} / {tuple(w_out.shape)} "
+                         f"do not map C={c} through an inner width and back")
+    xt, wi, bi, wo, bo = _operands("geglu_ff", x, w_in, b_in, w_out, b_out,
+                                   dtypes=KERNEL_DTYPES)
+    global LAUNCHES, SIMT_LAUNCHES
+    if wgmma_takes(x.dtype, c, inner):
+        out = _launch_out(_launch_in(xt, wi, bi), wo, bo, None)
+        LAUNCHES += 1
+    else:
+        out = _launch_simt(xt, wi, bi, wo, bo)
+        SIMT_LAUNCHES += 1
     return out.reshape(x.shape)

@@ -10,6 +10,8 @@ Persistent CTAs walk over tiles of P positions x one head x all F frames
 (``plan``), brought in by TMA through a ring and computed on the tensor
 cores; F <= 128 frames and head dims that are multiples of 8 up to 128 (the
 JAX fm kernel's limit). Bounded by bytes (about F/2 flops per byte moved).
+Float32 inputs launch ``csrc/attention_f32.cu`` (``ops/kernels/
+attention_f32``) instead, as the Pallas kernels take float32 too.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _build
+from . import attention_f32
 
-LAUNCHES = 0  # kernel launches since the last reset (a plain count)
+LAUNCHES = 0      # bf16 kernel launches since the last reset (a plain count)
+F32_LAUNCHES = 0  # float32 kernel launches since the last reset
 MAX_FRAMES = 128
 MAX_HEAD_DIM = 128
 MAX_STAGES = 4       # ring stages (csrc/temporal_attention.cu MAX_STAGES)
@@ -104,9 +108,19 @@ def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
                          "with heads dividing the last axis")
     if k.device != q.device or v.device != q.device:
         raise ValueError("temporal_attention: q, k, v must share one device")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError("temporal_attention: the kernel takes bfloat16")
     pl = check_shape(b, f, n, heads, d, "fm" if frame_axis == 1 else "pm")
+    global LAUNCHES, F32_LAUNCHES
+    if q.dtype == torch.float32:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        n_axis = 3 - frame_axis
+        attention_f32.launch(q, k, v, out, batch=b, n=n, heads=heads, s_q=f, s_k=f, d=d,
+                             strides=[(t.stride(0), t.stride(n_axis), t.stride(frame_axis), d)
+                                      for t in (q, k, v, out)],
+                             scale=scale, what="temporal_attention")
+        F32_LAUNCHES += 1
+        return out
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError("temporal_attention: the kernel takes bfloat16 or float32")
     if q.stride() != k.stride() or q.stride() != v.stride() \
             or q.stride(3) != 1 or any(st % 8 for st in q.stride()[:3]) \
             or any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -126,7 +140,6 @@ def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
             b, f, n, heads, d, sb, sf, sn, osb, osf, osn, pl.positions, pl.stages, float(scale),
             _build.stream(q.device))
     _build.check(lib, rc, "temporal_attention")
-    global LAUNCHES
     LAUNCHES += 1
     return out
 
@@ -136,7 +149,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Frame-major entry point: q/k/v (B, F, N, heads*D) -> same shape. The
     layout the port's ``TransformerTemporal`` produces (rows 4/5 of the TPU
     kernel table). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel (bf16) or the float32 kernel (float32), or raise."""
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads=heads, scale=scale)
     if q.device.type != "cuda":

@@ -49,6 +49,12 @@ def _key(words: Sequence[int]) -> torch.Tensor:
     return torch.tensor([int(w) & _MASK for w in words], dtype=torch.int64)
 
 
+def key(seed: int) -> torch.Tensor:
+    """``jax.random.key(seed)``: the words (seed >> 32, seed & 0xFFFFFFFF)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return _key((seed >> 32, seed & _MASK))
+
+
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: threefry over the counter pair (0, data)."""
     k0, k1 = (int(w) for w in key.tolist())
@@ -58,12 +64,10 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 
 def base_key(seed: int) -> torch.Tensor:
-    """64-bit seed -> key, as ``dvdx_tpu.ops.rng.base_key``: key(0) folded
-    with the seed's high then low 32-bit word."""
+    """64-bit seed -> key, as ``base_key`` of ``dvdx_tpu/ops/rng.py``: key(0)
+    folded with the seed's high then low 32-bit word."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    key = _key((0, 0))
-    key = fold_in(key, seed >> 32)
-    return fold_in(key, seed & _MASK)
+    return fold_in(fold_in(key(0), seed >> 32), seed & _MASK)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],

@@ -54,11 +54,11 @@ class Pipeline(nn.Module):
 
 
 @torch.no_grad()
-def _random_init(module: nn.Module, seed: int) -> None:
+def random_init(module: nn.Module, seed: int) -> None:
     """Seeded init on the module's device: dense and conv weights
     N(0, 1/fan_in), ``*_zero`` layers and biases 0, norm scales 1,
-    embeddings N(0, 1/width), the position table N(0, 0.02^2). Drawn in
-    float32 from one generator in parameter order, then cast once."""
+    embeddings N(0, 1/width), position tables and class tokens N(0, 0.02^2).
+    Drawn in float32 from one generator in parameter order, then cast once."""
     dev = next(module.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for mod_name, mod in module.named_modules():
@@ -68,7 +68,7 @@ def _random_init(module: nn.Module, seed: int) -> None:
             elif name == "weight" and isinstance(mod, (nn.LayerNorm, GroupNorm)):
                 p.fill_(1.0)
             else:
-                if name == "position_embedding":
+                if name in ("position_embedding", "pos_embedding", "cls_token"):
                     std = 0.02
                 elif isinstance(mod, nn.Embedding):
                     std = p.shape[1] ** -0.5
@@ -94,7 +94,7 @@ def build_pipeline(model: Union[str, ModelSpec] = "zeroscope-v2-576w",
         text = CLIPTextEncoder(spec.text).to(spec.text.compute_dtype)
         vae = VAEDecoder(spec.vae).to(spec.vae.compute_dtype)
     for i, module in enumerate((unet, text, vae)):
-        _random_init(module, seed + i)
+        random_init(module, seed + i)
     pipe = Pipeline(spec, unet, text, vae).eval()
     if device.type == "cuda":
         pipe.to(memory_format=torch.channels_last)  # conv weights, for cuDNN

@@ -1,7 +1,10 @@
 """Weight bridge: the reference's flax parameter tree -> the port's modules.
 
 The port's modules carry the reference's module names, so a flax leaf
-``a/b/c/kernel`` lands on ``module.get_submodule("a.b.c")``:
+``a/b/c/kernel`` lands on ``module.get_submodule("a.b.c")`` (the UNet3D of
+both temporal styles, the rotary mixers' ``norm`` / ``to_q`` / ``to_k`` /
+``to_v`` / ``to_out_zero`` included, the text encoder, the VAE decoder, and
+the CLIP scorer's vision tower, text tower and ``text_proj``):
 
 * a dense ``kernel`` (in, out) becomes ``nn.Linear.weight`` (out, in);
 * a conv ``kernel`` in HWIO becomes OIHW; the (3, 1, 1, I, O) temporal conv
@@ -39,9 +42,11 @@ def to_tensor(leaf: Any) -> torch.Tensor:
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
+    """(module path, leaf) pairs; a flax ``params`` collection level, at the
+    top or inside a subtree, adds nothing to the path."""
     for key, value in tree.items():
         if isinstance(value, dict):
-            yield from _leaves(value, prefix + (key,))
+            yield from _leaves(value, prefix if key == "params" else prefix + (key,))
         else:
             yield prefix + (key,), value
 
@@ -66,9 +71,10 @@ def _target(module: nn.Module, path: Tuple[str, ...], value: torch.Tensor):
 
 def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     """Copy a flax parameter tree ({'params': {...}} or its inside) into
-    ``module`` in place, keeping each parameter's dtype and device."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    ``module`` in place, keeping each parameter's dtype and device. A tree
+    of several flax trees (the scorer's {'vision': {'params': ...}, 'text':
+    {'params': ...}, 'text_proj': array}) maps onto the module's children
+    of those names and its own bare parameters."""
     params = dict(module.named_parameters())
     seen = set()
     with torch.no_grad():

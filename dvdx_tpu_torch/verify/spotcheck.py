@@ -14,8 +14,12 @@ On one platform every kernel of the step has a fixed launch shape and no
 atomics (and cuDNN / cuBLAS run their deterministic algorithms), so the
 re-execution reproduces the leaves bit for bit. Across platforms (a CUDA
 miner, a CPU validator, or the JAX package on either side) the check is a
-tolerance: the engine's ``platform_tag`` ("cuda" or "cpu") is what a miner
-pins, and the validator picks its regime from it.
+tolerance: the engine's ``platform_tag`` is what a miner pins, and the
+validator picks its regime from it. The tag names the implementation as well
+as the device ("torch-cuda", "torch-cpu"), so a JAX validator, whose own
+tags are its backend names ("cpu", "tpu"), never takes a torch miner for one
+of its own programs; it holds no ":", which the validators read as the start
+of a strategy name.
 
 Leaves are bfloat16 in channel-last (F, h, w, C) layout. numpy has no
 bfloat16 of its own, so the engine hands them out as bfloat16 CPU tensors
@@ -27,6 +31,7 @@ bytes. Mesh, chunked and segmented execution are not ported.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +44,13 @@ from ..utils.bridge import to_tensor
 from .proof import sample_distinct_indices
 
 
+def _tmark(timings: Optional[dict], name: str, t0: float) -> float:
+    now = time.perf_counter()
+    if timings is not None:
+        timings[name] = round(now - t0, 4)
+    return now
+
+
 class StepEngine:
     """The prover / verifier step program of a ``Pipeline`` on its device."""
 
@@ -47,12 +59,13 @@ class StepEngine:
 
     @property
     def platform_tag(self) -> str:
-        """What this engine's miner pins at registration: "cuda" on the card,
-        "cpu" on the CPU."""
+        """What this engine's miner pins at registration: "torch-cuda" on
+        the card, "torch-cpu" on the CPU. The CUDA kernels are built for
+        sm_90a alone, so "torch-cuda" is always a Hopper card."""
         kind = self.pipe.device.type
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"StepEngine: unsupported device {self.pipe.device}")
-        return kind
+        return f"torch-{kind}"
 
     def _schedule(self, num_steps: int):
         return make_ddim_schedule(num_steps, prediction_type=self.pipe.spec.prediction_type)
@@ -71,20 +84,31 @@ class StepEngine:
                           seed: int = 0, num_frames: int, height: int, width: int,
                           num_steps: int, guidance_scale: float,
                           latent_dtype: torch.dtype = torch.bfloat16,
-                          cfg_split: bool = False):
+                          cfg_split: bool = False, timings: Optional[dict] = None):
         """PoI-grade generation through the step program the verifier runs.
         Returns (video (F, H, W, 3) uint8 numpy, zs, epss, timesteps): zs
         and epss are (N, F, h, w, C) CPU tensors in latent_dtype, timesteps
-        (N,) int32 numpy."""
+        (N,) int32 numpy. ``timings`` (optional dict) receives host seconds
+        per phase: "dispatch_loop" (text, noise, the denoise loop and the
+        decode handed to the device), "compute_wall" (until the device is
+        done), "leaf_fetch" and "video_fetch" (the copies to the host)."""
+        t0 = time.perf_counter()
         ids = torch.from_numpy(self.pipe.tokenize([negative_prompt, prompt])).long()
         frames, zs, epss = generate_core(
             self.pipe, ids.to(self.pipe.device), rng_ops.base_key(seed),
             sched=self._schedule(num_steps), num_frames=num_frames, height=height,
             width=width, guidance_scale=guidance_scale, record=True,
             latent_dtype=latent_dtype, cfg_split=cfg_split)
-        video = ((frames + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
-        return (video, zs[:, 0].cpu(), epss[:, 0].cpu(),
-                self._schedule(num_steps).timesteps.copy())
+        video = ((frames + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+        t0 = _tmark(timings, "dispatch_loop", t0)
+        if video.is_cuda:
+            torch.cuda.current_stream(video.device).synchronize()
+        t0 = _tmark(timings, "compute_wall", t0)
+        zs, epss = zs[:, 0].cpu(), epss[:, 0].cpu()
+        t0 = _tmark(timings, "leaf_fetch", t0)
+        video = video.cpu().numpy()
+        _tmark(timings, "video_fetch", t0)
+        return video, zs, epss, self._schedule(num_steps).timesteps.copy()
 
     # -- verifier path --
 

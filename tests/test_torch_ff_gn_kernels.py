@@ -125,20 +125,24 @@ def test_geglu_stage_plains_compose_to_geglu_ff(dtype, t, c):
                        geglu_residual(x, resid, w_in, b_in, w_out, b_out))
 
 
-@pytest.mark.parametrize("fn,c,inner,msg", [
-    ("geglu_ff", 320, 1280, "unsupported device"),
-    ("geglu_ff", 96, 384, "unsupported width"),
-    ("geglu_ff", 64, 192, "unsupported width"),  # inner not a multiple of 128
-    ("geglu_in", 64, 192, "unsupported width"),
-    ("geglu_out", 96, 384, "unsupported width"),
-    ("geglu_out", 320, 1280, "unsupported device"),
+@pytest.mark.parametrize("fn,c,inner,msg,dtype", [
+    ("geglu_ff", 320, 1280, "unsupported device", torch.bfloat16),
+    # geglu_ff takes any width (its CUDA-core pair where the wgmma pair
+    # does not tile): these get past the width checks to the device's
+    ("geglu_ff", 96, 384, "unsupported device", torch.bfloat16),
+    ("geglu_ff", 64, 192, "unsupported device", torch.bfloat16),
+    ("geglu_ff", 64, 256, "takes", torch.float16),
+    ("geglu_in", 64, 192, "unsupported width", torch.bfloat16),
+    ("geglu_out", 96, 384, "unsupported width", torch.bfloat16),
+    ("geglu_out", 320, 1280, "unsupported device", torch.bfloat16),
 ])
-def test_geglu_wrappers_refuse_what_the_kernels_do_not_take(fn, c, inner, msg):
+def test_geglu_wrappers_refuse_what_the_kernels_do_not_take(fn, c, inner, msg, dtype):
     """Off the CPU the wrappers launch the kernels or raise: shapes the
-    kernels do not tile (C % 64, I % 128 for geglu_in) and devices that are
-    neither the CPU nor a CUDA card are refused before any launch."""
+    wgmma stages do not tile (C % 64, I % 128 for geglu_in), dtypes no kernel
+    takes, and devices that are neither the CPU nor a CUDA card are refused
+    before any launch."""
     def meta(*shape):
-        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
     w_in, b_in, w_out, b_out = meta(2 * inner, c), meta(2 * inner), meta(c, inner), meta(c)
     args = {"geglu_ff": (meta(8, c), w_in, b_in, w_out, b_out),
             "geglu_in": (meta(8, c), w_in, b_in),

@@ -1,9 +1,12 @@
 """Import hygiene of the PyTorch port: every ``dvdx_tpu_torch`` module, and
-what ``chip_smoke.py`` imports, must import with JAX and the JAX package
-blocked (``sys.modules[name] = None`` makes any import of them fail)."""
+what ``chip_smoke.py`` imports, must import with JAX, flax, ml_dtypes and the
+JAX package blocked (``sys.modules[name] = None`` makes any import of them
+fail), and no source of the package names them."""
 
 import os
+import pathlib
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -13,7 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "dvdx_tpu"):
+for name in ("jax", "jaxlib", "flax", "ml_dtypes", "dvdx_tpu"):
     sys.modules[name] = None
 import dvdx_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(dvdx_tpu_torch.__path__,
@@ -44,13 +47,14 @@ def test_chip_smoke_imports_without_jax():
     """chip_smoke.py's module-level imports and the port modules its phases
     import; without a card ``main`` stops before any phase and exits 2."""
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'dvdx_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import runpy\n"
             "g = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
             "assert set(g['read_counts']()) == set(g['KERNEL_META'])\n"
             "import dvdx_tpu_torch.pipelines.text2video, dvdx_tpu_torch.verify.merkle\n"
             "import dvdx_tpu_torch.verify.spotcheck\n"
+            "import dvdx_tpu_torch.network.mock, dvdx_tpu_torch.network.validator\n"
             "import dvdx_tpu_torch.utils.testing\n"
             "import torch\n"
             "assert torch.cuda.is_available() or g['main']() == 2\n"
@@ -71,3 +75,33 @@ def test_kernel_sources_ship(source):
     assert source in _build.SOURCES
     assert (_build.CSRC / f"{source}.cu").is_file()
     assert (_build.CSRC / "common.cuh").is_file()
+
+
+@pytest.mark.parametrize("module", [
+    "network.protocol", "network.base", "network.ledger", "network.transport",
+    "network.miner", "network.validator", "network.mock", "scoring.common",
+    "scoring.mdvqs", "scoring.clip_score", "models.clip_vision", "utils.video_io",
+    "verify.proof"])
+def test_network_and_scoring_modules_import_without_jax(module):
+    proc = _run("import sys\n"
+                "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"
+                "    sys.modules[name] = None\n"
+                f"import dvdx_tpu_torch.{module}\n"
+                "print('ok')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    """No source of the port, nor chip_smoke.py, imports jax, flax or
+    ml_dtypes, or names a module of the JAX package as ``dvdx_tpu.<name>``."""
+    imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ml_dtypes|dvdx_tpu)\b")
+    offenders = []
+    sources = sorted(pathlib.Path(REPO, "dvdx_tpu_torch").rglob("*.py"))
+    for path in sources + [pathlib.Path(REPO, "chip_smoke.py")]:
+        for line in path.read_text().splitlines():
+            if imports.search(line) or re.search(r"\bdvdx_tpu\.", line) \
+                    or "import jax" in line:
+                offenders.append(f"{path.name}: {line.strip()}")
+    assert not offenders, offenders
+    assert len(sources) >= 30

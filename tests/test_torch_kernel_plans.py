@@ -21,6 +21,9 @@ to do with them.
   their rows hold every (batch, position, head, frame) once in both
   layouts, up to 128 frames; every shape the gate takes passes the
   wrapper's checks.
+* Float32 models: the layers hand GroupNorm, GEGLU and frame-axis attention
+  to the kernels' wrappers whatever the dtype (no gate reads it), and GEGLU
+  picks its wgmma pair for bf16 at C % 64 == 0 and I % 128 == 0 only.
 """
 
 import itertools
@@ -31,6 +34,7 @@ import torch
 from dvdx_tpu_torch.models import layers, unet3d, vae
 from dvdx_tpu_torch.models.zoo import get_model_spec
 from dvdx_tpu_torch.ops import groupnorm as tgn
+from dvdx_tpu_torch.ops.kernels import geglu_ff as tff
 from dvdx_tpu_torch.ops.kernels import spatial_tail as ttail
 from dvdx_tpu_torch.ops.kernels import temporal_attention as tattn
 from dvdx_tpu_torch.ops.kernels import temporal_block as tblock
@@ -233,3 +237,37 @@ def test_gated_frame_attention_passes_the_wrapper_checks(frames, head_dim):
         else:
             with pytest.raises(ValueError):
                 tattn.check_shape(2, frames, 720, 10, head_dim, layout)
+
+
+@pytest.mark.parametrize("model", ["zeroscope-tiny", "zeroscope-tiny-hf"])
+def test_float32_models_call_the_kernel_wrappers(model):
+    """One float32 UNet call of each test model on the CPU: every GroupNorm,
+    GEGLU and frame-axis attention goes through the layer's kernel wrapper
+    (which launches its kernel on a CUDA tensor), none to a plain version
+    chosen by dtype."""
+    calls = {}
+
+    def recorder(name, fn):
+        def run(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            assert args[0].dtype == torch.float32
+            return fn(*args, **kwargs)
+        return run
+
+    spec = get_model_spec(model)
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("group_norm_act", "geglu_ff", "temporal_attention"):
+            mp.setattr(layers, name, recorder(name, getattr(layers, name)))
+        unet = unet3d.UNet3D(spec.unet).float()
+        with torch.inference_mode():
+            unet(torch.randn(2, 4, 4, 4, 4), torch.tensor([500, 500]), torch.randn(2, 77, 64))
+    assert calls["group_norm_act"] > 0 and calls["geglu_ff"] > 0
+    assert ("temporal_attention" in calls) == (model == "zeroscope-tiny-hf")
+
+
+@pytest.mark.parametrize("dtype,c,inner,wgmma", [
+    (torch.bfloat16, 320, 1280, True), (torch.bfloat16, 1280, 5120, True),
+    (torch.bfloat16, 32, 128, False), (torch.bfloat16, 64, 192, False),
+    (torch.float32, 320, 1280, False), (torch.float32, 32, 128, False)])
+def test_geglu_picks_its_kernel_pair(dtype, c, inner, wgmma):
+    assert tff.wgmma_takes(dtype, c, inner) is wgmma

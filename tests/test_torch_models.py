@@ -128,3 +128,89 @@ def test_unet_bfloat16_close(tiny_hf_pipeline):
     _report(got, want)
     err = np.abs(got - want).max()
     assert err <= 0.05 * np.abs(want).max(), (err, np.abs(want).max())
+
+
+# --- the rotary temporal style (zeroscope-tiny) -------------------------------
+# float32 on both sides; each case is held to 1e-5 of the reference output's
+# max |value| (measured: ~1e-7 of it for the modules, ~1e-6 for the UNet).
+
+ROTARY_RTOL_OF_MAX = 1e-5
+
+
+def _within_scale(got, want, frac=ROTARY_RTOL_OF_MAX):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    _report(got, want)
+    assert np.abs(got - want).max() <= frac * np.abs(want).max()
+
+
+@pytest.mark.parametrize("offset", [0, 5, 13])
+def test_rotary_embed_matches(offset):
+    """Absolute positions offset as a frame chunk of a longer clip sees them."""
+    from dvdx_tpu.models.layers import rotary_embed as j_rotary
+    from dvdx_tpu_torch.models.layers import rotary_embed
+
+    x = np.random.default_rng(offset).normal(size=(3, 6, 4, 16)).astype(np.float32)
+    pos = np.arange(6) + offset
+    want = jax.jit(j_rotary)(x, pos)
+    got = rotary_embed(torch.from_numpy(x), torch.from_numpy(pos))
+    _within_scale(got.numpy(), want)
+
+
+@pytest.mark.parametrize("offset,use_rotary", [(0, True), (7, True), (0, False)])
+def test_temporal_attention_matches(offset, use_rotary):
+    from dvdx_tpu.models.layers import TemporalAttention as JTemporalAttention
+    from dvdx_tpu.utils.init import fast_init
+    from dvdx_tpu.utils.testing import perturb_zero_params
+    from dvdx_tpu_torch.models.layers import TemporalAttention
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 5, 3, 4, 32)).astype(np.float32)
+    pos = np.arange(5) + offset
+    jmod = JTemporalAttention(2, 16, use_rotary, jnp.float32)
+    params = perturb_zero_params(fast_init(jmod, 0, jnp.asarray(x), jnp.asarray(pos)), seed=3)
+    want = jax.jit(jmod.apply)(params, x, pos)
+    port = load_jax_params(TemporalAttention(32, 2, 16, use_rotary),
+                           jax.tree.map(np.asarray, params))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(pos))
+    _within_scale(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def bridged_rotary(tiny_pipeline):
+    """(reference zeroscope-tiny, the port's holding the same weights)."""
+    tree = jax.tree.map(np.asarray, tiny_pipeline.params)
+    return tiny_pipeline, load_pipeline_params(build_pipeline("zeroscope-tiny", device="cpu"),
+                                               tree)
+
+
+def test_zeroscope_tiny_spec_matches(bridged_rotary):
+    from dvdx_tpu.models.zoo import get_model_spec as j_spec
+    from dvdx_tpu_torch.models.zoo import get_model_spec
+
+    port, ref = get_model_spec("zeroscope-tiny"), j_spec("zeroscope-tiny")
+    for field in ("block_out_channels", "layers_per_block", "cross_attention_levels",
+                  "attention_head_dim", "cross_attention_dim", "norm_groups",
+                  "temporal_conv_layers", "use_rotary_time", "temporal_style", "dtype"):
+        assert getattr(ref.unet, field) == getattr(port.unet, field), field
+    assert (ref.default_width, ref.default_height, ref.default_frames, ref.default_steps) == \
+        (port.default_width, port.default_height, port.default_frames, port.default_steps)
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_unet_rotary_float32_matches(bridged_rotary, offset):
+    """The whole zeroscope-tiny UNet (rotary transformer_in and temporal
+    mixers, one temporal conv per level), positions offset as under
+    chunking."""
+    ref, port = bridged_rotary
+    rng = np.random.default_rng(2 + offset)
+    z = rng.normal(size=(2, 4, 8, 8, 4)).astype(np.float32)
+    ctx = rng.normal(size=(2, 16, 64)).astype(np.float32)
+    ts = np.array([981, 21], np.int32)
+    pos = np.arange(4) + offset
+    want = jax.jit(lambda p, *a: JUNet3D(ref.spec.unet).apply(p, *a))(
+        ref.params["unet"], z, ts, ctx, pos)
+    with torch.no_grad():
+        got = port.unet(torch.from_numpy(z), torch.from_numpy(ts), torch.from_numpy(ctx),
+                        torch.from_numpy(pos))
+    _within_scale(got.numpy(), want)

@@ -102,7 +102,7 @@ def test_port_reexecution_is_bitwise(engines, records):
     scaled by 1 + 2^-4 is refused."""
     _, teng = engines
     _, (video, zs, es, ts) = records
-    assert teng.platform_tag == "cpu"
+    assert teng.platform_tag == "torch-cpu"
     leaves = _leaves(zs, es, ts)
     results, z_next = tspot.verify_revealed_steps(teng, PROMPT, "", leaves, [0, 1, 2],
                                                   3, 7.5, **SAME)
