@@ -16,8 +16,11 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      layouts; flash_attention_mh, GEGLU's two launches on their own at level
      2, GroupNorm with a level-0 pre-bias and with ragged chunks, the fused
      block at a ragged N and at F = 24; GEGLU's CUDA-core pair in bf16 at C
-     = 40; flash and frame-axis attention in float32), with kernel / plain /
-     library times
+     = 40; flash and frame-axis attention in float32), and the shapes the
+     XL geometry adds (flash at 9216 tokens, held on two frames' batch-heads,
+     and at level 2's 576; the fused tail and block over 24 x 9216; GroupNorm
+     at the UNet's level 0 and the VAE's full 1024x576 frame), with kernel /
+     plain / library times
      (CUDA events, the launches queued behind a device spin), the roofline
      bound (the fused kernels' also split into their chain and FF launches),
      and a second call that must give the same bits;
@@ -48,9 +51,28 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      weights; the honest miner must pass in the cross-platform regime (atol
      5e-2) and the lazy one be caught at ``reexecution``; GroupNorm's float32
      kernel and GEGLU's CUDA-core pair must launch during the round;
+  7. zeroscope-v2-xl from a synthetic diffusers checkpoint at zeroscope's
+     full architecture (seeded random values, written under ``build/`` and
+     deleted after loading), loaded by ``resolve_pipeline``: the XL PoI
+     request (24 frames at 1024x576, 50 steps, CFG 7.5, cfg_split, segments
+     of 10) through ``StepEngine.generate_recorded`` with the checkpoint's
+     BPE tokenizer, launches per UNet call as the routing says (flash also
+     at level 2); every distinct input one cfg_split UNet call and one
+     frame's decode hand a kernel, recorded where the layers call it and
+     held against the plain version (2 bf16 ulps, the same bits on a second
+     call), on those inputs and on random ones of the same shapes and
+     strides; that UNet call and that decode run again through the plain
+     versions, within ``REFERENCE_RELRMS_TOL`` of the kernels'; the CLI's
+     segmented runner on the same inputs, whose video must be the same
+     bits; 3 re-executed steps (bitwise); one frame decoded full and in
+     tiles; ``python -m dvdx_tpu_torch generate`` run with no device flag,
+     which must run on the card;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
-  phase 2 alone holds), and the result line.
+  phase 2 alone holds; ``launches_xl`` from phase 7's request;
+  ``xl_per_unet_call`` / ``xl_vae_frame`` from phase 7's held inputs:
+  distinct shapes, launches, kernel ms summed over the launches, largest
+  error, and per UNet call the bound), and the result line.
 
 Imports nothing of JAX or of the JAX package. Detail too long for the end of
 the output goes to ``chiprun_out/``.
@@ -58,6 +80,7 @@ the output goes to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -199,12 +222,19 @@ def kernel_cases():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
+    # then the XL geometry's (zeroscope-v2-xl with cfg_split: batch 1, 24
+    # frames, latent 72x128): level 0 over 9216 tokens (24 x 5 batch-heads)
+    # and level 2, which flash's S >= 512 gate takes only at XL (576 tokens,
+    # 24 x 20); plain attention over all of level 0 would hold 40 GB of
+    # logits, so it is held on two frames' batch-heads (PLAIN_SLICE)
     for label, (b, s, h, d) in (("level0", (32, 2880, 5, 64)),
                                 ("level1", (32, 720, 10, 64)),
-                                ("ragged_d40", (4, 777, 3, 40))):
+                                ("ragged_d40", (4, 777, 3, 40)),
+                                ("xl_level0", (24, 9216, 5, 64)),
+                                ("xl_level2", (24, 576, 20, 64))):
         def mk(gen, b=b, s=s, h=h, d=d):
             return [randn((b, s, h, d), gen) for _ in range(3)]
-        main = label != "ragged_d40"
+        main = label in ("level0", "level1")
         cases.append(("flash_attention", label, mk, fa.flash_attention,
                       fa.flash_attention_plain, sdpa_bshd, flash_cost(b, s, h, d), main))
 
@@ -251,6 +281,10 @@ def kernel_cases():
                       temporal_cost(b, f, n, heads, d),
                       label in ("level0", "transformer_in_d40", "level1", "level2", "level3")))
 
+    PLAIN_SLICE[("flash_attention", "xl_level0")] = (
+        "frames 0 and 23 (10 of 120 batch-heads)",
+        lambda xs: [x[[0, 23]] for x in xs], lambda out: out[[0, 23]])
+
     for label, (t, c) in (("level0", (92160, 320)), ("level1", (23040, 640)),
                           ("level2", (5760, 1280)), ("level3", (1440, 1280))):
         inner = 4 * c
@@ -294,7 +328,13 @@ def kernel_cases():
             ("vae_up_160x288_c512", (1, 46080, 512, "silu", False, 1e-6, 1.0, 3.0)),
             ("vae_up_160x288", (1, 46080, 256, "silu", False, 1e-6, 1.0, 3.0)),
             ("vae_up_320x576_c256", (1, 184320, 256, "silu", False, 1e-6, 1.0, 3.0)),
-            ("vae_out_320x576", (1, 184320, 128, "silu", False, 1e-6, 1.0, 3.0))):
+            ("vae_out_320x576", (1, 184320, 128, "silu", False, 1e-6, 1.0, 3.0)),
+            # XL (cfg_split): the UNet's level 0 over 24 frames of 72x128, the
+            # VAE decoder's full 1024x576 frame
+            ("xl_resnet_l0", (24, 9216, 320, "silu", True, 1e-5, 2.0, 0.5)),
+            ("xl_temporal_l0", (1, 221184, 320, "none", False, 1e-6, 2.0, 0.5)),
+            ("xl_vae_up_576x1024_c256", (1, 589824, 256, "silu", False, 1e-6, 1.0, 3.0)),
+            ("xl_vae_out_576x1024", (1, 589824, 128, "silu", False, 1e-6, 1.0, 3.0))):
         def mk(gen, n=n, l=l, c=c, bias=bias, scale=scale, shift=shift):
             xs = [randn((n, l, c), gen, scale, shift),
                   torch.rand((c,), generator=gen, device="cuda") + 0.5,
@@ -313,8 +353,8 @@ def kernel_cases():
             xb = x if bias is None else x + bias[:, None, :]
             y = F.group_norm(xb.transpose(1, 2), 32, w.to(x.dtype), b_.to(x.dtype), eps)
             return F.silu(y) if act == "silu" else y
-        cases.append(("group_norm_act", label, mk, kern, plain, lib,
-                      gn_cost(n, l, c, bias), label not in GN_OFF_PATH))
+        cases.append(("group_norm_act", label, mk, kern, plain, lib, gn_cost(n, l, c, bias),
+                      label not in GN_OFF_PATH and not label.startswith("xl_")))
 
     def sdpa_mh(heads, d):
         def fn(q, k, v):
@@ -352,14 +392,16 @@ def kernel_cases():
 
     # the main path's level 0, then off it: C = 384 (two ring stages), S =
     # 721 (tiles spanning two images), T = 300 (two sweeps over 128-token
-    # fills), C = 64 with T = 16, head width 40, and C = 640 (the wide chain)
+    # fills), C = 64 with T = 16, head width 40, C = 640 (the wide chain),
+    # and XL's level 0 (24 x 9216 rows)
     for label, (n, s_, c, heads, t), main in (("level0", (32, 2880, 320, 5, 77), True),
                                               ("c384", (8, 2880, 384, 6, 77), False),
                                               ("s721_spanning", (32, 721, 320, 5, 77), False),
                                               ("t300_two_sweeps", (8, 2880, 320, 5, 300), False),
                                               ("c64_t16", (8, 1024, 64, 1, 16), False),
                                               ("d40", (8, 2880, 320, 8, 77), False),
-                                              ("c640", (32, 720, 640, 10, 77), False)):
+                                              ("c640", (32, 720, 640, 10, 77), False),
+                                              ("xl_level0", (24, 9216, 320, 5, 77), False)):
         shapes = {k: (c,) for k in st.KEYS}
         shapes.update({"o1_w": (c, c), "q2_w": (c, c), "o2_w": (c, c),
                        "ffi_w": (8 * c, c), "ffi_b": (8 * c,), "ffo_w": (c, 4 * c)})
@@ -378,12 +420,15 @@ def kernel_cases():
 
     # the main path's two blocks, then off it: N not a multiple of the 4
     # positions a tile, and F = 24 (the XL geometry's frames: 2 positions a
-    # tile, keys padded to 32) with both head layouts
+    # tile, keys padded to 32) with both head layouts, at a ragged N and at
+    # XL's 9216 positions
     for label, (b, f, n, heads) in (("level0", (2, 16, 2880, 5)),
                                     ("transformer_in_d40", (2, 16, 2880, 8)),
                                     ("f16_ragged_n", (2, 16, 2881, 5)),
                                     ("f24_5x64", (2, 24, 2881, 5)),
-                                    ("f24_8x40", (2, 24, 2881, 8))):
+                                    ("f24_8x40", (2, 24, 2881, 8)),
+                                    ("xl_level0", (1, 24, 9216, 5)),
+                                    ("xl_transformer_in_d40", (1, 24, 9216, 8))):
         c = 320
         shapes = {k: (c,) for k in tb.KEYS}
         shapes.update({k: (c, c) for k in ("q1", "k1", "v1", "o1_w", "q2", "k2", "v2", "o2_w")})
@@ -472,6 +517,9 @@ def kernel_cases():
 GN_OFF_PATH = ("temporal_l0_bias", "ragged_chunks")
 # (kernel, shape label) -> the bound of each launch group of a fused kernel
 BOUND_PARTS = {}
+# (kernel, shape label) -> (description, inputs -> inputs of the slice, output
+# -> the slice's output): cases whose plain version is held on a slice
+PLAIN_SLICE = {}
 
 
 KERNEL_META = {
@@ -542,8 +590,11 @@ def check_kernels():
         inputs = mk(gen)
         out = kern(*inputs)
         torch.cuda.synchronize()
-        ref = plain(*inputs)
-        err = (out.float() - ref.float()).abs().max().item()
+        sliced, plain_inputs, held = PLAIN_SLICE.get((name, label)), inputs, out
+        if sliced is not None:
+            plain_inputs, held = sliced[1](inputs), sliced[2](out)
+        ref = plain(*plain_inputs)
+        err = (held.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         if out.dtype == torch.float32:
             tol = F32_REL_TOL.get(name, F32_REL_TOL_DEFAULT) * max(scale, 1e-6)
@@ -554,7 +605,7 @@ def check_kernels():
         ok = bool(np.isfinite(err)) and err <= tol and repeat
         iters = 5
         ms = cuda_ms(lambda: kern(*inputs), iters)
-        plain_ms = cuda_ms(lambda: plain(*inputs), 2)
+        plain_ms = cuda_ms(lambda: plain(*plain_inputs), 2)
         lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
         peak = PEAK_F32_FLOPS if name in CUDA_CORE_KERNELS else PEAK_BF16_FLOPS
         bms, bby = bound_ms(flops, nbytes, peak)
@@ -562,14 +613,15 @@ def check_kernels():
         row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
                    max_abs_ref=scale, repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bms, bound_by=bby, main_path=main, ok=ok,
-                   bound_ms_parts=parts)
+                   bound_ms_parts=parts, plain_on=None if sliced is None else sliced[0])
         rows.append(row)
         log(f"kernel {name:20s} {label:28s} err={err:.3e} tol={tol:.3e} "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"bound_ms={bms:.4f} ({bby}) repeat_bitwise={repeat} {'OK' if ok else 'FAIL'}"
-            + ("" if parts is None else " bound_ms_parts=" + json.dumps(parts)))
-        del inputs, out, ref
+            + ("" if parts is None else " bound_ms_parts=" + json.dumps(parts))
+            + ("" if sliced is None else f" plain on {sliced[0]}"))
+        del inputs, out, ref, plain_inputs, held
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
@@ -1029,6 +1081,487 @@ def run_cross_device_round():
     return line
 
 
+# --- phase 7: zeroscope-v2-xl from a full-scale checkpoint -------------------
+
+# zeroscope's architecture in tests/torch_ref.py's (diffusers key names)
+# terms, as benchmarks/convert_fullscale.py gives it
+FULL_UNET = dict(in_channels=4, out_channels=4, block_out_channels=(320, 640, 1280, 1280),
+                 layers_per_block=2, cross_levels=(True, True, True, False), head_dim=64,
+                 cross_dim=1024, groups=32, n_temp_convs=4)
+FULL_VAE = dict(latent_ch=4, block_out_channels=(128, 256, 512, 512), layers_per_block=2,
+                groups=32, mid_attention=True)
+FULL_TEXT = dict(hidden=1024, layers=23, heads=16, inner=4096, positions=77)
+XL = dict(num_frames=24, height=576, width=1024, num_steps=50, guidance_scale=7.5)
+XL_SEGMENT_STEPS = 10
+XL_CHECKS = [11, 29, 49]  # the revealed steps bench.py picks for 50 steps
+# launches per cfg_split UNet call at XL (batch 1, 24 frames, latent 72x128):
+# flash in the 15 spatial transformers of levels 0-2 (level 2's 576 tokens
+# pass S >= 512 at XL, not at 576x320), the rest as EXPECTED_PER_UNET_CALL
+XL_EXPECTED_PER_UNET_CALL = dict(EXPECTED_PER_UNET_CALL, flash_attention=15)
+VAE_GN_PER_FRAME = 30  # GroupNorm launches of one frame's decode
+
+
+def clip_text_state_dict(vocab: int, hidden: int, layers: int, heads: int, inner: int,
+                         positions: int, gen: torch.Generator, device) -> dict:
+    """A transformers CLIPTextModel state dict by its key names and shapes:
+    LayerNorm scales 1, biases 0, every other tensor N(0, 0.02^2) from
+    ``gen``, float32 on ``device``."""
+    shapes = {"text_model.embeddings.token_embedding.weight": (vocab, hidden),
+              "text_model.embeddings.position_embedding.weight": (positions, hidden)}
+    for i in range(layers):
+        p = f"text_model.encoder.layers.{i}"
+        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            shapes[f"{p}.self_attn.{proj}.weight"] = (hidden, hidden)
+            shapes[f"{p}.self_attn.{proj}.bias"] = (hidden,)
+        shapes.update({f"{p}.layer_norm1.weight": (hidden,), f"{p}.layer_norm1.bias": (hidden,),
+                       f"{p}.mlp.fc1.weight": (inner, hidden), f"{p}.mlp.fc1.bias": (inner,),
+                       f"{p}.mlp.fc2.weight": (hidden, inner), f"{p}.mlp.fc2.bias": (hidden,),
+                       f"{p}.layer_norm2.weight": (hidden,), f"{p}.layer_norm2.bias": (hidden,)})
+    shapes["text_model.final_layer_norm.weight"] = (hidden,)
+    shapes["text_model.final_layer_norm.bias"] = (hidden,)
+    out = {}
+    for key, shape in shapes.items():
+        if "layer_norm" in key:
+            out[key] = torch.full(shape, 1.0 if key.endswith("weight") else 0.0, device=device)
+        elif key.endswith("bias"):
+            out[key] = torch.zeros(shape, device=device)
+        else:
+            out[key] = torch.randn(shape, generator=gen, device=device) * 0.02
+    return out
+
+
+def write_synthetic_checkpoint(root: str, unet_kw: dict, vae_kw: dict, text_kw: dict,
+                               words, device, seed: int = 0) -> int:
+    """A diffusers checkpoint directory of the given architecture with seeded
+    random values, as benchmarks/convert_fullscale.py writes one: the UNet
+    (tests/torch_ref.py, torch's init scaled by 0.02) in bfloat16, the VAE
+    (torch's init, float32), the CLIP text tower (``clip_text_state_dict``,
+    float32), all as safetensors, and a ``tokenizer/`` of a BPE trained on
+    ``words`` whose BOS / EOS ids the text config names. Returns the bytes
+    written."""
+    import importlib.util
+
+    from dvdx_tpu_torch.models.tokenizer import build_test_vocab, write_tokenizer_files
+    from dvdx_tpu_torch.utils.convert import write_safetensors
+
+    # by its path: another installed package may be named "tests"
+    spec = importlib.util.spec_from_file_location(
+        "torch_ref", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                  "torch_ref.py"))
+    torch_ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_ref)
+
+    def component(sub, cfg, tensors, weights="diffusion_pytorch_model.safetensors"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        return write_safetensors(os.path.join(root, sub, weights), tensors)
+
+    torch.manual_seed(seed)
+    with torch.device(device), torch.no_grad():
+        unet = torch_ref.UNet3DConditionModelRef(**unet_kw)
+        for p in unet.parameters():
+            p.mul_(0.02)
+    nbytes = component("unet", {
+        "in_channels": 4, "out_channels": 4,
+        "block_out_channels": list(unet_kw["block_out_channels"]),
+        "layers_per_block": unet_kw["layers_per_block"],
+        "attention_head_dim": unet_kw["head_dim"],
+        "cross_attention_dim": unet_kw["cross_dim"], "norm_num_groups": unet_kw["groups"],
+        "norm_eps": 1e-5, "down_block_types": [
+            "CrossAttnDownBlock3D" if c else "DownBlock3D" for c in unet_kw["cross_levels"]]},
+        {k: v.to(torch.bfloat16) for k, v in unet.state_dict().items()})
+    del unet
+    with torch.device(device):
+        vae = torch_ref.AutoencoderKLRef(**vae_kw)
+    nbytes += component("vae", {
+        "latent_channels": vae_kw["latent_ch"],
+        "block_out_channels": list(vae_kw["block_out_channels"]),
+        "layers_per_block": vae_kw["layers_per_block"], "norm_num_groups": vae_kw["groups"],
+        "scaling_factor": 0.18215}, vae.state_dict())
+    del vae
+    vocab, merges = build_test_vocab(words)
+    write_tokenizer_files(os.path.join(root, "tokenizer"), vocab, merges)
+    v = len(vocab)  # build_test_vocab puts BOS and EOS last
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    nbytes += component("text_encoder", {
+        "vocab_size": v, "hidden_size": text_kw["hidden"],
+        "intermediate_size": text_kw["inner"], "num_hidden_layers": text_kw["layers"],
+        "num_attention_heads": text_kw["heads"],
+        "max_position_embeddings": text_kw["positions"], "hidden_act": "gelu",
+        "layer_norm_eps": 1e-5, "bos_token_id": v - 2, "eos_token_id": v - 1,
+        "pad_token_id": v - 1},
+        clip_text_state_dict(v, gen=gen, device=device, **text_kw), "model.safetensors")
+    with open(os.path.join(root, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "TextToVideoSDPipeline",
+                   "note": "synthetic: zeroscope's architecture, seeded random values"}, f)
+    return nbytes
+
+
+# plain flash over batch chunks whose f32 logits stay under this
+PLAIN_LOGITS_BYTES = 4e9
+
+
+def path_kernel_sites():
+    """{kernel: (module whose global name the layers call, that name, plain
+    version)} for the six kernels of the model path; plain flash runs in
+    batch chunks (at XL's level 0 its logits would take 40 GB at once)."""
+    from dvdx_tpu_torch.models import layers
+    from dvdx_tpu_torch.ops import attention
+    from dvdx_tpu_torch.ops import groupnorm as gn
+    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
+    from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
+    from dvdx_tpu_torch.ops.kernels import spatial_tail as st
+    from dvdx_tpu_torch.ops.kernels import temporal_attention as ta
+    from dvdx_tpu_torch.ops.kernels import temporal_block as tb
+
+    def flash_plain(q, k, v, scale=None):
+        per_entry = q.shape[2] * q.shape[1] * k.shape[1] * 4
+        step = max(1, int(PLAIN_LOGITS_BYTES // per_entry))
+        return torch.cat([fa.flash_attention_plain(q[i:i + step], k[i:i + step],
+                                                   v[i:i + step], scale)
+                          for i in range(0, q.shape[0], step)])
+
+    return {"flash_attention": (attention, "flash_attention", flash_plain),
+            "temporal_attention": (layers, "temporal_attention", ta.temporal_attention_plain),
+            "geglu_ff": (layers, "geglu_ff", gf.geglu_ff_plain),
+            "group_norm_act": (layers, "group_norm_act", gn.group_norm_act_plain),
+            "fused_spatial_tail": (layers, "fused_spatial_tail", st.fused_spatial_tail_plain),
+            "fused_temporal_block": (layers, "fused_temporal_block",
+                                     tb.fused_temporal_block_plain)}
+
+
+@contextlib.contextmanager
+def swapped_kernels(make):
+    """Within the block, each model-path wrapper, where the layers call it,
+    is make(kernel, wrapper, plain version)."""
+    sites = path_kernel_sites()
+    saved = {name: getattr(mod, attr) for name, (mod, attr, _) in sites.items()}
+    for name, (mod, attr, plain) in sites.items():
+        setattr(mod, attr, make(name, saved[name], plain))
+    try:
+        yield
+    finally:
+        for name, (mod, attr, _) in sites.items():
+            setattr(mod, attr, saved[name])
+
+
+def _signature(x):
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), tuple(x.stride()), str(x.dtype)
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def recorded_kernel_inputs():
+    """Within the block, the inputs of each model-path kernel's first call at
+    each distinct signature (shapes, strides, dtypes, options) are kept, with
+    the number of calls at it: yields {kernel: {signature: [calls, args,
+    kwargs]}}. The model path changes no tensor in place, so the kept inputs
+    are the ones the kernel was given."""
+    seen = {}
+
+    def make(name, kern, plain):
+        def call(*args, **kwargs):
+            entry = seen.setdefault(name, {}).setdefault(_signature((args, kwargs)),
+                                                         [0, args, kwargs])
+            entry[0] += 1
+            return kern(*args, **kwargs)
+        return call
+
+    with swapped_kernels(make):
+        yield seen
+
+
+def _random_like(x, gen, key=""):
+    """A tensor of x's shape, strides and dtype, with phase 2's
+    distributions: activations (rank 3 and up) N(0, 1), weights (2-D)
+    N(0, 1/fan_in), biases N(0, 0.1^2), LayerNorm scales ("_s") 1 + N(0,
+    0.1^2); broadcast (stride 0) dimensions stay broadcast. Dicts and
+    sequences map over their members; anything else is kept."""
+    if isinstance(x, dict):
+        return {k: _random_like(v, gen, k) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_random_like(v, gen, key) for v in x)
+    if not isinstance(x, torch.Tensor):
+        return x
+    if x.dim() >= 3:
+        scale, shift = 1.0, 0.0
+    elif x.dim() == 2:
+        scale, shift = x.shape[1] ** -0.5, 0.0
+    else:
+        scale, shift = 0.1, 1.0 if key.endswith("_s") else 0.0
+    base = [1 if st == 0 else n for n, st in zip(x.shape, x.stride())]
+    values = randn(base, gen, scale, shift, x.dtype)
+    if 0 in x.stride():
+        return values.expand(x.shape)
+    out = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+    return out.copy_(values)
+
+
+def hold_recorded(seen, where: str):
+    """Each recorded call's kernel against its plain version (2 bf16 ulps of
+    max|plain|, and the same bits on a second call), on the inputs the path
+    gave it and on random inputs of the same shapes and strides (the
+    synthetic checkpoint's small UNet weights leave some outputs at their
+    bias, which the path's inputs alone would not test), and its time on the
+    path's inputs -> ({kernel: {"shapes", "launches", "ms" (kernel ms summed
+    over the recorded calls), "max_abs_err"}}, rows)."""
+    sites = path_kernel_sites()
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    summary, rows = {}, []
+    for name, calls in seen.items():
+        mod, attr, plain = sites[name]
+        kern = getattr(mod, attr)
+        s = summary.setdefault(name, dict(shapes=0, launches=0, ms=0.0, max_abs_err=0.0))
+        for count, args, kwargs in calls.values():
+            shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+            row = dict(where=where, kernel=name, shapes=shapes, calls=count)
+            for inputs, (a, kw) in (("path", (args, kwargs)),
+                                    ("random", _random_like((args, kwargs), gen))):
+                out = kern(*a, **kw)
+                ref = plain(*a, **kw)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = TOL_ULPS * 2.0 ** -7 * max(ref.float().abs().max().item(), 1e-6)
+                repeat = torch.equal(out.view(torch.int16), kern(*a, **kw).view(torch.int16))
+                row.update({f"{inputs}_max_abs_err": err, f"{inputs}_tol": tol,
+                            f"{inputs}_repeat_bitwise": repeat})
+                del out, ref
+                if not (np.isfinite(err) and err <= tol and repeat):
+                    raise AssertionError(
+                        f"{where}: {name} at {shapes} on {inputs} inputs: kernel disagrees "
+                        f"with its plain version ({err:.3e} > {tol:.3e}) or with itself "
+                        f"(repeat bitwise: {repeat})")
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+            row["ms"] = cuda_ms(lambda: kern(*args, **kwargs), 3)
+            rows.append(row)
+            s["shapes"] += 1
+            s["launches"] += count
+            s["ms"] += count * row["ms"]
+    torch.cuda.empty_cache()
+    log(f"xl: {where}: {len(rows)} distinct kernel inputs held against their plain "
+        f"versions: " + json.dumps(summary))
+    return summary, rows
+
+
+def run_xl():
+    """Phase 7: zeroscope-v2-xl from a full-scale synthetic checkpoint: the
+    XL PoI request, the CLI's segmented runner on the same inputs (the same
+    bits), 3 re-executed steps, tiled against full-frame decode of one
+    frame, and the command line run on the card."""
+    import shutil
+
+    from dvdx_tpu_torch.models.vae import decode_frame_spatially_tiled, decode_frames_tiled
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.pipelines.text2video import (build_segmented_runner, encode_prompts,
+                                                     resolve_pipeline, to_uint8)
+    from dvdx_tpu_torch.utils.testing import REFERENCE_RELRMS_TOL, relative_rms
+    from dvdx_tpu_torch.utils.video_io import decode_video
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+    from dvdx_tpu_torch.verify.spotcheck import StepEngine, verify_revealed_steps
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "synthetic_xl")
+    shutil.rmtree(root, ignore_errors=True)
+    prompt = "a red panda rides a bicycle through a snowy forest"
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_synthetic_checkpoint(root, FULL_UNET, FULL_VAE, FULL_TEXT,
+                                            prompt.split() * 3, "cuda")
+        out["checkpoint_bytes"], out["checkpoint_write_s"] = nbytes, time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe = resolve_pipeline(root)
+        torch.cuda.synchronize()
+        out["convert_load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["params"] = {f"{name}_params": sum(p.numel() for p in module.parameters())
+                     for name, module in (("unet", pipe.unet), ("text", pipe.text_encoder),
+                                          ("vae_dec", pipe.vae_decoder))}
+    log(f"xl: synthetic checkpoint {nbytes / 1e9:.3f} GB written in "
+        f"{out['checkpoint_write_s']:.1f} s; converted and loaded by resolve_pipeline in "
+        f"{out['convert_load_s']:.1f} s; params {json.dumps(out['params'])}; tokenizer "
+        f"{type(pipe.tokenizer).__name__}")
+    _require(out["params"]["unet_params"] > 1.3e9 and pipe.tokenizer is not None,
+             "xl: checkpoint", out)
+
+    engine = StepEngine(pipe)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timings = {}
+    video, zs, epss, ts = engine.generate_recorded(
+        prompt, seed=7, cfg_split=True, segment_steps=XL_SEGMENT_STEPS, timings=timings, **XL)
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    root_hex = MerkleCommitment(ts, zs, epss).root.hex()
+    calls = 2 * XL["num_steps"]
+    per_call = {k: launches[k] / calls for k in MODEL_PATH}
+    per_call["group_norm_act"] = (launches["group_norm_act"]
+                                  - VAE_GN_PER_FRAME * XL["num_frames"]) / calls
+    out["request"] = dict(seconds=sec, peak_bytes=torch.cuda.max_memory_allocated(),
+                          root=root_hex, timings_s=timings, launches=launches,
+                          launches_per_unet_call=per_call)
+    log(f"xl request: video {tuple(video.shape)} {video.dtype}, {XL['num_steps']} steps, "
+        f"cfg_split, segments of {XL_SEGMENT_STEPS}: {sec:.2f} s, peak memory "
+        f"{out['request']['peak_bytes'] / 2**30:.2f} GiB, merkle root {root_hex} over "
+        f"{len(ts)} leaves; launches per UNet call {json.dumps(per_call)}")
+    _require(video.shape == (XL["num_frames"], XL["height"], XL["width"], 3)
+             and video.dtype == np.uint8
+             and float(np.std(video)) > 0 and len(ts) == XL["num_steps"]
+             and bool(torch.isfinite(zs.float()).all() and torch.isfinite(epss.float()).all()),
+             "xl request: output", out["request"])
+    _require(per_call == {k: float(n) for k, n in XL_EXPECTED_PER_UNET_CALL.items()},
+             "xl request: launches per UNet call", per_call)
+    # each kernel's bound summed over one cfg_split UNet call (the cond half
+    # of the first step)
+    hidden = encode_prompts(pipe, ["", prompt])
+    z0 = zs[0][None].cuda()
+    timestep = torch.full((1,), int(ts[0]), dtype=torch.int32, device=z0.device)
+
+    eps = {}
+
+    def one_call(key):
+        with torch.inference_mode():
+            eps[key] = pipe.unet(z0, timestep, hidden[1:2]).float()
+    with recorded_kernel_inputs() as seen_unet:
+        out["bound_per_unet_call"] = launch_bounds(pipe.unet, lambda: one_call("kernels"))
+    log(f"xl: bound per cfg_split UNet call {json.dumps(out['bound_per_unet_call'])}")
+    # every input that call handed a kernel, held against the plain version;
+    # then the whole call through the plain versions
+    out["held_per_unet_call"], held_rows = hold_recorded(seen_unet, "unet call")
+    del seen_unet
+    _require(all(out["held_per_unet_call"][k]["launches"]
+                 == out["bound_per_unet_call"][k]["launches"] for k in MODEL_PATH),
+             "xl: recorded launches differ from the hooks'", out["held_per_unet_call"])
+    with swapped_kernels(lambda name, kern, plain: plain):
+        one_call("plain")
+    unet_dist = relative_rms(eps["kernels"], eps["plain"])
+    del eps
+    torch.cuda.empty_cache()
+    log(f"xl: one cfg_split UNet call, kernels against plain versions on the card: "
+        f"relative RMS {unet_dist:.5f} (tolerance {REFERENCE_RELRMS_TOL})")
+    _require(unet_dist <= REFERENCE_RELRMS_TOL, "xl: UNet call against the plain path",
+             unet_dist)
+
+    # the CLI's path on the same inputs: the same step program, so the same bits
+    ids = torch.from_numpy(pipe.tokenize(["", prompt])).long()
+    run = build_segmented_runner(pipe, segment_steps=XL_SEGMENT_STEPS, cfg_split=True, **XL)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    video_cli = to_uint8(run(ids, rng.base_key(7))).cpu().numpy()
+    sec_cli = time.perf_counter() - t0
+    peak_cli = torch.cuda.max_memory_allocated()
+
+    # re-execution of 3 revealed steps: the validator's XL audit
+    leaves = {i: (int(ts[i]), zs[i], epss[i]) for c in XL_CHECKS for i in (c, c + 1)
+              if i < len(ts)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, z_next = verify_revealed_steps(engine, prompt, "", leaves, XL_CHECKS,
+                                            XL["num_steps"], XL["guidance_scale"],
+                                            same_platform=True, atol=1e-4, rtol=2.0 ** -7,
+                                            cfg_split=True)
+    torch.cuda.synchronize()
+    reexec_s = time.perf_counter() - t0
+
+    # one frame of the final latent (re-derived by the last check), full frame
+    # and in 48 x 48 latent tiles overlapping by 8
+    z_final = z_next[XL_CHECKS.index(XL["num_steps"] - 1)].cuda().float()
+    z_frame = z_final[0]
+    decode = {}
+    with torch.inference_mode():
+        for name, fn in (("full", lambda: pipe.vae_decoder(z_frame[None])[0]),
+                         ("tiled", lambda: decode_frame_spatially_tiled(
+                             pipe.vae_decoder, z_frame, tile=48, overlap=8))):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            img = fn()
+            torch.cuda.synchronize()
+            # the decode's own peak, above the weights and tensors already held
+            decode[name] = (img, time.perf_counter() - t0,
+                            torch.cuda.max_memory_allocated() - resident)
+        t0 = time.perf_counter()
+        decode_frames_tiled(pipe.vae_decoder, z_final)
+        torch.cuda.synchronize()
+        decode_24_s = time.perf_counter() - t0
+        with recorded_kernel_inputs() as seen_vae:
+            pipe.vae_decoder(z_frame[None])
+        with swapped_kernels(lambda name, kern, plain: plain):
+            plain_frame = pipe.vae_decoder(z_frame[None])[0]
+    out["held_vae_frame"], vae_rows = hold_recorded(seen_vae, "vae frame")
+    del seen_vae
+    vae_dist = relative_rms(decode["full"][0], plain_frame)
+    log(f"xl: one frame's decode, kernels against plain versions on the card: relative "
+        f"RMS {vae_dist:.5f} (tolerance {REFERENCE_RELRMS_TOL})")
+    _require(vae_dist <= REFERENCE_RELRMS_TOL, "xl: decode against the plain path", vae_dist)
+    out["plain_path_relative_rms"] = dict(unet_call=unet_dist, vae_frame=vae_dist)
+    with open(os.path.join(OUT_DIR, "xl_held_inputs.json"), "w") as f:
+        json.dump(held_rows + vae_rows, f, indent=1)
+    full, tiled = decode["full"][0], decode["tiled"][0]
+    seam = (tiled - full).abs().max().item()
+    step_s = (sec_cli - decode_24_s) / XL["num_steps"]
+    out.update(cli_path=dict(seconds_per_video=sec_cli, seconds_per_step=step_s,
+                             peak_bytes=peak_cli, decode_24_frames_s=decode_24_s,
+                             bitwise=bool(np.array_equal(video_cli, video))),
+               reexecution=dict(checks=XL_CHECKS, seconds=reexec_s,
+                                passed={i: r.passed for i, r in results.items()},
+                                bitwise={i: r.bitwise for i, r in results.items()}),
+               tiled_decode=dict(full_s=decode["full"][1], tiled_s=decode["tiled"][1],
+                                 full_peak_bytes=decode["full"][2],
+                                 tiled_peak_bytes=decode["tiled"][2], max_seam_diff=seam,
+                                 full_equals_video_frame=bool(np.array_equal(
+                                     to_uint8(full).cpu().numpy(), video[0]))))
+    log(f"xl cli path (build_segmented_runner): {sec_cli:.2f} s/video, {step_s:.4f} s/step "
+        f"(decode of {XL['num_frames']} frames {decode_24_s:.2f} s), peak memory "
+        f"{peak_cli / 2**30:.2f} GiB, video bit-identical to the request's: "
+        f"{out['cli_path']['bitwise']}")
+    log(f"xl re-execution: steps {XL_CHECKS} in {reexec_s:.2f} s, passed "
+        f"{out['reexecution']['passed']} bitwise {out['reexecution']['bitwise']}")
+    td = out["tiled_decode"]
+    log(f"xl decode of one frame: full {td['full_s'] * 1e3:.1f} ms, peak above the resident "
+        f"{td['full_peak_bytes'] / 2**30:.3f} GiB; tiled (48, overlap 8) "
+        f"{td['tiled_s'] * 1e3:.1f} ms, peak above the resident "
+        f"{td['tiled_peak_bytes'] / 2**30:.3f} GiB; "
+        f"largest seam difference {seam:.4f}; full frame equals the video's frame 0: "
+        f"{td['full_equals_video_frame']}")
+    _require(out["cli_path"]["bitwise"], "xl: runner video differs from the request's",
+             out["cli_path"])
+    _require(all(r.passed and r.bitwise for r in results.values()),
+             "xl: re-execution is not bit-identical", out["reexecution"])
+    _require(td["full_equals_video_frame"] and np.isfinite(seam),
+             "xl: decode of the final latent", td)
+    del pipe, engine
+    torch.cuda.empty_cache()
+
+    # the command line on the card, with no device flag
+    mp4 = os.path.join(OUT_DIR, "cli_tiny.mp4")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dvdx_tpu_torch", "generate", "--prompt",
+                           "a red ball", "--model", "zeroscope-tiny", "--frames", "4",
+                           "--out", mp4], cwd=here, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, "PYTHONPATH": here})
+    out["cli"] = dict(returncode=proc.returncode, seconds=time.perf_counter() - t0,
+                      stdout=proc.stdout.strip()[-500:], stderr=proc.stderr.strip()[-2000:])
+    log(f"xl cli: python -m dvdx_tpu_torch generate (no --device): rc {proc.returncode} "
+        f"in {out['cli']['seconds']:.1f} s: {out['cli']['stdout']}")
+    _require(proc.returncode == 0 and os.path.exists(mp4), "xl: cli", out["cli"])
+    with open(mp4, "rb") as f:
+        frames = decode_video(f.read())
+    _require(frames.shape == (4, 32, 32, 3) and "device=" in proc.stdout
+             and "device=cpu" not in proc.stdout, "xl: cli video", list(frames.shape))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1075,11 +1608,15 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
+    path["xl"] = run_xl()
     with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
         json.dump({"device": smi, "launches": launches, **path}, f, indent=1, default=str)
 
     kernels = []
     cross = path["cross_device_round"]["launches"]
+    xl = path["xl"]
+    xl_per_call = {k: dict(v, bound_ms=xl["bound_per_unet_call"][k]["bound_ms"])
+                   for k, v in xl["held_per_unet_call"].items()}
     for name, s in summary.items():
         src, replaces = KERNEL_META[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1092,7 +1629,10 @@ def main():
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": "operations" if s["t_ops"] > s["t_bytes"]
                         else "bytes", "library_ms": s["library_ms"],
-                        "launches_network_round": path["network_round"]["launches"][name]})
+                        "launches_network_round": path["network_round"]["launches"][name],
+                        "launches_xl": path["xl"]["request"]["launches"][name],
+                        "xl_per_unet_call": xl_per_call.get(name),
+                        "xl_vae_frame": xl["held_vae_frame"].get(name)})
     log(smi)  # again near the end: the start of a long output may be cut off
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 Counterpart of ``dvdx_tpu/models/clip_vision.py``: a patch-embedding
 convolution (no bias), a class token and learned positions, pre-LN
-transformer blocks (GELU with the tanh approximation, LayerNorm eps 1e-6 by
-default) and a bias-free projection of the class token. Submodule and
-parameter names follow the reference's flax tree, so ``utils.bridge``
-loads its parameters leaf for leaf. Plain PyTorch throughout: the JAX
+transformer blocks (GELU with the tanh approximation and LayerNorm eps 1e-6
+by default; "quick_gelu" and eps 1e-5 for the OpenAI towers
+``utils.convert.load_clip_scorer`` loads) and a bias-free projection of
+the class token. Submodule and parameter names follow the reference's flax
+tree, so ``utils.bridge`` loads its parameters leaf for leaf. Plain PyTorch throughout: the JAX
 package runs the tower on XLA, not on a kernel of its own.
 """
 
@@ -14,11 +15,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
 from .layers import Conv, Dense, LayerNorm
+from .text_encoder import activation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +31,7 @@ class VisionConfig:
     num_heads: int = 12
     intermediate_size: int = 3072
     projection_dim: int = 512
-    hidden_act: str = "gelu_tanh"  # the only one ported (pretrained towers use others)
+    hidden_act: str = "gelu_tanh"
     layer_norm_eps: float = 1e-6
     dtype: str = "float32"
 
@@ -47,8 +48,6 @@ def tiny_vision_config() -> VisionConfig:
 class _ViTBlock(nn.Module):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
-        if cfg.hidden_act != "gelu_tanh":
-            raise ValueError(f"activation {cfg.hidden_act!r} is not ported")
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.heads = cfg.num_heads
         self.ln1 = LayerNorm(d, eps=eps)
@@ -59,6 +58,7 @@ class _ViTBlock(nn.Module):
         self.ln2 = LayerNorm(d, eps=eps)
         self.fc1 = Dense(d, cfg.intermediate_size)
         self.fc2 = Dense(cfg.intermediate_size, d)
+        self.act = activation(cfg.hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -66,7 +66,7 @@ class _ViTBlock(nn.Module):
         q, k, v = (lin(h).view(b, s, self.heads, d // self.heads)
                    for lin in (self.q, self.k, self.v))
         x = x + self.proj(multi_head_attention(q, k, v).reshape(b, s, d))
-        return x + self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+        return x + self.fc2(self.act(self.fc1(self.ln2(x))))
 
 
 class CLIPVisionEncoder(nn.Module):

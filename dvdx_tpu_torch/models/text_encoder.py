@@ -30,6 +30,9 @@ class TextEncoderConfig:
     num_heads: int = 16
     intermediate_size: int = 4096
     max_length: int = 77
+    # "gelu" (exact erf: the OpenCLIP towers zeroscope uses) or "quick_gelu"
+    # (x * sigmoid(1.702 x): OpenAI-CLIP towers), as transformers names them
+    hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-5
     eos_token_id: int = 2
     dtype: str = "bfloat16"
@@ -49,6 +52,17 @@ BOS_ID = 1
 EOS_ID = 2
 PAD_ID = 0
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]")
+
+
+def activation(name: str):
+    """The feed-forward activation of a CLIP tower by its transformers name."""
+    if name == "quick_gelu":
+        return lambda x: x * torch.sigmoid(1.702 * x)
+    if name == "gelu":
+        return F.gelu
+    if name == "gelu_tanh":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
 
 
 def tokenize(text: str, vocab_size: int = 49408, max_length: int = 77) -> np.ndarray:
@@ -83,6 +97,7 @@ class _TextBlock(nn.Module):
         self.ln2 = LayerNorm(d, eps=eps)
         self.fc1 = Dense(d, cfg.intermediate_size)
         self.fc2 = Dense(cfg.intermediate_size, d)
+        self.act = activation(cfg.hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -99,7 +114,7 @@ class _TextBlock(nn.Module):
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         o = torch.einsum("bhst,bthd->bshd", probs.float(), v.float()).to(x.dtype)
         x = x + self.proj(o.reshape(b, s, d))
-        return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+        return x + self.fc2(self.act(self.fc1(self.ln2(x))))
 
 
 class CLIPTextEncoder(nn.Module):

@@ -1,15 +1,17 @@
 """VAE decoder (AutoencoderKL class), channel-last, frame by frame.
 
-Counterpart of ``dvdx_tpu/models/vae.py``: ``VAEDecoder`` and the full-frame
-form of ``decode_frames_tiled``. Spatial tiling (``tile > 0`` in the
-reference) is not ported yet.
+Counterpart of ``dvdx_tpu/models/vae.py``: ``VAEDecoder`` and
+``decode_frames_tiled``, full frame or in overlapping spatial tiles blended
+by linear ramps (``decode_frame_spatially_tiled``: peak memory one tile's
+activations instead of one frame's).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -122,8 +124,66 @@ class VAEDecoder(nn.Module):
         return torch.tanh(h) if cfg.final_tanh else h
 
 
-def decode_frames_tiled(decoder: VAEDecoder, latents: torch.Tensor) -> torch.Tensor:
+def _tile_starts(size: int, tile: int, stride: int) -> List[int]:
+    """Tile start offsets covering [0, size), the last tile right-aligned
+    (every pixel covered, one tile shape)."""
+    starts = list(range(0, max(size - tile, 0) + 1, stride))
+    if not starts or starts[-1] + tile < size:
+        starts.append(size - tile)
+    return sorted(set(max(0, s) for s in starts))
+
+
+def _blend_weight_1d(size: int, start: int, total: int, overlap: int) -> np.ndarray:
+    """Linear ramps into and out of a tile's overlapped borders: adjacent
+    tiles laid out by ``_tile_starts`` with stride tile - overlap sum to 1."""
+    w = np.ones(size, np.float32)
+    ramp = ((np.arange(overlap) + 1) / (overlap + 1)).astype(np.float32)
+    if start > 0 and overlap > 0:
+        w[:overlap] = ramp
+    if start + size < total and overlap > 0:
+        w[-overlap:] = np.minimum(w[-overlap:], ramp[::-1])
+    return w
+
+
+def decode_frame_spatially_tiled(decoder: VAEDecoder, z_frame: torch.Tensor,
+                                 tile: int = 48, overlap: int = 8) -> torch.Tensor:
+    """Decode one latent frame (h, w, C) in overlapping tiles of tile x tile
+    latent pixels, each weighted by ramps over its overlapped borders and
+    the sum normalised -> (H, W, 3) float32. Approximate at the seams (each
+    tile's GroupNorms see their own statistics); a single covering tile is
+    the full-frame decode exactly."""
+    upscale = decoder.cfg.downscale
+    h, w, c = z_frame.shape
+    tile_h, tile_w = min(tile, h), min(tile, w)
+    hs = _tile_starts(h, tile_h, max(1, tile_h - overlap))
+    ws = _tile_starts(w, tile_w, max(1, tile_w - overlap))
+    if len(hs) == 1 and len(ws) == 1:
+        return decoder(z_frame[None])[0]
+    big_h, big_w = h * upscale, w * upscale
+    th, tw = tile_h * upscale, tile_w * upscale
+    out = torch.zeros((big_h, big_w, 3), dtype=torch.float32, device=z_frame.device)
+    norm = torch.zeros((big_h, big_w, 1), dtype=torch.float32, device=z_frame.device)
+    for sh in hs:
+        for sw in ws:
+            img = decoder(z_frame[None, sh:sh + tile_h, sw:sw + tile_w])[0]
+            wh = _blend_weight_1d(th, sh * upscale, big_h, overlap * upscale)
+            ww = _blend_weight_1d(tw, sw * upscale, big_w, overlap * upscale)
+            mask = torch.from_numpy(wh[:, None] * ww[None, :])[..., None].to(out.device)
+            rows = slice(sh * upscale, sh * upscale + th)
+            cols = slice(sw * upscale, sw * upscale + tw)
+            out[rows, cols] = out[rows, cols] + img.float() * mask
+            norm[rows, cols] = norm[rows, cols] + mask
+    return out / torch.clamp(norm, min=1e-6)
+
+
+def decode_frames_tiled(decoder: VAEDecoder, latents: torch.Tensor, tile: int = 0,
+                        overlap: int = 8) -> torch.Tensor:
     """Decode (F, h, w, C) latents one frame at a time, so peak memory is one
-    frame's activations -> (F, H, W, 3) float32. Full-frame decode (the
-    reference's ``tile=0``)."""
+    frame's activations -> (F, H, W, 3) float32. ``tile`` > 0 also tiles each
+    frame spatially (``decode_frame_spatially_tiled``); ``tile`` 0 is the
+    exact full-frame decode."""
+    if tile:
+        return torch.stack([decode_frame_spatially_tiled(decoder, latents[i], tile=tile,
+                                                         overlap=overlap)
+                            for i in range(latents.shape[0])])
     return torch.stack([decoder(latents[i:i + 1])[0] for i in range(latents.shape[0])])

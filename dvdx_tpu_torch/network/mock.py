@@ -124,7 +124,7 @@ class ApproxMiner(Miner):
     def __init__(self, pipeline: Pipeline, *args, keep_mantissa_bits: int = 2, **kwargs):
         cheap_unet = truncate_mantissa(copy.deepcopy(pipeline.unet), keep_mantissa_bits)
         cheap = Pipeline(pipeline.spec, cheap_unet, pipeline.text_encoder,
-                         pipeline.vae_decoder)
+                         pipeline.vae_decoder, pipeline.tokenizer)
         super().__init__(cheap, *args, **kwargs)
 
 

@@ -16,6 +16,7 @@ leaves bit for bit.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -33,22 +34,29 @@ from ..ops.scheduler import DDIMSchedule, ddim_step, make_ddim_schedule
 
 
 class Pipeline(nn.Module):
-    """The three modules of one model family, on one device."""
+    """The three modules of one model family, on one device, and the
+    tokenizer: a checkpoint's CLIP BPE tokenizer (``models/tokenizer.py``),
+    or None for the parameter-free hash tokenizer of random-init models."""
 
     def __init__(self, spec: ModelSpec, unet: UNet3D, text_encoder: CLIPTextEncoder,
-                 vae_decoder: VAEDecoder):
+                 vae_decoder: VAEDecoder, tokenizer=None):
         super().__init__()
         self.spec = spec
         self.unet = unet
         self.text_encoder = text_encoder
         self.vae_decoder = vae_decoder
+        self.tokenizer = tokenizer
 
     @property
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
 
     def tokenize(self, texts: List[str]) -> np.ndarray:
-        """Prompts -> (B, max_length) int32 ids (the hash tokenizer)."""
+        """Prompts -> (B, max_length) int32 ids. Part of the PoI chain: miner
+        and validator hold the same tokenizer (the checkpoint's, or the hash
+        tokenizer)."""
+        if self.tokenizer is not None:
+            return self.tokenizer(texts, max_length=self.spec.text.max_length)
         return tokenize_batch(texts, self.spec.text.vocab_size,
                               self.spec.text.max_length)
 
@@ -79,26 +87,47 @@ def random_init(module: nn.Module, seed: int) -> None:
                 p.copy_(draw * std)
 
 
+def empty_pipeline(spec: ModelSpec, device="cuda", tokenizer=None) -> Pipeline:
+    """The spec's modules on ``device`` with uninitialised parameters in each
+    module's compute dtype, for a caller that sets every parameter
+    (``random_init``, or a checkpoint through ``utils.bridge``)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        enable_determinism()
+    with torch.device("meta"):
+        modules = [(UNet3D(spec.unet), spec.unet), (CLIPTextEncoder(spec.text), spec.text),
+                   (VAEDecoder(spec.vae), spec.vae)]
+    unet, text, vae = (m.to_empty(device=device).to(cfg.compute_dtype) for m, cfg in modules)
+    pipe = Pipeline(spec, unet, text, vae, tokenizer).eval()
+    if device.type == "cuda":
+        pipe.to(memory_format=torch.channels_last)  # conv weights, for cuDNN
+    return pipe
+
+
 def build_pipeline(model: Union[str, ModelSpec] = "zeroscope-v2-576w",
                    seed: int = 0, device="cuda") -> Pipeline:
     """Seeded random-init pipeline for a registered family (or a spec),
     built on ``device`` with parameters in each module's compute dtype.
     Weights are not the reference's ``fast_init`` draws; parity with the
     reference goes through ``utils.bridge.load_pipeline_params``."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        enable_determinism()
     spec = model if isinstance(model, ModelSpec) else get_model_spec(model)
-    with torch.device(device):
-        unet = UNet3D(spec.unet).to(spec.unet.compute_dtype)
-        text = CLIPTextEncoder(spec.text).to(spec.text.compute_dtype)
-        vae = VAEDecoder(spec.vae).to(spec.vae.compute_dtype)
-    for i, module in enumerate((unet, text, vae)):
+    pipe = empty_pipeline(spec, device)
+    for i, module in enumerate((pipe.unet, pipe.text_encoder, pipe.vae_decoder)):
         random_init(module, seed + i)
-    pipe = Pipeline(spec, unet, text, vae).eval()
-    if device.type == "cuda":
-        pipe.to(memory_format=torch.channels_last)  # conv weights, for cuDNN
     return pipe
+
+
+def resolve_pipeline(name_or_dir: str, seed: int = 0, device="cuda") -> Pipeline:
+    """A registry name -> seeded random-init pipeline; a diffusers checkpoint
+    directory (holding ``model_index.json`` or ``unet/config.json``) -> its
+    pretrained pipeline (``utils.convert.load_diffusers_checkpoint``)."""
+    if os.path.isdir(name_or_dir) and (
+            os.path.exists(os.path.join(name_or_dir, "model_index.json"))
+            or os.path.exists(os.path.join(name_or_dir, "unet", "config.json"))):
+        from ..utils.convert import load_diffusers_checkpoint
+
+        return load_diffusers_checkpoint(name_or_dir, device=device)
+    return build_pipeline(name_or_dir, seed=seed, device=device)
 
 
 def encode_prompts(pipe: Pipeline, prompts: List[str]) -> torch.Tensor:
@@ -111,21 +140,30 @@ def encode_prompts(pipe: Pipeline, prompts: List[str]) -> torch.Tensor:
 def cfg_denoise_step(unet: UNet3D, sched: DDIMSchedule, z: torch.Tensor,
                      step_index: int, cond: torch.Tensor, uncond: torch.Tensor,
                      guidance_scale: float,
+                     frame_positions: Optional[torch.Tensor] = None,
+                     context_latent: Optional[torch.Tensor] = None,
+                     context_weight: float = 0.0,
                      cfg_split: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One classifier-free-guided DDIM step -> (z_prev, eps_guided).
 
     The batched form runs [uncond, cond] as one 2B UNet call; cfg_split runs
     them as two B calls (half the activation memory). The two are different
-    step programs, so prover and verifier must agree on the flag. The
-    guidance combine runs in eps's dtype."""
+    step programs, so prover and verifier must agree on the flag. With
+    context_weight > 0 the UNet's input is z + context_weight *
+    context_latent (the CCI global context), in z's dtype; the DDIM update
+    starts from z itself. The guidance combine runs in eps's dtype."""
     t = int(sched.timesteps[step_index])
     ts = torch.full((z.shape[0],), t, dtype=torch.int32, device=z.device)
+    x = z
+    if context_latent is not None and context_weight > 0.0:
+        x = z + torch.tensor(context_weight, dtype=z.dtype,
+                             device=z.device) * context_latent.to(z.dtype)
     if cfg_split:
-        eps_u = unet(z, ts, uncond)
-        eps_c = unet(z, ts, cond)
+        eps_u = unet(x, ts, uncond, frame_positions)
+        eps_c = unet(x, ts, cond, frame_positions)
     else:
-        eps_u, eps_c = unet(torch.cat([z, z]), torch.cat([ts, ts]),
-                            torch.cat([uncond, cond])).chunk(2)
+        eps_u, eps_c = unet(torch.cat([x, x]), torch.cat([ts, ts]),
+                            torch.cat([uncond, cond]), frame_positions).chunk(2)
     g = torch.tensor(guidance_scale, dtype=eps_u.dtype, device=eps_u.device)
     eps = eps_u + g * (eps_c - eps_u)
     return ddim_step(sched, step_index, z, eps), eps
@@ -133,14 +171,20 @@ def cfg_denoise_step(unet: UNet3D, sched: DDIMSchedule, z: torch.Tensor,
 
 def denoise(unet: UNet3D, sched: DDIMSchedule, z0: torch.Tensor,
             cond: torch.Tensor, uncond: torch.Tensor, guidance_scale: float,
-            record: bool = False, cfg_split: bool = False):
-    """All steps of the schedule from z0 (B, F, h, w, C). With record=True
-    also returns zs and epss (steps, B, F, h, w, C): z before each update
-    and the guided eps of that step (the Proof-of-Inference leaves)."""
+            frame_positions: Optional[torch.Tensor] = None,
+            context_latent: Optional[torch.Tensor] = None,
+            context_weight: float = 0.0, record: bool = False,
+            step_range: Optional[Tuple[int, int]] = None, cfg_split: bool = False):
+    """Steps [a, b) of the schedule (all by default) from z0 (B, F, h, w,
+    C). With record=True also returns zs and epss (steps, B, F, h, w, C): z
+    before each update and the guided eps of that step (the
+    Proof-of-Inference leaves)."""
+    a, b = step_range if step_range is not None else (0, sched.num_steps)
     z, zs, epss = z0, [], []
-    for i in range(sched.num_steps):
-        z_prev, eps = cfg_denoise_step(unet, sched, z, i, cond, uncond,
-                                       guidance_scale, cfg_split=cfg_split)
+    for i in range(a, b):
+        z_prev, eps = cfg_denoise_step(unet, sched, z, i, cond, uncond, guidance_scale,
+                                       frame_positions, context_latent, context_weight,
+                                       cfg_split=cfg_split)
         if record:
             zs.append(z)
             epss.append(eps)
@@ -152,11 +196,21 @@ def denoise(unet: UNet3D, sched: DDIMSchedule, z0: torch.Tensor,
 
 def generate_core(pipe: Pipeline, token_ids: torch.Tensor, noise_key: torch.Tensor,
                   *, sched: DDIMSchedule, num_frames: int, height: int, width: int,
-                  guidance_scale: float, record: bool = False,
-                  latent_dtype: torch.dtype = torch.bfloat16,
-                  cfg_split: bool = False):
+                  guidance_scale: float, context_weight: float = 0.0,
+                  record: bool = False, latent_dtype: torch.dtype = torch.bfloat16,
+                  cfg_split: bool = False, segment_steps: int = 0,
+                  decode_tile: int = 0):
     """token ids (2, S) [negative, prompt] + noise key -> frames
-    (F, H, W, 3) float32 in [-1, 1] [, zs, epss]."""
+    (F, H, W, 3) float32 in [-1, 1] [, zs, epss].
+
+    The schedule runs in segments of ``segment_steps`` steps (0: one
+    segment), each ``denoise`` over its step range: the same steps in the
+    same order, so the frames and leaves are the same bits for any segment
+    length. (The reference compiles one segment program to bound the length
+    of a single device execution; eager PyTorch launches step by step
+    either way.) ``decode_tile`` > 0 decodes each frame in overlapping
+    spatial tiles of that many latent pixels
+    (``models.vae.decode_frame_spatially_tiled``); 0 decodes full frames."""
     spec = pipe.spec
     ds = spec.vae.downscale
     hidden, _ = pipe.text_encoder(token_ids)
@@ -164,19 +218,54 @@ def generate_core(pipe: Pipeline, token_ids: torch.Tensor, noise_key: torch.Tens
     z0 = rng_ops.video_noise(noise_key, num_frames,
                              (height // ds, width // ds, spec.latent_channels),
                              device=token_ids.device)
-    out = denoise(pipe.unet, sched, z0[None].to(latent_dtype), cond, uncond,
-                  guidance_scale, record=record, cfg_split=cfg_split)
-    z_final = out[0] if record else out
-    frames = decode_frames_tiled(pipe.vae_decoder, z_final[0].float())
-    return (frames, out[1], out[2]) if record else frames
+    # CCI: the global context is the time-mean of the base noise, (1, 1, h, w, C)
+    ctx = z0.mean(dim=0, keepdim=True)[None] if context_weight > 0.0 else None
+    z, zs, epss = z0[None].to(latent_dtype), [], []
+    n = sched.num_steps
+    length = segment_steps if segment_steps > 0 else n
+    for start in range(0, n, length):
+        out = denoise(pipe.unet, sched, z, cond, uncond, guidance_scale,
+                      context_latent=ctx, context_weight=context_weight, record=record,
+                      step_range=(start, min(start + length, n)), cfg_split=cfg_split)
+        z = out[0] if record else out
+        if record:
+            zs.append(out[1])
+            epss.append(out[2])
+    frames = decode_frames_tiled(pipe.vae_decoder, z[0].float(), tile=decode_tile)
+    return (frames, torch.cat(zs), torch.cat(epss)) if record else frames
+
+
+def build_segmented_runner(pipe: Pipeline, *, num_frames: int, height: int, width: int,
+                           num_steps: int, guidance_scale: float = 7.5,
+                           segment_steps: int = 10, cfg_split: bool = False,
+                           latent_dtype: torch.dtype = torch.bfloat16,
+                           decode_tile: int = 0):
+    """-> run(token ids (2, S), noise key) -> frames (F, H, W, 3) float32:
+    ``generate_core`` with these arguments bound, the reference's API."""
+    sched = make_ddim_schedule(num_steps, prediction_type=pipe.spec.prediction_type)
+
+    @torch.inference_mode()
+    def run(token_ids: torch.Tensor, noise_key: torch.Tensor) -> torch.Tensor:
+        return generate_core(pipe, token_ids.to(pipe.device), noise_key, sched=sched,
+                             num_frames=num_frames, height=height, width=width,
+                             guidance_scale=guidance_scale, latent_dtype=latent_dtype,
+                             cfg_split=cfg_split, segment_steps=segment_steps,
+                             decode_tile=decode_tile)
+
+    return run
+
+
+def to_uint8(frames: torch.Tensor) -> torch.Tensor:
+    """Frames in [-1, 1] -> uint8, as the reference converts them."""
+    return ((frames + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
 
 def generate(pipe: Pipeline, prompt: str, *, negative_prompt: str = "",
              seed: int = 0, num_frames: Optional[int] = None,
              height: Optional[int] = None, width: Optional[int] = None,
              num_steps: Optional[int] = None,
-             guidance_scale: Optional[float] = None, record: bool = False,
-             cfg_split: bool = False):
+             guidance_scale: Optional[float] = None, context_weight: float = 0.0,
+             record: bool = False, cfg_split: bool = False):
     """User-facing generation: uint8 frames (F, H, W, 3) as numpy, plus
     (zs, epss, timesteps) when record=True: zs and epss are bfloat16 CPU
     tensors (steps, 1, F, h, w, C), timesteps int32 numpy."""
@@ -193,9 +282,10 @@ def generate(pipe: Pipeline, prompt: str, *, negative_prompt: str = "",
         out = generate_core(pipe, ids.to(pipe.device), rng_ops.base_key(seed),
                             sched=sched, num_frames=num_frames, height=height,
                             width=width, guidance_scale=guidance_scale,
-                            record=record, cfg_split=cfg_split)
+                            context_weight=context_weight, record=record,
+                            cfg_split=cfg_split)
         frames = out[0] if record else out
-        video = ((frames + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        video = to_uint8(frames).cpu().numpy()
         if record:
             return video, (out[1].cpu(), out[2].cpu(), sched.timesteps.copy())
     return video

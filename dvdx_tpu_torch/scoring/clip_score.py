@@ -4,10 +4,10 @@ Counterpart of ``dvdx_tpu/scoring/clip_score.py``: the mean over frames of
 the cosine between the prompt's CLIP text embedding and each frame's image
 embedding, each cosine clamped below at 0. The frames are resized to the
 tower's input with ``jax.image.resize(..., "bilinear")``'s resampling
-(``resize_matrix``), the prompt goes through the hash tokenizer and the
-port's ``CLIPTextEncoder``, and the pooled text state through ``text_proj``
-into the shared space. Both towers run in one batched call on the scorer's
-device.
+(``resize_matrix``), the prompt goes through the hash tokenizer (or the
+checkpoint's CLIP BPE tokenizer) and the port's ``CLIPTextEncoder``, and
+the pooled text state through ``text_proj`` into the shared space. Both
+towers run in one batched call on the scorer's device.
 """
 
 from __future__ import annotations
@@ -57,15 +57,24 @@ def resize_bilinear(frames: torch.Tensor, size: int) -> torch.Tensor:
     return frames
 
 
-class CLIPScorer(nn.Module):
-    """Shared-projection-space text / image scorer over frames in [-1, 1]
-    (the reference's "signed" input convention of its random-init towers;
-    pretrained towers and their CLIP normalisation wait for checkpoint
-    loading)."""
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
-    def __init__(self, vision_cfg: VisionConfig, text_cfg: TextEncoderConfig):
+
+class CLIPScorer(nn.Module):
+    """Shared-projection-space text / image scorer. ``preprocess`` "signed"
+    feeds the tower frames in [-1, 1] (the random-init towers' convention),
+    "clip" the CLIP mean / std normalisation of pretrained towers
+    (``utils.convert.load_clip_scorer``); ``tokenizer`` is the checkpoint's
+    CLIP BPE tokenizer, or None for the hash tokenizer."""
+
+    def __init__(self, vision_cfg: VisionConfig, text_cfg: TextEncoderConfig,
+                 preprocess: str = "signed", tokenizer=None):
         super().__init__()
+        if preprocess not in ("signed", "clip"):
+            raise ValueError(f"unknown preprocess {preprocess!r}")
         self.vision_cfg, self.text_cfg = vision_cfg, text_cfg
+        self.preprocess, self.tokenizer = preprocess, tokenizer
         self.vision = CLIPVisionEncoder(vision_cfg)
         self.text = CLIPTextEncoder(text_cfg)
         self.text_proj = nn.Parameter(
@@ -99,7 +108,11 @@ class CLIPScorer(nn.Module):
         return scorer.eval()
 
     def _ids(self, prompt: str) -> torch.Tensor:
-        ids = tokenize_batch([prompt], self.text_cfg.vocab_size, self.text_cfg.max_length)
+        if self.tokenizer is not None:
+            ids = self.tokenizer([prompt], max_length=self.text_cfg.max_length)
+        else:
+            ids = tokenize_batch([prompt], self.text_cfg.vocab_size,
+                                 self.text_cfg.max_length)
         return torch.from_numpy(ids).long().to(self.device)
 
     @torch.inference_mode()
@@ -107,6 +120,9 @@ class CLIPScorer(nn.Module):
         """Per-frame cosines (F,) float32 on the scorer's device."""
         frames = as_device_u8(frames_uint8, self.device).float() / 127.5 - 1.0
         frames = resize_bilinear(frames, self.vision_cfg.image_size)
+        if self.preprocess == "clip":
+            mean, std = (torch.tensor(v, device=frames.device) for v in (CLIP_MEAN, CLIP_STD))
+            frames = ((frames + 1.0) / 2.0 - mean) / std
         img = self.vision(frames).float()
         _, pooled = self.text(self._ids(prompt))
         txt = pooled.float() @ self.text_proj

@@ -1,7 +1,10 @@
 """Where one request's time goes on the card: a device-time breakdown of the
 denoise step and the VAE decode of zeroscope-v2-576w.
 
-    python -m dvdx_tpu_torch.utils.profile_step
+    python -m dvdx_tpu_torch.utils.profile_step [--xl]
+
+``--xl`` profiles zeroscope-v2-xl's step as the CLI runs it (24 frames at
+1024x576, cfg_split: two batch-1 UNet calls a step) instead.
 
 Builds the model with seeded random weights (zero-init leaves perturbed, as
 ``chip_smoke.py`` does), runs one warm-up step, then traces two
@@ -12,7 +15,7 @@ part of the traced window in which no kernel ran. The fused spatial tail and
 temporal block are grouped as their three launches each (the chain and the
 two GEGLU products, whose kernels carry the library's name in their template
 arguments). Needs a CUDA card; writes the breakdown to
-``chiprun_out/profile_step.json``.
+``chiprun_out/profile_step.json`` (``profile_step_xl.json`` with ``--xl``).
 """
 
 from __future__ import annotations
@@ -89,7 +92,8 @@ def breakdown(prof, wall_s: float) -> dict:
             "top_kernels_ms": [[name[:120], us / 1e3] for name, us in top]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    xl = "--xl" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
@@ -104,7 +108,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    pipe = perturb_zero_params(build_pipeline("zeroscope-v2-576w", seed=0), seed=99)
+    model = "zeroscope-v2-xl" if xl else "zeroscope-v2-576w"
+    pipe = perturb_zero_params(build_pipeline(model, seed=0), seed=99)
     spec = pipe.spec
     sched = make_ddim_schedule(spec.default_steps)
     with torch.inference_mode():
@@ -118,12 +123,12 @@ def main() -> int:
         def steps(z, n):
             for i in range(n):
                 z, _ = cfg_denoise_step(pipe.unet, sched, z, i, cond, uncond,
-                                        spec.default_guidance_scale)
+                                        spec.default_guidance_scale, cfg_split=xl)
             return z
 
         steps(z, 1)
         torch.cuda.synchronize()
-        result = {"device": smi, "steps": STEPS}
+        result = {"device": smi, "model": model, "cfg_split": xl, "steps": STEPS}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             z = steps(z, STEPS)
@@ -146,8 +151,9 @@ def main() -> int:
         print(f"profile {part}: wall {r['wall_ms']:.2f} ms, device busy "
               f"{r['device_busy_ms']:.2f} ms, idle share {r['idle_share']}, "
               f"{r['kernels']} kernels; ms by group: {groups}", flush=True)
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+    out = OUT.replace(".json", "_xl.json") if xl else OUT
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(result, f, indent=1)
     return 0
 

@@ -25,7 +25,7 @@ Leaves are bfloat16 in channel-last (F, h, w, C) layout. numpy has no
 bfloat16 of its own, so the engine hands them out as bfloat16 CPU tensors
 (the ``verify.merkle`` leaf format); the checks take those or numpy arrays,
 including the JAX package's ``ml_dtypes`` bfloat16 arrays, read by their
-bytes. Mesh, chunked and segmented execution are not ported.
+bytes. Mesh and chunked execution are not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import torch
 
 from ..ops import rng as rng_ops
 from ..ops.scheduler import ddim_step, make_ddim_schedule
-from ..pipelines.text2video import Pipeline, cfg_denoise_step, generate_core
+from ..pipelines.text2video import Pipeline, cfg_denoise_step, generate_core, to_uint8
 from ..utils.bridge import to_tensor
 from .proof import sample_distinct_indices
 
@@ -84,22 +84,26 @@ class StepEngine:
                           seed: int = 0, num_frames: int, height: int, width: int,
                           num_steps: int, guidance_scale: float,
                           latent_dtype: torch.dtype = torch.bfloat16,
-                          cfg_split: bool = False, timings: Optional[dict] = None):
-        """PoI-grade generation through the step program the verifier runs.
-        Returns (video (F, H, W, 3) uint8 numpy, zs, epss, timesteps): zs
-        and epss are (N, F, h, w, C) CPU tensors in latent_dtype, timesteps
-        (N,) int32 numpy. ``timings`` (optional dict) receives host seconds
-        per phase: "dispatch_loop" (text, noise, the denoise loop and the
-        decode handed to the device), "compute_wall" (until the device is
-        done), "leaf_fetch" and "video_fetch" (the copies to the host)."""
+                          segment_steps: int = 5, cfg_split: bool = False,
+                          timings: Optional[dict] = None):
+        """PoI-grade generation through the step program the verifier runs,
+        driven in segments of ``segment_steps`` steps (``generate_core``: the
+        leaves are the same bits whatever the segment length). Returns
+        (video (F, H, W, 3) uint8 numpy, zs, epss, timesteps): zs and epss
+        are (N, F, h, w, C) CPU tensors in latent_dtype, timesteps (N,)
+        int32 numpy. ``timings`` (optional dict) receives host seconds per
+        phase: "dispatch_loop" (text, noise, the denoise loop and the decode
+        handed to the device), "compute_wall" (until the device is done),
+        "leaf_fetch" and "video_fetch" (the copies to the host)."""
         t0 = time.perf_counter()
+        sched = self._schedule(num_steps)
         ids = torch.from_numpy(self.pipe.tokenize([negative_prompt, prompt])).long()
         frames, zs, epss = generate_core(
-            self.pipe, ids.to(self.pipe.device), rng_ops.base_key(seed),
-            sched=self._schedule(num_steps), num_frames=num_frames, height=height,
-            width=width, guidance_scale=guidance_scale, record=True,
-            latent_dtype=latent_dtype, cfg_split=cfg_split)
-        video = ((frames + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+            self.pipe, ids.to(self.pipe.device), rng_ops.base_key(seed), sched=sched,
+            num_frames=num_frames, height=height, width=width,
+            guidance_scale=guidance_scale, record=True, latent_dtype=latent_dtype,
+            cfg_split=cfg_split, segment_steps=segment_steps)
+        video = to_uint8(frames)
         t0 = _tmark(timings, "dispatch_loop", t0)
         if video.is_cuda:
             torch.cuda.current_stream(video.device).synchronize()
@@ -108,7 +112,7 @@ class StepEngine:
         t0 = _tmark(timings, "leaf_fetch", t0)
         video = video.cpu().numpy()
         _tmark(timings, "video_fetch", t0)
-        return video, zs, epss, self._schedule(num_steps).timesteps.copy()
+        return video, zs, epss, sched.timesteps.copy()
 
     # -- verifier path --
 

@@ -458,3 +458,51 @@ def test_bf16_tiny_steps_card_against_cpu(cuda):
           f"z_next_err {z_err} (atol 5e-2) at max|eps| {epss.float().abs().max().item()} "
           f"max|z| {zs.float().abs().max().item()}")
     assert all(np.isfinite(eps_err + z_err))
+
+
+# --- the XL geometry's new shapes (zeroscope-v2-xl with cfg_split: batch 1,
+# 24 frames, latent 72x128), on the slices chip_smoke.py's phase 2 holds ---
+
+
+@pytest.mark.parametrize("b,s,h,held", [(24, 9216, 5, [0, 23]), (24, 576, 20, None)])
+def test_flash_kernel_xl_shapes(cuda, b, s, h, held):
+    """Level 0 over 9216 tokens (plain attention over all 120 batch-heads
+    would hold 40 GB of logits: frames 0 and 23 are held) and level 2 over
+    576 tokens, which flash's gate takes only at XL."""
+    q, k, v = (_randn((b, s, h, 64), i, cuda).bfloat16() for i in range(3))
+    got = tflash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if held is not None:
+        got, q, k, v = got[held], q[held], k[held], v[held]
+    _check(got, tflash.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("heads", [5, 8])
+def test_temporal_block_kernel_xl_shape(cuda, heads):
+    """F = 24 over 9216 positions: level 0's temporal transformers (5 x 64)
+    and transformer_in (8 x 40)."""
+    x, params = _temporal_block_args(1, 24, 9216, 320, cuda)
+    got = tblock.fused_temporal_block(x, params, heads=heads)
+    torch.cuda.synchronize()
+    _check(got, tblock.fused_temporal_block_plain(x, params, heads=heads))
+
+
+def test_spatial_tail_kernel_xl_shape(cuda):
+    """Level 0's 24 x 9216 rows."""
+    (x, o1, ctx_k, ctx_v), params = _spatial_tail_args(24, 9216, 320, 77, cuda)
+    got = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=5)
+    torch.cuda.synchronize()
+    _check(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=5))
+
+
+@pytest.mark.parametrize("n,l,c,act,with_bias,eps", [
+    (24, 9216, 320, "silu", True, 1e-5), (1, 221184, 320, "none", False, 1e-6),
+    (1, 589824, 256, "silu", False, 1e-6), (1, 589824, 128, "silu", False, 1e-6)])
+def test_group_norm_kernel_xl_shapes(cuda, n, l, c, act, with_bias, eps):
+    """The UNet's level 0 over 24 frames and the VAE decoder's full 1024x576
+    frame (589,824 rows)."""
+    x, gamma, beta, bias = _group_norm_args(n, l, c, with_bias, cuda)
+    kw = dict(groups=32, eps=eps, act=act, bias=bias)
+    got = tgn.group_norm_act(x, gamma, beta, **kw)
+    torch.cuda.synchronize()
+    _check(got, tgn.group_norm_act_plain(x, gamma, beta, **kw))

@@ -81,7 +81,8 @@ def test_kernel_sources_ship(source):
     "network.protocol", "network.base", "network.ledger", "network.transport",
     "network.miner", "network.validator", "network.mock", "scoring.common",
     "scoring.mdvqs", "scoring.clip_score", "models.clip_vision", "utils.video_io",
-    "verify.proof"])
+    "verify.proof", "models.tokenizer", "utils.convert", "pipelines.text2video",
+    "__main__"])
 def test_network_and_scoring_modules_import_without_jax(module):
     proc = _run("import sys\n"
                 "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"

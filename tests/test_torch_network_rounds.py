@@ -14,7 +14,9 @@ crossing as wire bytes from one package's encoding to the other's): a torch
 miner is verified by the JAX validator and a JAX miner by the torch
 validator, both in the cross-platform regime (``same_platform`` False, atol
 5e-2, the reference's ``ValidatorConfig.atol``), and a lazy miner is caught
-both ways. The two validators' reports carry the same keys.
+both ways. The two validators' reports carry the same keys. The same holds
+for both packages loading one diffusers checkpoint (float32) with its CLIP
+BPE tokenizer.
 
 Rounds that do not test liveness ping with a 30 s timeout, so CPU load under
 parallel test workers cannot drop a miner; the liveness tests use a miner
@@ -49,6 +51,7 @@ from dvdx_tpu_torch.pipelines.text2video import build_pipeline
 from dvdx_tpu_torch.utils.bridge import load_pipeline_params
 from dvdx_tpu_torch.verify.merkle import leaf_hash, verify_merkle_proof
 from dvdx_tpu_torch.verify.proof import Keypair
+from tests.test_torch_generate_path import ckpt_pipes, fake_ckpt  # noqa: F401  (fixtures)
 
 torch.set_num_threads(2)
 
@@ -286,48 +289,45 @@ def _crossing(handler, outer, inner):
     return serve
 
 
+def _cross_round(miner_pipe, validator_pipe, torch_validator: bool, tmp, rid: str,
+                 miner_classes=None, prompt: str = "a red ball"):
+    """Miners of one package behind the other package's validator, every
+    message crossing as wire bytes -> (validator, report). The miners are
+    honest then lazy unless ``miner_classes`` says otherwise."""
+    vpk, mpk = (P, JP) if torch_validator else (JP, P)
+    reg, led, tr = ((Registry(), Ledger(), MockTransport()) if torch_validator
+                    else (JRegistry(), JLedger(), JMockTransport()))
+    vcls, vcfg, vkp = ((Validator, ValidatorConfig, Keypair) if torch_validator
+                       else (JValidator, JValidatorConfig, JKeypair))
+    val = vcls(validator_pipe, vkp.from_seed(b"validator"), reg, tr, led, vcfg(**_cfg(tmp)))
+    miner_reg, mkp = (JRegistry(), JKeypair) if torch_validator else (Registry(), Keypair)
+    if miner_classes is None:
+        miner_classes = (JMiner, JLazyMiner) if torch_validator else (Miner, LazyMiner)
+    miner_reg.register(val.pubkey, "mock://validator", role="validator", stake=STAKE * 10)
+    for i, cls in enumerate(miner_classes):
+        miner = cls(miner_pipe, mkp.from_seed(f"miner-{i}".encode()), miner_reg)
+        uid = reg.register(miner.pubkey, f"mock://m{i}", "miner", STAKE,
+                           platform=miner.platform_tag)
+        led.mint(f"miner-{uid}", STAKE)
+        led.stake(f"miner-{uid}", STAKE)
+        tr.serve(f"mock://m{i}", _crossing(miner.handle, vpk, mpk))
+    val.register("mock://validator", stake=STAKE * 10)  # after the miners: uids 0, 1
+    led.mint("user", 20000)
+    led.deposit_and_commit("user", rid, __import__("hashlib").sha256(prompt.encode()).digest(),
+                           20000)
+    return val, _run(val.run_round(rid, prompt))
+
+
 @pytest.fixture(scope="module")
 def torch_miners_jax_validator(tiny_port, tiny_pipeline, tmp_path_factory):
     """Port miners (honest, lazy) behind the JAX validator."""
-    jreg, jled, jtr = JRegistry(), JLedger(), JMockTransport()
-    val = JValidator(tiny_pipeline, JKeypair.from_seed(b"jax-validator"), jreg, jtr, jled,
-                     JValidatorConfig(**_cfg(tmp_path_factory.mktemp("jv"))))
-    miner_reg = Registry()
-    miner_reg.register(val.pubkey, "mock://validator", role="validator", stake=STAKE * 10)
-    for i, cls in enumerate((Miner, LazyMiner)):
-        miner = cls(tiny_port, Keypair.from_seed(f"torch-miner-{i}".encode()), miner_reg)
-        uid = jreg.register(miner.pubkey, f"mock://t{i}", "miner", STAKE,
-                            platform=miner.platform_tag)
-        jled.mint(f"miner-{uid}", STAKE)
-        jled.stake(f"miner-{uid}", STAKE)
-        jtr.serve(f"mock://t{i}", _crossing(miner.handle, JP, P))
-    val.register("mock://validator", stake=STAKE * 10)  # after the miners: uids 0, 1
-    jled.mint("user", 20000)
-    jled.deposit_and_commit("user", "x-1", __import__("hashlib").sha256(b"a red ball").digest(),
-                            20000)
-    return val, _run(val.run_round("x-1", "a red ball"))
+    return _cross_round(tiny_port, tiny_pipeline, False, tmp_path_factory.mktemp("jv"), "x-1")
 
 
 @pytest.fixture(scope="module")
 def jax_miners_torch_validator(tiny_port, tiny_pipeline, tmp_path_factory):
     """JAX miners (honest, lazy) behind the port's validator."""
-    reg, led, tr = Registry(), Ledger(), MockTransport()
-    val = Validator(tiny_port, Keypair.from_seed(b"torch-validator"), reg, tr, led,
-                    ValidatorConfig(**_cfg(tmp_path_factory.mktemp("tv"))))
-    miner_reg = JRegistry()
-    miner_reg.register(val.pubkey, "mock://validator", role="validator", stake=STAKE * 10)
-    for i, cls in enumerate((JMiner, JLazyMiner)):
-        miner = cls(tiny_pipeline, JKeypair.from_seed(f"jax-miner-{i}".encode()), miner_reg)
-        uid = reg.register(miner.pubkey, f"mock://j{i}", "miner", STAKE,
-                           platform=miner.platform_tag)
-        led.mint(f"miner-{uid}", STAKE)
-        led.stake(f"miner-{uid}", STAKE)
-        tr.serve(f"mock://j{i}", _crossing(miner.handle, P, JP))
-    val.register("mock://validator", stake=STAKE * 10)
-    led.mint("user", 20000)
-    led.deposit_and_commit("user", "x-2", __import__("hashlib").sha256(b"a red ball").digest(),
-                           20000)
-    return val, _run(val.run_round("x-2", "a red ball"))
+    return _cross_round(tiny_pipeline, tiny_port, True, tmp_path_factory.mktemp("tv"), "x-2")
 
 
 CROSS = ["torch_miners_jax_validator", "jax_miners_torch_validator"]
@@ -354,6 +354,29 @@ def test_cross_implementation_lazy_miner_caught(direction, request):
     assert d["same_platform"] is False and d["regime_atol"] == 5e-2
     assert d["score"] == 0.0
     assert val.ledger.stake_of("miner-1") < STAKE
+
+
+@pytest.mark.parametrize("torch_validator", [False, True])
+def test_checkpoint_round_across_implementations(ckpt_pipes, torch_validator, tmp_path):
+    """An honest miner of one package on the checkpoint passes the other
+    package's validator on the same checkpoint, in the cross-platform regime,
+    with the same BPE token ids on both sides."""
+    ours, ref = ckpt_pipes
+    prompt = "a red panda in a tree"
+    assert ours.tokenizer is not None and ref.tokenizer is not None
+    np.testing.assert_array_equal(ours.tokenize(["", prompt]), ref.tokenize(["", prompt]))
+    miners = (ref, ours) if torch_validator else (ours, ref)
+    val, report = _cross_round(*miners, torch_validator, tmp_path, "ckpt-1",
+                               miner_classes=(JMiner,) if torch_validator else (Miner,),
+                               prompt=prompt)
+    d = report["miners"]["0"]
+    assert not d.get("cheat") and "failed_check" not in d, d
+    assert all(d["checks"].values())
+    assert d["same_platform"] is False and d["regime_atol"] == 5e-2
+    print(f"checkpoint round, torch validator {torch_validator}: reexec_max_err "
+          f"{d['reexec_max_err']:.4g}")  # shown by pytest -rP
+    assert d["score"] > 0.0
+    assert val.ledger.requests["ckpt-1"].status == "distributed"
 
 
 @pytest.mark.parametrize("pin", ["torch-cpu", "torch-cuda"])
