@@ -67,9 +67,27 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      bits; 3 re-executed steps (bitwise); one frame decoded full and in
      tiles; ``python -m dvdx_tpu_torch generate`` run with no device flag,
      which must run on the card;
+  8. the network as processes: one validator and three miners of
+     zeroscope-v2-576w started as four ``python -m dvdx_tpu_torch`` processes
+     with no device flag (each in its own directory under
+     ``build/services/``; the validator scores VQ with LPIPS(alex) from a
+     seeded lpips-package checkpoint written there). The three miners must
+     register pinned ``torch-cuda``; a request goes through ``/deposit`` and
+     ``/submit_prompt`` to ``completed`` (16 frames at 576x320, 25 steps, 3
+     re-executed steps per miner); every miner must pass bit for bit in the
+     same-program regime with an ``lpips-alex`` score above 0; a video is
+     served by ``/videos`` and its LPIPS on the CPU matches the validator's;
+     ``/weights`` holds the settled scores of ``validator_state.npz``; every
+     kernel of the model path launched in each process; the card holds the
+     services' memory (nvidia-smi); and this process's kernel path
+     (``StepEngine.generate_recorded`` on the same prompt, seed and
+     geometry) gives each miner's Merkle root. Start-up seconds, the round's
+     wall seconds, each miner's ``timings_s`` and each process's device
+     memory are printed;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
   phase 2 alone holds; ``launches_xl`` from phase 7's request;
+  ``launches_services`` per phase-8 process;
   ``xl_per_unet_call`` / ``xl_vae_frame`` from phase 7's held inputs:
   distinct shapes, launches, kernel ms summed over the launches, largest
   error, and per UNet call the bound), and the result line.
@@ -81,6 +99,7 @@ the output goes to ``chiprun_out/``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -650,32 +669,16 @@ def check_kernels():
 
 # --- phases 3-4: the reference check and the main path ------------------------
 
-def launch_counters():
-    """{kernel: (module, name of its launch counter)} for every kernel."""
-    from dvdx_tpu_torch.ops import groupnorm as gn
-    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
-    from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
-    from dvdx_tpu_torch.ops.kernels import spatial_tail as st
-    from dvdx_tpu_torch.ops.kernels import temporal_attention as ta
-    from dvdx_tpu_torch.ops.kernels import temporal_block as tb
-
-    return {"flash_attention": (fa, "LAUNCHES"), "temporal_attention": (ta, "LAUNCHES"),
-            "geglu_ff": (gf, "LAUNCHES"), "group_norm_act": (gn, "LAUNCHES"),
-            "flash_attention_mh": (fa, "MH_LAUNCHES"),
-            "fused_spatial_tail": (st, "LAUNCHES"),
-            "fused_temporal_block": (tb, "LAUNCHES"),
-            "group_norm_act_f32": (gn, "F32_LAUNCHES"), "geglu_ff_simt": (gf, "SIMT_LAUNCHES"),
-            "flash_attention_f32": (fa, "F32_LAUNCHES"),
-            "temporal_attention_f32": (ta, "F32_LAUNCHES")}
-
-
 def read_counts() -> dict:
-    return {k: getattr(m, a) for k, (m, a) in launch_counters().items()}
+    from dvdx_tpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()
 
 
 def reset_counts() -> None:
-    for m, a in launch_counters().values():
-        setattr(m, a, 0)
+    from dvdx_tpu_torch.ops.kernels import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def check_against_cpu():
@@ -1081,6 +1084,330 @@ def run_cross_device_round():
     return line
 
 
+# --- phase 8: the network as processes over HTTP ------------------------------
+
+SERVICE_PROMPT = "a red panda rides a bicycle through a snowy forest"
+SERVICE_GEOMETRY = dict(num_frames=16, height=320, width=576, num_steps=25)
+STARTUP_DEADLINE_S = 300.0
+REGISTRY_DEADLINE_S = 120.0
+ROUND_DEADLINE_S = 600.0
+METRICS_DEADLINE_S = 60.0
+
+
+def _free_ports(n: int):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def write_lpips_checkpoint(path: str, seed: int = 0) -> None:
+    """An lpips-package ('alex') state dict (tests/torch_ref.py's LPIPSRef,
+    the package's keys) with seeded values: convs N(0, 1 / fan_in), lin
+    heads uniform in [0, 0.2) (non-negative), written with torch.save."""
+    ref = load_torch_ref().LPIPSRef()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in ref.named_parameters():
+            if name.startswith("lin"):
+                prm.copy_(torch.rand(prm.shape, generator=gen) * 0.2)
+            elif prm.dim() == 4:
+                prm.copy_(torch.randn(prm.shape, generator=gen) * prm[0].numel() ** -0.5)
+            else:
+                prm.zero_()
+    torch.save(ref.state_dict(), path)
+
+
+class Services:
+    """The service processes of phase 8, each in its own working directory
+    with its output in ``service.log`` there."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.procs = {}   # name -> (Popen, cwd, start time)
+
+    def start(self, name: str, argv):
+        cwd = os.path.join(self.root, name)
+        os.makedirs(cwd, exist_ok=True)
+        with open(os.path.join(cwd, "service.log"), "w") as out:
+            proc = subprocess.Popen([sys.executable, "-m", "dvdx_tpu_torch", *argv], cwd=cwd,
+                                    stdout=out, stderr=subprocess.STDOUT,
+                                    env={**os.environ, "PYTHONPATH": os.path.dirname(
+                                        os.path.abspath(__file__))})
+        self.procs[name] = (proc, cwd, time.perf_counter())
+
+    def log_text(self, name: str) -> str:
+        with open(os.path.join(self.procs[name][1], "service.log"), errors="replace") as f:
+            return f.read()
+
+    def check_alive(self) -> None:
+        for name, (proc, _, _) in self.procs.items():
+            if proc.poll() is not None:
+                raise AssertionError(f"services: {name} exited with {proc.returncode}; "
+                                     f"its output ends:\n{self.log_text(name)[-4000:]}")
+
+    def wait_started(self, markers: dict) -> dict:
+        """Seconds from each process's start to its marker in its output."""
+        started = {}
+        deadline = time.perf_counter() + STARTUP_DEADLINE_S
+        while len(started) < len(self.procs):
+            self.check_alive()
+            for name, (_, _, t0) in self.procs.items():
+                if name not in started and markers[name] in self.log_text(name):
+                    started[name] = round(time.perf_counter() - t0, 2)
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"services: not serving after {STARTUP_DEADLINE_S} s: "
+                                     f"{sorted(set(self.procs) - set(started))}")
+            time.sleep(0.2)
+        return started
+
+    def stop(self) -> None:
+        for proc, _, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc, _, _ in self.procs.values():
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+
+
+def _http(method: str, url: str, body=None, timeout: float = 120.0):
+    """(status, parsed JSON or raw bytes) of one request to a local service."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status, ctype = r.read(), r.status, r.headers.get_content_type()
+    except urllib.error.HTTPError as e:
+        raw, status, ctype = e.read(), e.code, e.headers.get_content_type()
+    return status, (json.loads(raw) if ctype == "application/json" else raw)
+
+
+def _poll(services, what: str, fn, deadline_s: float, interval: float = 0.2):
+    """fn() until it returns a true value; fails at the deadline or when a
+    service process exits."""
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        services.check_alive()
+        try:
+            got = fn()
+        except OSError:  # not serving yet, or busy past the request's timeout
+            got = None
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"services: {what} not within {deadline_s} s")
+        time.sleep(interval)
+
+
+def _compute_apps() -> dict:
+    """{pid: MiB} of the card's compute processes, as nvidia-smi lists them
+    (its pids are the host's where this process runs in a PID namespace)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mib = (x.strip() for x in line.split(","))
+        apps[int(pid)] = int(mib)
+    return apps
+
+
+def _check_service_memory(pids: dict, apps: dict, reserved: dict) -> dict:
+    """Each service holds memory on the card. Where nvidia-smi lists the
+    service pids, each must be there, and its MiB is the process's. Where
+    the processes run in a PID namespace nvidia-smi does not see into, it
+    lists other pids (one, pid 1, holding the memory of them all); then its
+    total must cover what the four services and this process hold in their
+    caching allocators (``reserved``, bytes, each service's above 0)."""
+    if all(pid in apps for pid in pids.values()):
+        return {name: apps[pid] for name, pid in pids.items()}
+    held = sum(reserved.values()) + torch.cuda.memory_reserved()
+    _require(all(reserved[name] > 0 for name in pids) and sum(apps.values()) * 2**20 >= held,
+             "services: nvidia-smi shows the services' device memory",
+             {"apps_mib": apps, "pids": pids, "reserved_bytes": reserved,
+              "this_process_reserved": torch.cuda.memory_reserved()})
+    return {"nvidia_smi_total": sum(apps.values()),
+            **{name: round(reserved[name] / 2**20) for name in pids}}
+
+
+def run_services(pipe, smi: str):
+    """Phase 8: one validator and three miners of zeroscope-v2-576w as four
+    ``python -m dvdx_tpu_torch`` processes on the card (no device flag), a
+    request through the REST API to ``completed``, and each miner's Merkle
+    root against this process's kernel path on the same request."""
+    import shutil
+
+    from dvdx_tpu_torch.network.base import ScoreBook
+    from dvdx_tpu_torch.utils.convert import load_lpips
+    from dvdx_tpu_torch.utils.video_io import decode_video
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+    from dvdx_tpu_torch.verify.spotcheck import StepEngine
+
+    root = os.path.abspath(os.path.join("build", "services"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lpips_path = os.path.join(root, "lpips_alex.pth")
+    write_lpips_checkpoint(lpips_path)
+    results = os.path.join(root, "validator", "results")
+    api_port, *miner_ports = _free_ports(4)
+    api = f"http://127.0.0.1:{api_port}"
+    g = SERVICE_GEOMETRY
+    svc = Services(root)
+    out = {}
+    try:
+        svc.start("validator", [
+            "validator", "--model", "zeroscope-v2-576w", "--perturb",
+            "--width", str(g["width"]), "--height", str(g["height"]),
+            "--frames", str(g["num_frames"]), "--steps", str(g["num_steps"]),
+            "--sample-size", "3", "--num-checkpoints", "3", "--lpips-ckpt", lpips_path,
+            "--poll-interval", "0.2", "--api-port", str(api_port),
+            "--results-dir", results])
+        for i, port in enumerate(miner_ports):
+            svc.start(f"miner{i}", ["miner", "--model", "zeroscope-v2-576w", "--perturb",
+                                    "--sync-interval", "1", "--port", str(port),
+                                    "--validator-api", f"127.0.0.1:{api_port}"])
+        pids = {name: proc.pid for name, (proc, _, _) in svc.procs.items()}
+        out["startup_s"] = svc.wait_started({name: "REST API at" if name == "validator"
+                                             else "serving at" for name in pids})
+        log(f"services ({smi}): start-up seconds {json.dumps(out['startup_s'])}")
+
+        def miners_registered():
+            status, reg = _http("GET", f"{api}/registry", timeout=10)
+            ms = {u: n for u, n in reg.items() if n["role"] == "miner"}
+            return ms if status == 200 and len(ms) == 3 else None
+
+        miners = _poll(svc, "three miners registered", miners_registered, REGISTRY_DEADLINE_S)
+        pins = sorted(n["platform"] for n in miners.values())
+        _require(pins == ["torch-cuda"] * 3, "services: miner pins", miners)
+        out["nvidia_smi_idle"] = _compute_apps()
+
+        rid = "svc-576w"
+        prompt_hash = hashlib.sha256(SERVICE_PROMPT.encode()).hexdigest()
+        t0 = time.perf_counter()
+        st, body = _http("POST", f"{api}/deposit", {"user": "user-1", "request_id": rid,
+                                                   "prompt_hash": prompt_hash,
+                                                   "amount": 1_000_000})
+        _require(st == 200, "services: deposit", body)
+        st, body = _http("POST", f"{api}/submit_prompt", {"request_id": rid,
+                                                         "prompt": SERVICE_PROMPT})
+        _require(st == 200, "services: submit_prompt", body)
+
+        def finished():
+            status, body = _http("GET", f"{api}/status/{rid}", timeout=30)
+            return body if status == 200 and body["status"] in ("completed", "failed") \
+                else None
+
+        status = _poll(svc, "the round", finished, ROUND_DEADLINE_S)
+        out["round_wall_s"] = round(time.perf_counter() - t0, 3)
+        out["nvidia_smi_after_round"] = _compute_apps()
+        st, result = _http("GET", f"{api}/result/{rid}")
+        _require(st == 200 and status["status"] == "completed", "services: round status",
+                 {"status": status, "result": result})
+        per_miner = result["miners"]
+        _require(set(per_miner) == set(miners), "services: every miner answered",
+                 sorted(per_miner))
+        for uid, d in per_miner.items():
+            _require(not d.get("failed_check") and not d.get("cheat")
+                     and all(d["checks"].values()) and d["same_platform"] is True
+                     and d["reexec_bitwise"] is True and d["score"] > 0
+                     and d["mdvqs"]["perceptual_metric"] == "lpips-alex"
+                     and d["frames_shape"] == [g["num_frames"], g["height"], g["width"], 3],
+                     f"services: miner {uid}", d)
+        out["miners"] = {uid: {k: d.get(k) for k in (
+            "score", "reexec_max_err", "video_binding_err", "gen_time_s", "timings_s",
+            "miner_timings_s", "merkle_root")} for uid, d in per_miner.items()}
+        for uid, d in out["miners"].items():
+            log(f"services ({smi}): miner {uid} timings_s {json.dumps(d['miner_timings_s'])}; "
+                f"validator's timings_s {json.dumps(d['timings_s'])}")
+        log(f"services ({smi}): round wall {out['round_wall_s']} s (deposit to completed); "
+            f"nvidia-smi compute apps (pid: MiB) idle {json.dumps(out['nvidia_smi_idle'])}, "
+            f"after the round {json.dumps(out['nvidia_smi_after_round'])}; service pids "
+            f"{json.dumps(pids)}, this process {os.getpid()}")
+
+        # a video is served, and its LPIPS on the CPU matches the validator's
+        uid0 = sorted(per_miner)[0]
+        st, mp4 = _http("GET", f"{api}{per_miner[uid0]['video_url']}")
+        _require(st == 200 and isinstance(mp4, bytes) and len(mp4) > 0,
+                 "services: /videos", {"status": st})
+        frames = decode_video(mp4)
+        lp_cpu = load_lpips(lpips_path, device="cpu").consecutive_mean_u8(frames)
+        lp_card = per_miner[uid0]["mdvqs"]["perceptual_distance"]
+        out["lpips_card_vs_cpu"] = [lp_card, lp_cpu]
+        _require(abs(lp_card - lp_cpu) <= 1e-4, "services: lpips on the card vs the CPU",
+                 out["lpips_card_vs_cpu"])
+
+        st, weights = _http("GET", f"{api}/weights")
+        book = ScoreBook()
+        book.load(os.path.join(results, "validator_state.npz"))
+        settled = {str(u): w for u, w in book.weights().items()}
+        _require(st == 200 and set(weights["weights"]) == set(miners)
+                 and weights["weights"] == settled and abs(sum(settled.values()) - 1) < 1e-9,
+                 "services: /weights holds the settled scores",
+                 {"weights": weights, "npz": settled})
+
+        # every model-path kernel launched in each process (miners: the
+        # generation on a pool thread; the validator: re-execution, decode)
+        def metrics(name, path):
+            def read():
+                with open(path) as f:
+                    m = json.load(f)
+                return m if name == "validator" or m.get("reveals", 0) >= 1 else None
+            return _poll(svc, f"{name}'s metrics", read, METRICS_DEADLINE_S)
+
+        dumps = {f"miner{i}": metrics(f"miner{i}", os.path.join(
+            root, f"miner{i}", "miner_metrics.json")) for i in range(3)}
+        dumps["validator"] = metrics("validator", os.path.join(
+            results, "validator_metrics.json"))
+        launches = {name: m["kernel_launches"] for name, m in dumps.items()}
+        memory_stats = {name: {k: round(v / 2**30, 3) for k, v in m.get("device_memory", {}).items()}
+                        for name, m in dumps.items()}
+        out["launches"] = launches
+        out["device_memory"] = memory_stats
+        out["memory_mib"] = _check_service_memory(
+            pids, out["nvidia_smi_after_round"],
+            {name: m.get("device_memory", {}).get("reserved", 0) for name, m in dumps.items()})
+        log(f"services ({smi}): device memory per process, MiB {json.dumps(out['memory_mib'])}; "
+            f"torch allocator per process, GiB {json.dumps(memory_stats)}")
+        for name, counts in launches.items():
+            missing = [k for k in MODEL_PATH if not counts.get(k)]
+            _require(not missing, f"services: {name} never launched", missing)
+        log(f"services ({smi}): launches per process {json.dumps(launches)}")
+    finally:
+        svc.stop()
+
+    # this process's kernel path on the same request: the same Merkle root
+    reset_counts()
+    t0 = time.perf_counter()
+    _, zs, epss, ts = StepEngine(pipe).generate_recorded(
+        SERVICE_PROMPT, seed=int(result["seed"]), guidance_scale=7.5, **g)
+    torch.cuda.synchronize()
+    root_here = MerkleCommitment(ts, zs, epss).root.hex()
+    counts = read_counts()
+    out["in_process"] = {"seconds": round(time.perf_counter() - t0, 3), "root": root_here,
+                         "launches": counts}
+    roots = {uid: d["merkle_root"] for uid, d in per_miner.items()}
+    log(f"services ({smi}): in-process root {root_here} in {out['in_process']['seconds']} s; "
+        f"miners' roots {json.dumps(roots)}")
+    _require(all(r == root_here for r in roots.values()),
+             "services: miners' Merkle roots against the kernel path", roots)
+    missing = [k for k in MODEL_PATH if counts[k] == 0]
+    _require(not missing, "services: in-process path never launched", missing)
+    return out
+
+
 # --- phase 7: zeroscope-v2-xl from a full-scale checkpoint -------------------
 
 # zeroscope's architecture in tests/torch_ref.py's (diffusers key names)
@@ -1130,6 +1457,20 @@ def clip_text_state_dict(vocab: int, hidden: int, layers: int, heads: int, inner
     return out
 
 
+def load_torch_ref():
+    """tests/torch_ref.py (the diffusers / lpips architectures with their
+    state-dict keys), loaded by its path: another installed package may be
+    named "tests"."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_ref", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                  "torch_ref.py"))
+    torch_ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_ref)
+    return torch_ref
+
+
 def write_synthetic_checkpoint(root: str, unet_kw: dict, vae_kw: dict, text_kw: dict,
                                words, device, seed: int = 0) -> int:
     """A diffusers checkpoint directory of the given architecture with seeded
@@ -1139,17 +1480,10 @@ def write_synthetic_checkpoint(root: str, unet_kw: dict, vae_kw: dict, text_kw: 
     float32), all as safetensors, and a ``tokenizer/`` of a BPE trained on
     ``words`` whose BOS / EOS ids the text config names. Returns the bytes
     written."""
-    import importlib.util
-
     from dvdx_tpu_torch.models.tokenizer import build_test_vocab, write_tokenizer_files
     from dvdx_tpu_torch.utils.convert import write_safetensors
 
-    # by its path: another installed package may be named "tests"
-    spec = importlib.util.spec_from_file_location(
-        "torch_ref", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                                  "torch_ref.py"))
-    torch_ref = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(torch_ref)
+    torch_ref = load_torch_ref()
 
     def component(sub, cfg, tensors, weights="diffusion_pytorch_model.safetensors"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -1605,6 +1939,8 @@ def main():
     log(f"reference check: {time.perf_counter() - t0:.1f} s")
     pipe, launches, path = run_path(steps_a=25)
     path["network_round"] = run_network_round(pipe)
+    torch.cuda.empty_cache()
+    path["services"] = run_services(pipe, smi)
     del pipe
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
@@ -1630,6 +1966,8 @@ def main():
                         "bound_by": "operations" if s["t_ops"] > s["t_bytes"]
                         else "bytes", "library_ms": s["library_ms"],
                         "launches_network_round": path["network_round"]["launches"][name],
+                        "launches_services": {k: v.get(name, 0) for k, v in
+                                              path["services"]["launches"].items()},
                         "launches_xl": path["xl"]["request"]["launches"][name],
                         "xl_per_unet_call": xl_per_call.get(name),
                         "xl_vae_frame": xl["held_vae_frame"].get(name)})

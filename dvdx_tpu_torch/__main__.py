@@ -5,9 +5,16 @@
 Commands:
 
   generate     one prompt -> video -> mp4, on the card unless --device cpu
+  miner        serve a miner over HTTP (network.services)
+  validator    serve a validator, its REST API and deposit listener
+               (network.services)
   convert      inspect / convert a diffusers checkpoint (utils.convert)
   mock-round   one in-process network round: miners, validator, ledger
                (network.mock)
+
+``miner`` and ``validator`` take the arguments of ``python -m
+dvdx_tpu_torch.network.services miner|validator``; like ``generate`` they run
+on the card unless given ``--device cpu`` (or ``--cpu``).
 
 ``--model`` takes a registry name (seeded random weights) or a diffusers
 checkpoint directory (its weights and CLIP BPE tokenizer).
@@ -100,6 +107,10 @@ def main(argv=None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd == "generate":
         return _generate(rest)
+    if cmd in ("miner", "validator"):
+        from .network.services import main as services_main
+
+        return services_main([cmd] + rest)
     if cmd == "convert":
         from .utils.convert import main as convert_main
 

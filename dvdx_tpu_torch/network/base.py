@@ -69,6 +69,23 @@ class Registry:
                                            platform=platform)
             return uid
 
+    def replace_all(self, snapshot: Dict[str, dict]):
+        """Swap in a registry snapshot (``to_json``'s form) under the lock:
+        a miner's sync loop does this while its handler threads read."""
+        fresh: Dict[int, NeuronInfo] = {}
+        for uid_str, n in snapshot.items():
+            uid = int(uid_str)
+            fresh[uid] = NeuronInfo(uid=uid, pubkey=bytes.fromhex(n["pubkey"]),
+                                    address=n["address"], role=n["role"],
+                                    stake=int(n["stake"]),
+                                    trust=float(n.get("trust", 1.0)),
+                                    is_serving=bool(n.get("serving", True)),
+                                    last_seen=time.time(),
+                                    platform=str(n.get("platform", "")))
+        with self._lock:
+            self.neurons = fresh
+            self._next_uid = max(fresh, default=-1) + 1
+
     def get(self, uid: int) -> Optional[NeuronInfo]:
         return self.neurons.get(uid)
 
@@ -78,6 +95,10 @@ class Registry:
                 if n.pubkey == pubkey:
                     return n
         return None
+
+    def miners(self) -> List[NeuronInfo]:
+        with self._lock:
+            return [n for n in self.neurons.values() if n.role == "miner"]
 
     def sample_miner_uids(self, k: int, rng: Optional[random.Random] = None,
                           min_stake: int = 0) -> List[int]:
@@ -136,6 +157,10 @@ class ScoreBook:
         for u, r in zip(uids, rewards):
             self.update(u, r)
 
+    def handle_hotkey_swap(self, uid: int):
+        """A uid whose key was replaced starts again from 0."""
+        self.scores[uid] = 0.0
+
     def weights(self) -> Dict[int, float]:
         """kappa-clip + L1 normalise (weight_utils.py:10-56): no single miner
         may exceed kappa_limit of total weight; iterate clip->renorm."""
@@ -164,6 +189,17 @@ class ScoreBook:
         if m <= 0:
             return {u: 0 for u in w}
         return {u: int(round(x / m * U16_MAX)) for u, x in w.items()}
+
+    def save(self, path: str):
+        """``uids`` and ``scores`` arrays in an npz, the JAX package's format,
+        so a validator's state resumes in either package."""
+        np.savez(path, uids=np.asarray(sorted(self.scores)),
+                 scores=np.asarray([self.scores[u] for u in sorted(self.scores)]))
+
+    def load(self, path: str):
+        d = np.load(path)
+        self.scores = {int(u): float(s) for u, s in zip(d["uids"], d["scores"])}
+
 
 @dataclasses.dataclass
 class Neuron:

@@ -81,6 +81,17 @@ class Ledger:
         with self._lock:
             self.block += n
 
+    def events_since(self, block: int) -> List[Event]:
+        with self._lock:
+            return [e for e in self.events if e.block >= block]
+
+    def events_from_index(self, index: int) -> List[Event]:
+        """Events appended at or after list position ``index``. The log only
+        grows, so a consumer reading by index never skips an event (a block
+        watermark would race with emits in the same block)."""
+        with self._lock:
+            return list(self.events[index:])
+
     # -- balances / stake --
 
     def mint(self, account: str, amount: int):
@@ -89,6 +100,13 @@ class Ledger:
 
     def balance(self, account: str) -> int:
         return self.balances.get(account, 0)
+
+    def burn(self, account: str, amount: int):
+        """Remove funds (the REST faucet rolls its mint back with this)."""
+        with self._lock:
+            if self.balances.get(account, 0) < amount:
+                raise LedgerError("insufficient balance to burn")
+            self.balances[account] -= int(amount)
 
     def stake(self, account: str, amount: int):
         with self._lock:

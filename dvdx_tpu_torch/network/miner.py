@@ -79,6 +79,11 @@ class Miner(Neuron):
             return True
         return info.stake < self.config.min_validator_stake
 
+    def priority(self, validator_pubkey: bytes) -> float:
+        """A caller's priority: its registered stake (0 if unknown)."""
+        info = self.registry.by_pubkey(validator_pubkey)
+        return float(info.stake) if info else 0.0
+
     # -- request handling --
 
     def handle(self, msg):

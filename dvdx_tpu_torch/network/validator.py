@@ -106,6 +106,36 @@ class ValidatorConfig:
     cfg_split: bool = False
     min_score_to_record: float = 0.0
 
+    @classmethod
+    def from_economics(cls, gamma: float = 0.8, margin: float = 0.0,
+                       params=None, verify_budget_fraction: float = 0.0,
+                       **overrides) -> "ValidatorConfig":
+        """The protocol knobs from the economics: the cheapest (audit rate
+        alpha, slash fraction f) with EV_cheat < EV_honest for every tamper
+        strategy at trust decay ``gamma``. With ``verify_budget_fraction`` >
+        0 also the smallest secure spot-check count k with k / num_steps
+        within that budget (``economics.optimize.min_checkpoints_secure``;
+        0.10 at T = 25 gives k = 2). Raises if no secure point exists."""
+        from ..economics.optimize import cheapest_secure_point, min_checkpoints_secure
+        from ..economics.params import DEFAULT
+
+        p = params or DEFAULT
+        if verify_budget_fraction > 0:
+            t = int(overrides.get("num_steps", cls.num_steps))
+            pt = min_checkpoints_secure(p, gamma=gamma, t_steps=t,
+                                        budget_fraction=verify_budget_fraction,
+                                        margin=margin)
+            k = pt.get("k", p.num_checkpoints)
+        else:
+            pt = cheapest_secure_point(p, gamma=gamma, margin=margin)
+            k = p.num_checkpoints
+        if not pt.get("feasible"):
+            raise ValueError(f"no secure (alpha, f) region at gamma={gamma}")
+        base = dict(audit_rate=pt["alpha"], slash_fraction=pt["f"],
+                    trust_decay=gamma, num_checkpoints=k)
+        base.update(overrides)
+        return cls(**base)
+
 
 class Validator(Neuron):
     def __init__(self, pipeline: Pipeline, keypair: Keypair, registry: Registry,

@@ -9,8 +9,9 @@ Counterpart of ``dvdx_tpu/scoring/mdvqs.py``:
   device in int32 / int64, which is exact, and the host finishes in float64,
   so the statistics equal the numpy path's bit for bit;
 * MD-VQS = alpha * PF + beta * VQ + gamma * TC: PF the CLIP prompt fidelity,
-  VQ = 1 - the mean perceptual distance between consecutive frames (a
-  3-scale random-projection proxy of LPIPS, whose conv weights are JAX's
+  VQ = 1 - the mean perceptual distance between consecutive frames
+  (LPIPS(alex) where a ``scoring.lpips.LPIPS`` is given as ``lpips_metric``,
+  else a 3-scale random-projection proxy of it, whose conv weights are JAX's
   threefry draws, reproduced by ``ops.rng``), TC = 1 - exp(-flow / 8) over
   the mean optical-flow magnitude (cv2 Farneback on frames at most 320
   pixels wide, or a gradient proxy where cv2 is absent).
@@ -219,6 +220,9 @@ class MDVQS:
     beta: float = 0.3
     gamma: float = 0.3
     flow_scale: float = 8.0
+    # LPIPS(alex) (``scoring.lpips.LPIPS``, from ``utils.convert.load_lpips``);
+    # None scores VQ with the random-projection proxy
+    lpips_metric: Optional[object] = None
 
     def score(self, frames_uint8: np.ndarray, prompt: str, auth: Optional[dict] = None,
               frames_dev: Optional[torch.Tensor] = None) -> dict:
@@ -237,8 +241,13 @@ class MDVQS:
         timings["clip_pf"] = round(time.perf_counter() - t0, 4)
 
         t0 = time.perf_counter()
-        lp = (float(perceptual_distance_pairs(frames_dev.float() / 127.5 - 1.0))
-              if frames_uint8.shape[0] > 1 else 0.0)
+        if self.lpips_metric is not None:
+            lp = self.lpips_metric.consecutive_mean_u8(frames_dev)
+            metric = "lpips-alex"
+        else:
+            lp = (float(perceptual_distance_pairs(frames_dev.float() / 127.5 - 1.0))
+                  if frames_uint8.shape[0] > 1 else 0.0)
+            metric = "random-projection-proxy"
         vq = float(np.clip(1.0 - lp, 0.0, 1.0))
         timings["perceptual_vq"] = round(time.perf_counter() - t0, 4)
 
@@ -253,5 +262,5 @@ class MDVQS:
         return {"score": float(total), "prompt_fidelity": float(pf),
                 "video_quality": vq, "temporal_consistency": tc,
                 "flow_magnitude": flow, "perceptual_distance": lp,
-                "perceptual_metric": "random-projection-proxy",
+                "perceptual_metric": metric,
                 "timings_s": timings, **auth}

@@ -18,7 +18,8 @@ its shape checked. Leaves are numpy arrays as ``jax.tree.map(np.asarray,
 params)`` gives them, or torch tensors; bfloat16 numpy leaves are read by
 their bytes, so ``ml_dtypes`` is never needed. ``load_flat_npz`` reads the
 reference's flat-npz parameter cache (``dvdx_tpu/pipelines/text2video.py``
-``_save_flat_npz``) the same way.
+``_save_flat_npz``) the same way, and ``load_lpips_params`` the JAX
+package's flat LPIPS(alex) parameter dict.
 """
 
 from __future__ import annotations
@@ -96,10 +97,22 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return module
 
 
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'a/b/c': leaf} -> {'a': {'b': {'c': leaf}}}."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
 def load_flat_npz(path: str) -> Dict[str, Any]:
     """The reference's flat-npz cache -> nested dict of CPU tensors. Keys are
     ``name/path|dtype|shape`` over the leaf's raw bytes."""
-    tree: Dict[str, Any] = {}
+    flat: Dict[str, Any] = {}
     with np.load(path) as z:
         for key in z.files:
             name, dtype_name, shape_s = key.rsplit("|", 2)
@@ -109,12 +122,8 @@ def load_flat_npz(path: str) -> Dict[str, Any]:
                 leaf = torch.from_numpy(raw.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 leaf = torch.from_numpy(raw.view(np.dtype(dtype_name)).copy())
-            node = tree
-            parts = name.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = leaf.reshape(shape)
-    return tree
+            flat[name] = leaf.reshape(shape)
+    return unflatten(flat)
 
 
 def load_pipeline_params(pipe, tree: Dict[str, Any]):
@@ -124,3 +133,13 @@ def load_pipeline_params(pipe, tree: Dict[str, Any]):
     load_jax_params(pipe.text_encoder, tree["text"])
     load_jax_params(pipe.vae_decoder, tree["vae_dec"])
     return pipe
+
+
+def load_lpips_params(module, params: Dict[str, Any]):
+    """The JAX package's ``LPIPS.params`` ({'convK/kernel', 'convK/bias',
+    'linK', 'shift', 'scale'}, numpy or JAX arrays as numpy) into a port
+    ``scoring.lpips.LPIPS`` (whose ``shift`` / ``scale`` are ``in_shift`` /
+    ``in_scale``), strictly."""
+    renamed = {{"shift": "in_shift", "scale": "in_scale"}.get(k, k): np.asarray(v)
+               for k, v in params.items()}
+    return load_jax_params(module, unflatten(renamed))

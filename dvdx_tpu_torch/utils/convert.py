@@ -28,6 +28,9 @@ Nothing here downloads.
 prints a JSON summary of the checkpoint (spec, parameter counts, tokenizer)
 and with ``--out`` writes the converted tree as a flat npz that
 ``utils.bridge.load_flat_npz`` reads.
+
+``convert_lpips`` / ``load_lpips`` read an lpips-package 'alex' state dict
+(``.pth`` or safetensors) as the validator's LPIPS metric, as strictly.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..models.text_encoder import TextEncoderConfig
 from ..models.unet3d import UNet3DConfig
 from ..models.vae import VAEConfig
 from ..models.zoo import ModelSpec
+from .bridge import load_jax_params, load_lpips_params, load_pipeline_params, unflatten
 
 # --- state-dict files ---------------------------------------------------------
 
@@ -196,14 +200,7 @@ class _Mapper:
         self.put(f"{ours}/bias", self.take(f"{hf}.bias"))
 
     def unflatten(self) -> Dict[str, Any]:
-        tree: Dict[str, Any] = {}
-        for path, arr in self.flat.items():
-            node = tree
-            parts = path.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = arr
-        return tree
+        return unflatten(self.flat)
 
     def check_all_used(self, what: str, ignore_prefixes: Tuple[str, ...] = ()) -> None:
         left = sorted(k for k in self.sd if k not in self.used
@@ -375,7 +372,6 @@ def load_clip_scorer(root: str, device="cuda"):
     ``device``."""
     from ..models.tokenizer import CLIPBPETokenizer
     from ..scoring.clip_score import CLIPScorer
-    from .bridge import load_jax_params
 
     cfgd = _read_config(root)
     t = cfgd.get("text_config", cfgd)
@@ -414,6 +410,55 @@ def load_clip_scorer(root: str, device="cuda"):
         scorer = CLIPScorer(vision_cfg, text_cfg, preprocess="clip", tokenizer=tokenizer)
     scorer = scorer.to_empty(device=device)
     return load_jax_params(scorer, tree).eval()
+
+
+# --- LPIPS(alex), the MD-VQS perceptual metric -----------------------------------
+
+def convert_lpips(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """lpips-package ('alex') state dict -> the JAX package's ``LPIPS.params``
+    ({'convK/kernel' HWIO, 'convK/bias', 'linK' (C,), 'shift', 'scale'}).
+
+    Keys: scaling_layer.{shift,scale} (1, 3, 1, 1), optional (the package's
+    constants otherwise); net.sliceK.I.{weight,bias}, the torchvision AlexNet
+    convs inside the slice Sequentials; linK.model.1.weight (1, C, 1, 1). A
+    missing key raises ``KeyError``; a key left over, or a lin head whose
+    width is not its conv's, raises ``ValueError``."""
+    from ..scoring.lpips import ALEX_LAYERS, LPIPS_SCALE, LPIPS_SHIFT
+
+    m = _Mapper(sd)
+    out: Dict[str, np.ndarray] = {}
+    out["shift"] = (m.take("scaling_layer.shift").reshape(3)
+                    if m.has("scaling_layer.shift") else LPIPS_SHIFT)
+    out["scale"] = (m.take("scaling_layer.scale").reshape(3)
+                    if m.has("scaling_layer.scale") else LPIPS_SCALE)
+    # the conv's position in its slice: slices 2-3 start with the max-pool
+    conv_idx = {1: 0, 2: 1, 3: 1, 4: 0, 5: 0}
+    for i in range(5):
+        k = f"net.slice{i + 1}.{conv_idx[i + 1]}"
+        out[f"conv{i}/kernel"] = t_conv2d(m.take(f"{k}.weight"))
+        out[f"conv{i}/bias"] = m.take(f"{k}.bias")
+        out[f"lin{i}"] = np.ascontiguousarray(m.take(f"lin{i}.model.1.weight").reshape(-1))
+        if out[f"lin{i}"].shape[0] != ALEX_LAYERS[i][0]:
+            raise ValueError(f"lin{i} width {out[f'lin{i}'].shape} does not "
+                             f"match conv{i} channels {ALEX_LAYERS[i][0]}")
+    m.check_all_used("LPIPS")
+    return out
+
+
+def load_lpips(path: str, device="cuda"):
+    """An LPIPS(alex) checkpoint (a ``.pth`` state dict, a ``.safetensors``
+    file, or a directory holding either) -> ``scoring.lpips.LPIPS`` on
+    ``device``."""
+    from ..scoring.lpips import LPIPS
+
+    if os.path.isdir(path):
+        sd = load_state_dict(path)
+    elif path.endswith(".safetensors"):
+        sd = read_safetensors(path)
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        sd = {k: v.detach().to(torch.float32).numpy() for k, v in raw.items()}
+    return load_lpips_params(LPIPS().to(device), convert_lpips(sd)).eval()
 
 
 # --- VAE decoder ----------------------------------------------------------------
@@ -512,7 +557,6 @@ def load_diffusers_checkpoint(root: str, name: Optional[str] = None,
     tokenizer (the hash tokenizer when it has no ``tokenizer/``)."""
     from ..models.tokenizer import CLIPBPETokenizer
     from ..pipelines.text2video import empty_pipeline
-    from .bridge import load_pipeline_params
 
     spec = spec_from_diffusers_configs(root, name=name, dtype=dtype)
     tok_dir = os.path.join(root, "tokenizer")

@@ -82,7 +82,10 @@ def test_kernel_sources_ship(source):
     "network.miner", "network.validator", "network.mock", "scoring.common",
     "scoring.mdvqs", "scoring.clip_score", "models.clip_vision", "utils.video_io",
     "verify.proof", "models.tokenizer", "utils.convert", "pipelines.text2video",
-    "__main__"])
+    "__main__", "network.api", "network.chain", "network.deposit_listener",
+    "network.http_transport", "network.services", "scoring.lpips", "utils.keccak",
+    "utils.bridge", "economics.params", "economics.security", "economics.cost",
+    "economics.optimize"])
 def test_network_and_scoring_modules_import_without_jax(module):
     proc = _run("import sys\n"
                 "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"
