@@ -84,13 +84,35 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      geometry) gives each miner's Merkle root. Start-up seconds, the round's
      wall seconds, each miner's ``timings_s`` and each process's device
      memory are printed;
+  9. the other families at full width and depth, seeded random weights:
+     cogvideox-5b (the v-prediction video DiT, 7.17 B + a 3.83 B text tower,
+     bf16): one recorded request through ``StepEngine`` at its native 48 x
+     720x480 (latent 48 x 60 x 90 x 16; 65,026 joint tokens), 3 of its 50
+     steps, every frame decoded, 2 revealed steps re-executed bit for bit
+     with the video bound; one frame's decode as the request makes it, its
+     GroupNorm inputs (60x90 to 480x720) held against the plain version;
+     one batched DiT call traced (s/step, device ms, 42 flash launches);
+     flash at (2, 65,026, 48, 64) held against its plain version on
+     query-row slices (tile 0, the text / video boundary tile, the ragged
+     last tiles), on the path's inputs and random ones, timed beside SDPA
+     and its bound; one 4-frame DiT call through the plain versions, its
+     flash inputs (S = 5,626) held on row slices; an in-process round at 16
+     frames and 3 steps (honest bitwise, lazy caught), its flash inputs (S
+     = 21,826) held on row slices and any kernel input the frame's decode
+     did not give held against the plain version. svd-img2vid (the UNet
+     taking 8 channels, a 1-token image context, 25 frames): a full request from a seeded
+     576x320 image (25 steps, CFG 3.0, recorded) twice, bit for bit; every
+     distinct kernel input of one batched UNet call and of one VAE encode
+     held against the plain versions, and that call through them;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
   phase 2 alone holds; ``launches_xl`` from phase 7's request;
   ``launches_services`` per phase-8 process;
   ``xl_per_unet_call`` / ``xl_vae_frame`` from phase 7's held inputs:
   distinct shapes, launches, kernel ms summed over the launches, largest
-  error, and per UNet call the bound), and the result line.
+  error, and per UNet call the bound; phase 9's launches per family path
+  and per DiT call, svd's and cogvideox's held inputs, and flash at the
+  DiT's three sequence lengths), and the result line.
 
 Imports nothing of JAX or of the JAX package. Detail too long for the end of
 the output goes to ``chiprun_out/``.
@@ -1637,7 +1659,7 @@ def _random_like(x, gen, key=""):
     return out.copy_(values)
 
 
-def hold_recorded(seen, where: str):
+def hold_recorded(seen, where: str, tag: str = "xl"):
     """Each recorded call's kernel against its plain version (2 bf16 ulps of
     max|plain|, and the same bits on a second call), on the inputs the path
     gave it and on random inputs of the same shapes and strides (the
@@ -1677,7 +1699,7 @@ def hold_recorded(seen, where: str):
             s["launches"] += count
             s["ms"] += count * row["ms"]
     torch.cuda.empty_cache()
-    log(f"xl: {where}: {len(rows)} distinct kernel inputs held against their plain "
+    log(f"{tag}: {where}: {len(rows)} distinct kernel inputs held against their plain "
         f"versions: " + json.dumps(summary))
     return summary, rows
 
@@ -1896,6 +1918,423 @@ def run_xl():
     return out
 
 
+# --- phase 9: the other families: cogvideox-5b and svd-img2vid -----------------
+
+# cogvideox-5b's native request: 48 frames at 720x480 (latent 48 x 60 x 90 x 16,
+# 30 x 45 patches a frame), CFG 6.0; the joint sequence holds 226 text tokens
+# and 48 * 30 * 45 video tokens
+DIT = dict(num_frames=48, height=480, width=720, guidance_scale=6.0)
+DIT_TOKENS = 226 + 48 * 30 * 45          # 65,026 = 508 * 128 + 2: a ragged tail
+DIT_STEPS = 3                            # of the family's 50 (about 10 s a step)
+DIT_NATIVE_STEPS = 50
+DIT_CHECKS = [1, 2]                      # re-executed steps; 2 is T-1 (the binding)
+# the in-process round: 16 frames (S = 21,826), 3 steps
+DIT_ROUND = dict(num_frames=16, height=480, width=720, num_steps=3, guidance_scale=6.0)
+DIT_REDUCED_FRAMES = 4                   # the plain-path call: S = 5,626
+# launches per batched DiT call: flash in each of the 42 blocks' joint attention
+DIT_EXPECTED_PER_CALL = dict({k: 0 for k in MODEL_PATH}, flash_attention=42)
+# flash at a DiT shape is held on query-row slices against all keys (the
+# plain version over all 65,026 rows would hold 1.6 TB of logits), 16 heads
+# at a time
+DIT_HEAD_GROUP = 16
+# svd-img2vid's request: a seeded 576x320 image, 25 frames, 25 steps, CFG 3.0
+SVD = dict(num_frames=25, num_steps=25, guidance_scale=3.0)
+
+
+def flash_row_slices(s: int):
+    """The query rows flash is held on at sequence length s: tile 0, the
+    tile holding the text / video boundary (row 226), and the last full
+    128-row tile with the partial one after it."""
+    last = (s // 128 - 1) * 128
+    return (("tile 0", 0, 128), ("boundary tile", 128, 256), ("last tiles", last, s))
+
+
+def hold_flash_rows(q, k, v, out, what: str) -> dict:
+    """flash's output at a DiT shape against the plain version on
+    ``flash_row_slices``' query rows, all keys, 16 heads at a time: 2 bf16
+    ulps of max |plain| -> {slice: max abs error}."""
+    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
+
+    errs = {}
+    for label, r0, r1 in flash_row_slices(q.shape[1]):
+        err = scale = 0.0
+        for h0 in range(0, q.shape[2], DIT_HEAD_GROUP):
+            hs = slice(h0, h0 + DIT_HEAD_GROUP)
+            ref = fa.flash_attention_plain(q[:, r0:r1, hs], k[:, :, hs], v[:, :, hs])
+            err = max(err, (out[:, r0:r1, hs].float() - ref.float()).abs().max().item())
+            scale = max(scale, ref.float().abs().max().item())
+            del ref
+        tol = TOL_ULPS * 2.0 ** -7 * max(scale, 1e-6)
+        errs[label] = err
+        log(f"dit flash {what}: rows {r0}-{r1 - 1} of {q.shape[1]}: err={err:.3e} "
+            f"tol={tol:.3e}")
+        _require(np.isfinite(err) and err <= tol, f"dit flash {what} rows {r0}-{r1 - 1}",
+                 dict(err=err, tol=tol))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def hold_flash_path(q, k, v, what: str) -> dict:
+    """flash on the inputs a DiT path gave it: the same bits on a second
+    call, and the rows of ``hold_flash_rows`` against the plain version ->
+    {"shape", "max_abs_err", "ms", "slices"}."""
+    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
+
+    o = fa.flash_attention(q, k, v)
+    repeat = torch.equal(o.view(torch.int16), fa.flash_attention(q, k, v).view(torch.int16))
+    _require(repeat, f"dit flash {what}: a second call differs", None)
+    errs = hold_flash_rows(q, k, v, o, what)
+    del o
+    return dict(shape=list(q.shape), max_abs_err=max(errs.values()), slices=errs,
+                ms=cuda_ms(lambda: fa.flash_attention(q, k, v), 3))
+
+
+def check_flash_dit(path_inputs) -> dict:
+    """Phase 9b: flash at the DiT's joint-attention shape (2, 65,026, 48, 64)
+    against its plain version on query-row slices, on the path's own inputs
+    (the first block of a re-executed DiT call) and on random ones; the same
+    bits on a second call; kernel, SDPA and bound times."""
+    import torch.nn.functional as F
+
+    from dvdx_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, s, h, d = shape = (2, DIT_TOKENS, 48, 64)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rand = [randn(shape, gen) for _ in range(3)]
+    _require(tuple(path_inputs[0].shape) == shape, "dit flash: the path's shape",
+             list(path_inputs[0].shape))
+    held = {what: hold_flash_path(*qkv, what) for what, qkv in (("path inputs", path_inputs),
+                                                                 ("random inputs", rand))}
+    out = {"shape": list(shape), "ms": held["random inputs"]["ms"],
+           "max_abs_err": max(x["max_abs_err"] for x in held.values()),
+           **{what: x["slices"] for what, x in held.items()}}
+    q, k, v = rand
+    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), 3)
+    # the whole plain version would need 1.6 TB: it is timed on one query
+    # tile's rows against all keys, 16 heads
+    out["plain_slice_shape"] = [b, 128, DIT_HEAD_GROUP, d]
+    out["plain_ms_per_slice"] = cuda_ms(lambda: fa.flash_attention_plain(
+        q[:, :128, :DIT_HEAD_GROUP], k[:, :, :DIT_HEAD_GROUP], v[:, :, :DIT_HEAD_GROUP]), 2)
+    out["bound_ms"], out["bound_by"] = bound_ms(*flash_cost(b, s, h, d))
+    log(f"dit flash at {shape}: kernel {out['ms']:.3f} ms, SDPA {out['library_ms']:.3f} ms, "
+        f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}); plain version on one slice "
+        f"(queries {out['plain_slice_shape']}, all {s} keys) {out['plain_ms_per_slice']:.3f} "
+        f"ms; max err {out['max_abs_err']:.3e}")
+    del rand, q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dit(smi: str) -> dict:
+    """Phase 9a, 9b and 9d: cogvideox-5b at full width and depth with seeded
+    random weights: one recorded request through ``StepEngine`` at 48 x
+    720x480 (DIT_STEPS of 50), 2 revealed steps re-executed bit for bit,
+    every frame decoded; one DiT call profiled; flash at the DiT shape held
+    on row slices; one reduced-frame DiT call through the plain versions;
+    an in-process round (honest and lazy miners) at 16 frames."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvdx_tpu_torch.models.vae import decode_frames_tiled
+    from dvdx_tpu_torch.network.mock import build_mock_network
+    from dvdx_tpu_torch.network.validator import ValidatorConfig
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.pipelines.text2video import (build_pipeline, cfg_denoise_step,
+                                                     encode_prompts)
+    from dvdx_tpu_torch.utils.profile_step import breakdown
+    from dvdx_tpu_torch.utils.testing import (REFERENCE_RELRMS_TOL, perturb_zero_params,
+                                              relative_rms, unet_pair_call)
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+    from dvdx_tpu_torch.verify.spotcheck import StepEngine, verify_revealed_steps
+
+    out = {"device": smi}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = perturb_zero_params(build_pipeline("cogvideox-5b", seed=0, device="cuda"), seed=99)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["params"] = {name: sum(p.numel() for p in m.parameters()) for name, m in
+                     (("dit", pipe.unet), ("text", pipe.text_encoder),
+                      ("vae_dec", pipe.vae_decoder))}
+    log(f"dit: built cogvideox-5b (seeded random init on the card, zero leaves perturbed) "
+        f"in {out['build_s']:.1f} s; params {json.dumps(out['params'])}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    _require(out["params"]["dit"] > 7e9 and out["params"]["text"] > 3.5e9,
+             "dit: parameter count", out["params"])
+
+    # 9a: one recorded request at the native geometry, DIT_STEPS of 50 steps
+    prompt = "a panda playing guitar by a campfire at night, cinematic"
+    engine = StepEngine(pipe)
+    reset_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    video, zs, epss, ts = engine.generate_recorded(prompt, seed=11, num_steps=DIT_STEPS,
+                                                   segment_steps=DIT_STEPS, timings=timings,
+                                                   **DIT)
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    root = MerkleCommitment(ts, zs, epss).root.hex()
+    out["request"] = dict(seconds=sec, steps=DIT_STEPS, steps_native=DIT_NATIVE_STEPS,
+                          timings_s=timings, launches=launches, root=root,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"dit request: video {tuple(video.shape)} {video.dtype}, {DIT_STEPS} steps (cut "
+        f"from the family's {DIT_NATIVE_STEPS}), {sec:.2f} s, peak memory "
+        f"{out['request']['peak_bytes'] / 2**30:.2f} GiB, merkle root {root}; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    _require(video.shape == (DIT["num_frames"], DIT["height"], DIT["width"], 3)
+             and video.dtype == np.uint8 and float(np.std(video)) > 0
+             and zs.shape == (DIT_STEPS, DIT["num_frames"], 60, 90, 16)
+             and bool(torch.isfinite(zs.float()).all() and torch.isfinite(epss.float()).all()),
+             "dit request: output", dict(video=list(video.shape), zs=list(zs.shape)))
+    _require(launches["flash_attention"] == 42 * DIT_STEPS and launches["group_norm_act"] > 0,
+             "dit request: launches (flash 42 per DiT call, GroupNorm in the decode)",
+             launches)
+
+    # one DiT call (the batched CFG step) traced: s/step, device ms per call
+    hidden = encode_prompts(pipe, ["", prompt])
+    sched = make_ddim_schedule(DIT_STEPS, prediction_type="v_prediction")
+    z = zs[0][None].cuda()
+    with torch.inference_mode():
+        reset_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cfg_denoise_step(pipe.unet, sched, z, 0, hidden[1:2], hidden[0:1],
+                             DIT["guidance_scale"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    per_call = read_counts()
+    out["step"] = dict(breakdown(prof, wall), seconds=wall, launches_per_dit_call=per_call)
+    del prof
+    step = out["step"]
+    log(f"dit step (one batched CFG DiT call + DDIM): {wall:.3f} s, device busy "
+        f"{step['device_busy_ms']:.1f} ms, idle share {step['idle_share']}, ms by group "
+        f"{json.dumps(step['group_ms'])}; launches per DiT call "
+        f"{json.dumps({k: v for k, v in per_call.items() if v})}")
+    _require({k: per_call[k] for k in MODEL_PATH} == DIT_EXPECTED_PER_CALL,
+             "dit: launches per DiT call", per_call)
+
+    # the validator's side: 2 revealed steps (T-1 among them) bit for bit, the
+    # video bound on its first and last frames; the first block's flash
+    # inputs kept for 9b
+    leaves = {i: (int(ts[i]), zs[i], epss[i]) for c in DIT_CHECKS for i in (c, c + 1)
+              if i < DIT_STEPS}
+    t0 = time.perf_counter()
+    with recorded_kernel_inputs() as seen:
+        results, _ = verify_revealed_steps(engine, prompt, "", leaves, DIT_CHECKS, DIT_STEPS,
+                                           DIT["guidance_scale"], same_platform=True,
+                                           atol=1e-4, rtol=2.0 ** -7)
+    torch.cuda.synchronize()
+    reexec_s = time.perf_counter() - t0
+    bound, bind_err = engine.verify_video_binding(
+        video, leaves[DIT_STEPS - 1], DIT_STEPS - 1, DIT_STEPS, DIT["guidance_scale"], prompt,
+        frame_indices=(0, DIT["num_frames"] - 1))
+    base = torch.equal(engine.base_latent(11, DIT["num_frames"], DIT["height"],
+                                          DIT["width"]).view(torch.int16),
+                       zs[0].view(torch.int16))
+    out["reexecution"] = dict(checks=DIT_CHECKS, seconds=reexec_s,
+                              passed={i: r.passed for i, r in results.items()},
+                              bitwise={i: r.bitwise for i, r in results.items()},
+                              binding_ok=bound, binding_err=bind_err, base_latent_bitwise=base)
+    log(f"dit re-execution: steps {DIT_CHECKS} in {reexec_s:.2f} s, passed "
+        f"{out['reexecution']['passed']} bitwise {out['reexecution']['bitwise']}; base "
+        f"latent bitwise {base}; video binding on frames 0 and {DIT['num_frames'] - 1}: "
+        f"{bound} (mean |err| {bind_err:.4f})")
+    _require(all(r.passed and r.bitwise for r in results.values()) and bound and base,
+             "dit: re-execution", out["reexecution"])
+    (_count, args, _kw), = seen["flash_attention"].values()
+    path_qkv = args[:3]
+    del seen, args
+
+    # one frame's decode as the request makes it (decode_frames_tiled, one
+    # frame a call): its kernel inputs held against the plain versions
+    with torch.inference_mode(), recorded_kernel_inputs() as seen_frame:
+        decode_frames_tiled(pipe.vae_decoder, zs[-1][:1].cuda().float())
+    out["held_vae_frame"], frame_rows = hold_recorded(seen_frame, "vae frame", tag="dit")
+    held_sigs = {name: set(calls) for name, calls in seen_frame.items()}
+    del seen_frame
+    gn_frame = out["held_vae_frame"].get("group_norm_act", {}).get("launches", 0)
+    _require(gn_frame > 0 and gn_frame * DIT["num_frames"] == launches["group_norm_act"],
+             "dit: one frame's decode launches GroupNorm as the request did, per frame",
+             dict(frame=gn_frame, request=launches["group_norm_act"]))
+
+    # 9b: flash at the DiT shape, then one reduced-frame DiT call through the
+    # kernels and through the plain versions
+    out["flash"] = check_flash_dit(path_qkv)
+    del path_qkv
+    z4 = rng.video_noise(rng.base_key(5), DIT_REDUCED_FRAMES, (60, 90, 16),
+                         device="cuda")[None].bfloat16()
+    t = int(sched.timesteps[0])
+    reset_counts()
+    with recorded_kernel_inputs() as seen_reduced:
+        eps_k = unet_pair_call(pipe.unet, z4, hidden, t)
+    flash_reduced = read_counts()["flash_attention"]
+    with swapped_kernels(lambda name, kern, plain: plain):
+        eps_p = unet_pair_call(pipe.unet, z4, hidden, t)
+    dist = relative_rms(eps_k, eps_p)
+    (_count, args, _kw), = seen_reduced["flash_attention"].values()
+    out["reduced_call"] = dict(frames=DIT_REDUCED_FRAMES, tokens=226 + DIT_REDUCED_FRAMES * 1350,
+                               relative_rms=dist, flash_launches=flash_reduced,
+                               max_abs_eps=eps_k.abs().max().item(),
+                               flash=hold_flash_path(*args[:3], "reduced call"))
+    del eps_k, eps_p, seen_reduced, args
+    torch.cuda.empty_cache()
+    log(f"dit: one {DIT_REDUCED_FRAMES}-frame DiT call (S = {226 + DIT_REDUCED_FRAMES * 1350}),"
+        f" kernels against plain versions on the card: relative RMS {dist:.5f} (tolerance "
+        f"{REFERENCE_RELRMS_TOL}); flash launches {flash_reduced}")
+    _require(dist <= REFERENCE_RELRMS_TOL and flash_reduced == 42,
+             "dit: reduced call against the plain path", out["reduced_call"])
+
+    # 9d: an in-process round at 16 frames: an honest miner passes bit for
+    # bit, a lazy one is caught at its check
+    cfg = ValidatorConfig(sample_size=2, num_checkpoints=2, ping_timeout_s=30,
+                          timeout_s=900, results_dir=os.path.join(OUT_DIR, "network"),
+                          **DIT_ROUND)
+    net = build_mock_network(n_miners=2, adversaries=["honest", "lazy"], pipeline=pipe,
+                             validator_config=cfg)
+    with recorded_kernel_inputs() as seen_round:
+        report, wall, counts = _run_round(net, "round-cogvideox", prompt)
+    line = _round_line(report, wall)
+    line["launches"] = {k: v for k, v in counts.items() if v}
+    out["round"] = line
+    # the round's kernel inputs: flash (S = 21,826) on row slices; any other
+    # input the frame's decode did not give, against the plain version
+    out["round_flash"] = [hold_flash_path(*args[:3], "round")
+                          for _count, args, _kw in seen_round.pop("flash_attention").values()]
+    rest = {name: {sig: e for sig, e in calls.items() if sig not in held_sigs.get(name, ())}
+            for name, calls in seen_round.items()}
+    rest = {name: calls for name, calls in rest.items() if calls}
+    out["held_round"], round_rows = hold_recorded(rest, "round", tag="dit") if rest else ({}, [])
+    del seen_round, rest
+    with open(os.path.join(OUT_DIR, "cogvideox_held_inputs.json"), "w") as f:
+        json.dump(frame_rows + round_rows, f, indent=1)
+    log(f"dit round ({DIT_ROUND['num_frames']} frames, {DIT_ROUND['num_steps']} steps): "
+        f"{json.dumps(line)}")
+    honest, lazy = report["miners"]["0"], report["miners"]["1"]
+    _require(not honest.get("failed_check") and not honest.get("cheat")
+             and all(honest["checks"].values()) and honest["same_platform"] is True
+             and honest["reexec_bitwise"] is True and honest["score"] > 0,
+             "dit round: the honest miner", honest)
+    _require(lazy.get("failed_check") == "reexecution" and lazy.get("cheat") is True,
+             "dit round: the lazy miner", lazy)
+    _require(counts["flash_attention"] > 0, "dit round: flash never launched", counts)
+    del net, pipe, engine, hidden, z, z4
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_svd(smi: str) -> dict:
+    """Phase 9c: svd-img2vid at full width with seeded random weights: a
+    full request from a seeded 576x320 image (25 frames, 25 steps, CFG 3.0,
+    recorded) twice, bit for bit; every distinct kernel input of one
+    batched UNet call (the 1-token context, 25 frames) and of one VAE encode
+    held against the plain versions; that call through the plain versions."""
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.pipelines.img2video import (build_img2video_pipeline, conditioning,
+                                                    generate_from_image)
+    from dvdx_tpu_torch.utils.testing import (REFERENCE_RELRMS_TOL, perturb_zero_params,
+                                              relative_rms, unet_pair_call)
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+
+    out = {"device": smi}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = perturb_zero_params(build_img2video_pipeline("svd-img2vid", seed=0, device="cuda"),
+                               seed=99)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["params"] = {name: sum(p.numel() for p in m.parameters()) for name, m in
+                     (("unet", pipe.base.unet), ("text", pipe.base.text_encoder),
+                      ("vae_dec", pipe.base.vae_decoder), ("vae_enc", pipe.vae_encoder))}
+    image = np.random.default_rng(21).integers(0, 256, (320, 576, 3), dtype=np.uint8)
+    runs = []
+    for rep in range(2):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        video, (zs, epss, ts) = generate_from_image(pipe, image, seed=13, record=True, **SVD)
+        torch.cuda.synchronize()
+        runs.append((video, zs, epss, MerkleCommitment(ts, zs, epss).root.hex(),
+                     time.perf_counter() - t0, read_counts(), torch.cuda.max_memory_allocated()))
+    (v1, z1, e1, r1, s1, launches, peak), (v2, z2, e2, r2, s2, _, _) = runs
+    same = (torch.equal(z1.view(torch.int16), z2.view(torch.int16))
+            and torch.equal(e1.view(torch.int16), e2.view(torch.int16))
+            and np.array_equal(v1, v2) and r1 == r2)
+    out["request"] = dict(seconds=[s1, s2], root=r1, bitwise=same, launches=launches,
+                          peak_bytes=peak)
+    log(f"svd request: built in {out['build_s']:.1f} s, params {json.dumps(out['params'])}; "
+        f"video {tuple(v1.shape)} {v1.dtype}, {SVD['num_steps']} steps twice ({s1:.2f} s, "
+        f"{s2:.2f} s), peak memory {peak / 2**30:.2f} GiB, roots {r1} / {r2}, "
+        f"bit-identical={same}; launches {json.dumps(launches)}")
+    _require(v1.shape == (SVD["num_frames"], 320, 576, 3) and v1.dtype == np.uint8
+             and float(np.std(v1)) > 0 and z1.shape == (SVD["num_steps"], 1, 25, 40, 72, 4)
+             and bool(torch.isfinite(z1.float()).all() and torch.isfinite(e1.float()).all()),
+             "svd request: output", dict(video=list(v1.shape), zs=list(z1.shape)))
+    _require(same, "svd request: the repeat is not bit-identical", [r1, r2])
+    missing = [k for k in MODEL_PATH if launches[k] == 0]
+    _require(not missing, "svd request: kernels never launched", missing)
+
+    # one batched UNet call at the first step, and one VAE encode, their
+    # kernel inputs recorded where the layers call them
+    key = rng.base_key(13)
+    img = torch.from_numpy(image).cuda().float() / 127.5 - 1.0
+    with torch.inference_mode():
+        cond_lat, ctx, uncond = conditioning(pipe, img, key, 0.02)
+    hidden = torch.cat([uncond, ctx])
+    x = torch.cat([z1[0].cuda(), cond_lat.bfloat16().expand(z1.shape[1:])], dim=-1)
+    t = int(make_ddim_schedule(SVD["num_steps"]).timesteps[0])
+    eps = {}
+    reset_counts()
+    with recorded_kernel_inputs() as seen_unet:
+        out["bound_per_unet_call"] = launch_bounds(
+            pipe.base.unet, lambda: eps.update(k=unet_pair_call(pipe.base.unet, x, hidden, t)))
+    per_call, eps_k = read_counts(), eps.pop("k")
+    with swapped_kernels(lambda name, kern, plain: plain):
+        eps_p = unet_pair_call(pipe.base.unet, x, hidden, t)
+    dist = relative_rms(eps_k, eps_p)
+    with torch.inference_mode(), recorded_kernel_inputs() as seen_enc:
+        pipe.vae_encoder(img[None])
+    out["launches_per_unet_call"] = {k: per_call[k] for k in MODEL_PATH}
+    out["plain_path_relative_rms"] = dist
+    out["held_per_unet_call"], rows_unet = hold_recorded(seen_unet, "unet call", tag="svd")
+    out["held_vae_encode"], rows_enc = hold_recorded(seen_enc, "vae encode", tag="svd")
+    with open(os.path.join(OUT_DIR, "svd_held_inputs.json"), "w") as f:
+        json.dump(rows_unet + rows_enc, f, indent=1)
+    out["shapes"] = {}
+    for row in rows_unet + rows_enc:
+        out["shapes"].setdefault(row["kernel"], []).append(row["shapes"][0])
+    log(f"svd: bound per UNet call {json.dumps(out['bound_per_unet_call'])}")
+    log(f"svd: launches per UNet call {json.dumps(out['launches_per_unet_call'])}; one UNet "
+        f"call, kernels against plain versions on the card: relative RMS {dist:.5f} "
+        f"(tolerance {REFERENCE_RELRMS_TOL})")
+    _require(out["launches_per_unet_call"] == EXPECTED_PER_UNET_CALL,
+             "svd: launches per UNet call", out["launches_per_unet_call"])
+    _require(dist <= REFERENCE_RELRMS_TOL, "svd: UNet call against the plain path", dist)
+    _require(out["held_vae_encode"].get("group_norm_act", {}).get("launches", 0) > 0,
+             "svd: the VAE encode's GroupNorms", out["held_vae_encode"])
+    del pipe, seen_unet, seen_enc, eps_k, eps_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_families(smi: str) -> dict:
+    """Phase 9: cogvideox-5b, then svd-img2vid."""
+    t0 = time.perf_counter()
+    out = {"dit": run_dit(smi)}
+    out["dit_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["svd"] = run_svd(smi)
+    out["svd_seconds"] = time.perf_counter() - t0
+    log(f"families: cogvideox-5b phase {out['dit_seconds']:.1f} s, svd-img2vid phase "
+        f"{out['svd_seconds']:.1f} s")
+    with open(os.path.join(OUT_DIR, "families.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1945,6 +2384,7 @@ def main():
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
     path["xl"] = run_xl()
+    path["families"] = run_families(smi)
     with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
         json.dump({"device": smi, "launches": launches, **path}, f, indent=1, default=str)
 
@@ -1953,8 +2393,30 @@ def main():
     xl = path["xl"]
     xl_per_call = {k: dict(v, bound_ms=xl["bound_per_unet_call"][k]["bound_ms"])
                    for k, v in xl["held_per_unet_call"].items()}
+    fam = path["families"]
+    dit, svd = fam["dit"], fam["svd"]
     for name, s in summary.items():
         src, replaces = KERNEL_META[name]
+        # phase 9: each family's path launches, and its new shapes' numbers
+        families = {"launches_cogvideox_request": dit["request"]["launches"][name],
+                    "launches_per_dit_call": dit["step"]["launches_per_dit_call"][name],
+                    "launches_cogvideox_round": dit["round"]["launches"].get(name, 0),
+                    "launches_svd_request": svd["request"]["launches"][name],
+                    "svd_per_unet_call": None if name not in MODEL_PATH else dict(
+                        svd["held_per_unet_call"][name],
+                        bound_ms=svd["bound_per_unet_call"][name]["bound_ms"]),
+                    "svd_vae_encode": svd["held_vae_encode"].get(name),
+                    "svd_shapes": svd["shapes"].get(name),
+                    "cogvideox_vae_frame": dit["held_vae_frame"].get(name),
+                    "cogvideox_round_held": dit["held_round"].get(name)}
+        if name == "flash_attention":
+            families["dit_shape"] = {k: dit["flash"][k] for k in (
+                "shape", "ms", "library_ms", "bound_ms", "bound_by", "plain_slice_shape",
+                "plain_ms_per_slice", "max_abs_err")}
+            families["dit_held_shapes"] = [
+                dict({k: f[k] for k in ("shape", "ms", "max_abs_err")},
+                     bound_ms=bound_ms(*flash_cost(*f["shape"]))[0])
+                for f in dit["round_flash"] + [dit["reduced_call"]["flash"]]]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "path": ("request_a" if name in MODEL_PATH else "cross_device_round"
@@ -1970,7 +2432,7 @@ def main():
                                               path["services"]["launches"].items()},
                         "launches_xl": path["xl"]["request"]["launches"][name],
                         "xl_per_unet_call": xl_per_call.get(name),
-                        "xl_vae_frame": xl["held_vae_frame"].get(name)})
+                        "xl_vae_frame": xl["held_vae_frame"].get(name), **families})
     log(smi)  # again near the end: the start of a long output may be cut off
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

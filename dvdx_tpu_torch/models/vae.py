@@ -1,9 +1,11 @@
-"""VAE decoder (AutoencoderKL class), channel-last, frame by frame.
+"""VAE (AutoencoderKL class), channel-last, frame by frame.
 
 Counterpart of ``dvdx_tpu/models/vae.py``: ``VAEDecoder`` and
 ``decode_frames_tiled``, full frame or in overlapping spatial tiles blended
 by linear ramps (``decode_frame_spatially_tiled``: peak memory one tile's
-activations instead of one frame's).
+activations instead of one frame's), and ``VAEEncoder`` (the img2vid
+family's conditioning latent). Every GroupNorm runs through the port's
+``GroupNorm`` (the ``group_norm_act`` kernel on the card).
 """
 
 from __future__ import annotations
@@ -122,6 +124,45 @@ class VAEDecoder(nn.Module):
                 h = getattr(self, f"up_{i}_conv")(upsample_nearest2x(h))
         h = self.conv_out(self.norm_out(h)).float()
         return torch.tanh(h) if cfg.final_tanh else h
+
+
+class VAEEncoder(nn.Module):
+    """(N, H, W, 3) images in [-1, 1] -> the latent mean (N, H/d, W/d,
+    latent_channels) float32, times the scaling factor (no sampling)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        base, mults, g = cfg.base_channels, cfg.channel_mults, cfg.norm_groups
+        self.conv_in = Conv(3, base, 3, padding=1)
+        ch = base
+        for i, mult in enumerate(mults):
+            out_ch = base * mult
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{i}_{j}", _VAEResnet(ch, out_ch, g))
+                ch = out_ch
+            if i < len(mults) - 1:
+                self.add_module(f"down_{i}_conv", Conv(ch, ch, 3, stride=2, padding=1))
+        self.mid_res1 = _VAEResnet(ch, ch, g)
+        if cfg.use_mid_attention:
+            self.mid_attn = _VAEAttention(ch, g)
+        self.mid_res2 = _VAEResnet(ch, ch, g)
+        self.norm_out = GroupNorm(ch, g, GN_EPS, act="silu")
+        self.conv_mean = Conv(ch, cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = self.conv_in(x.to(self.conv_in.weight.dtype))
+        for i in range(len(cfg.channel_mults)):
+            for j in range(cfg.layers_per_block):
+                h = getattr(self, f"down_{i}_{j}")(h)
+            if i < len(cfg.channel_mults) - 1:
+                h = getattr(self, f"down_{i}_conv")(h)
+        h = self.mid_res1(h)
+        if cfg.use_mid_attention:
+            h = self.mid_attn(h)
+        h = self.mid_res2(h)
+        return self.conv_mean(self.norm_out(h)).float() * cfg.scaling_factor
 
 
 def _tile_starts(size: int, tile: int, stride: int) -> List[int]:

@@ -138,3 +138,17 @@ def video_noise(key: torch.Tensor, num_frames: int, shape: Sequence[int],
     """Base latent (num_frames, h, w, C) f32 for a key."""
     return torch.stack([frame_noise(key, f, shape, device)
                         for f in range(num_frames)])
+
+
+AUX_SALT = 0xAE0B5EED  # keeps aux streams disjoint from frame-index folds
+
+
+def aux_noise(key: torch.Tensor, x: torch.Tensor, tag: int) -> torch.Tensor:
+    """An auxiliary deterministic stream of x's shape on x's device (the
+    img2vid conditioning augmentation, tag 7): ``jax.random.normal`` under
+    ``key`` folded with ``AUX_SALT`` then ``tag``, float32. The salt keeps
+    it apart from ``frame_noise``'s fold_in(frame index): without it, tag t
+    would be base-noise frame t."""
+    if x.dtype != torch.float32:
+        raise ValueError("aux_noise: the reference draws this stream in float32")
+    return normal(fold_in(fold_in(key, AUX_SALT), tag), x.shape, device=x.device)

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from .. import enable_determinism
+from ..models.dit_video import VideoDiT
 from ..models.layers import GroupNorm
 from ..models.text_encoder import CLIPTextEncoder, tokenize_batch
 from ..models.unet3d import UNet3D
@@ -33,12 +34,17 @@ from ..ops import rng as rng_ops
 from ..ops.scheduler import DDIMSchedule, ddim_step, make_ddim_schedule
 
 
+Denoiser = Union[UNet3D, VideoDiT]
+
+
 class Pipeline(nn.Module):
     """The three modules of one model family, on one device, and the
     tokenizer: a checkpoint's CLIP BPE tokenizer (``models/tokenizer.py``),
-    or None for the parameter-free hash tokenizer of random-init models."""
+    or None for the parameter-free hash tokenizer of random-init models.
+    ``unet`` is the family's denoiser, a UNet3D or a VideoDiT (one call
+    signature), under the reference's name for it."""
 
-    def __init__(self, spec: ModelSpec, unet: UNet3D, text_encoder: CLIPTextEncoder,
+    def __init__(self, spec: ModelSpec, unet: Denoiser, text_encoder: CLIPTextEncoder,
                  vae_decoder: VAEDecoder, tokenizer=None):
         super().__init__()
         self.spec = spec
@@ -49,7 +55,7 @@ class Pipeline(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.unet.conv_in.weight.device
+        return next(self.unet.parameters()).device
 
     def tokenize(self, texts: List[str]) -> np.ndarray:
         """Prompts -> (B, max_length) int32 ids. Part of the PoI chain: miner
@@ -95,9 +101,14 @@ def empty_pipeline(spec: ModelSpec, device="cuda", tokenizer=None) -> Pipeline:
     if device.type == "cuda":
         enable_determinism()
     with torch.device("meta"):
-        modules = [(UNet3D(spec.unet), spec.unet), (CLIPTextEncoder(spec.text), spec.text),
+        denoiser = VideoDiT(spec.dit) if spec.kind == "dit" else UNet3D(spec.unet)
+        modules = [(denoiser, spec.denoiser_config),
+                   (CLIPTextEncoder(spec.text), spec.text),
                    (VAEDecoder(spec.vae), spec.vae)]
-    unet, text, vae = (m.to_empty(device=device).to(cfg.compute_dtype) for m, cfg in modules)
+    # dtype first, on the meta device: the storage is allocated once, in the
+    # compute dtype (cogvideox-5b's 11 B parameters would take 44 GB in
+    # float32 before their cast)
+    unet, text, vae = (m.to(cfg.compute_dtype).to_empty(device=device) for m, cfg in modules)
     pipe = Pipeline(spec, unet, text, vae, tokenizer).eval()
     if device.type == "cuda":
         pipe.to(memory_format=torch.channels_last)  # conv weights, for cuDNN
@@ -137,7 +148,7 @@ def encode_prompts(pipe: Pipeline, prompts: List[str]) -> torch.Tensor:
         return pipe.text_encoder(ids)[0]
 
 
-def cfg_denoise_step(unet: UNet3D, sched: DDIMSchedule, z: torch.Tensor,
+def cfg_denoise_step(unet: Denoiser, sched: DDIMSchedule, z: torch.Tensor,
                      step_index: int, cond: torch.Tensor, uncond: torch.Tensor,
                      guidance_scale: float,
                      frame_positions: Optional[torch.Tensor] = None,
@@ -169,7 +180,7 @@ def cfg_denoise_step(unet: UNet3D, sched: DDIMSchedule, z: torch.Tensor,
     return ddim_step(sched, step_index, z, eps), eps
 
 
-def denoise(unet: UNet3D, sched: DDIMSchedule, z0: torch.Tensor,
+def denoise(unet: Denoiser, sched: DDIMSchedule, z0: torch.Tensor,
             cond: torch.Tensor, uncond: torch.Tensor, guidance_scale: float,
             frame_positions: Optional[torch.Tensor] = None,
             context_latent: Optional[torch.Tensor] = None,
@@ -212,6 +223,9 @@ def generate_core(pipe: Pipeline, token_ids: torch.Tensor, noise_key: torch.Tens
     spatial tiles of that many latent pixels
     (``models.vae.decode_frame_spatially_tiled``); 0 decodes full frames."""
     spec = pipe.spec
+    if spec.conditioning != "text":
+        raise ValueError(f"{spec.name} is image-conditioned: generate its videos with "
+                         "pipelines.img2video.generate_from_image")
     ds = spec.vae.downscale
     hidden, _ = pipe.text_encoder(token_ids)
     uncond, cond = hidden[0:1], hidden[1:2]

@@ -3,8 +3,9 @@
 The port's modules carry the reference's module names, so a flax leaf
 ``a/b/c/kernel`` lands on ``module.get_submodule("a.b.c")`` (the UNet3D of
 both temporal styles, the rotary mixers' ``norm`` / ``to_q`` / ``to_k`` /
-``to_v`` / ``to_out_zero`` included, the text encoder, the VAE decoder, and
-the CLIP scorer's vision tower, text tower and ``text_proj``):
+``to_v`` / ``to_out_zero`` included, the video DiT, the text encoder, the
+VAE decoder and encoder, and the CLIP scorer's vision tower, text tower and
+``text_proj``):
 
 * a dense ``kernel`` (in, out) becomes ``nn.Linear.weight`` (out, in);
 * a conv ``kernel`` in HWIO becomes OIHW; the (3, 1, 1, I, O) temporal conv
@@ -128,7 +129,10 @@ def load_flat_npz(path: str) -> Dict[str, Any]:
 
 def load_pipeline_params(pipe, tree: Dict[str, Any]):
     """The reference's ``Pipeline.params`` ({'unet', 'text', 'vae_dec'}) into
-    a port ``Pipeline``'s three modules."""
+    a port ``Pipeline``'s three modules. 'unet' is the family's denoiser
+    tree: the UNet3D's, or the VideoDiT's (``block{i}/{adaln_zero, to_q,
+    to_k, to_v, to_out, fc1, fc2}``, ``patch_embed``, ``text_proj``,
+    ``time_embedding``, ``final_ln``, ``proj_out_zero``)."""
     load_jax_params(pipe.unet, tree["unet"])
     load_jax_params(pipe.text_encoder, tree["text"])
     load_jax_params(pipe.vae_decoder, tree["vae_dec"])

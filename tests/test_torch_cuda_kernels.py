@@ -506,3 +506,55 @@ def test_group_norm_kernel_xl_shapes(cuda, n, l, c, act, with_bias, eps):
     got = tgn.group_norm_act(x, gamma, beta, **kw)
     torch.cuda.synchronize()
     _check(got, tgn.group_norm_act_plain(x, gamma, beta, **kw))
+
+
+# --- the other families' new shapes: cogvideox-5b's joint attention (D 64,
+# 48 heads, a ragged 65,026-token sequence at 48 x 720x480, 5,626 at 4
+# frames) and svd-img2vid's 25 frames and 1-token image context ---
+
+
+@pytest.mark.parametrize("b,s,h,rows", [(2, 5626, 4, None),
+                                        (1, 65026, 2, [(0, 128), (128, 256), (64896, 65026)])])
+def test_flash_kernel_dit_shapes(cuda, b, s, h, rows):
+    """The DiT's joint attention, ragged on the query side and the key side;
+    at 65,026 tokens held on query-row slices against all keys (tile 0, the
+    text / video boundary tile, the last full and partial tiles)."""
+    q, k, v = (_randn((b, s, h, 64), i, cuda).bfloat16() for i in range(3))
+    got = tflash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    for r0, r1 in rows or [(0, s)]:
+        _check(got[:, r0:r1], tflash.flash_attention_plain(q[:, r0:r1], k, v))
+
+
+@pytest.mark.parametrize("n,s,c,heads", [(2, 2880, 320, 5), (50, 720, 320, 5)])
+def test_spatial_tail_kernel_one_token_context(cuda, n, s, c, heads):
+    """svd-img2vid's cross-attention over its 1-token image context."""
+    (x, o1, ctx_k, ctx_v), params = _spatial_tail_args(n, s, c, 1, cuda)
+    got = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=heads)
+    torch.cuda.synchronize()
+    _check(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=heads))
+
+
+@pytest.mark.parametrize("b,f,n,c,heads", [(2, 25, 100, 320, 5), (1, 25, 45, 320, 8)])
+def test_temporal_block_kernel_25_frames(cuda, b, f, n, c, heads):
+    """svd-img2vid's 25 frames, which do not divide the block's 64-row tiles."""
+    x, params = _temporal_block_args(b, f, n, c, cuda)
+    got = tblock.fused_temporal_block(x, params, heads=heads)
+    torch.cuda.synchronize()
+    _check(got, tblock.fused_temporal_block_plain(x, params, heads=heads))
+
+
+@pytest.mark.parametrize("layout", ["frame_major", "position_major"])
+@pytest.mark.parametrize("n,heads,d", [(720, 10, 64), (45, 20, 64)])
+def test_temporal_kernel_25_frames(cuda, layout, n, heads, d):
+    shape = (2, 25, n, heads * d) if layout == "frame_major" else (2, n, 25, heads * d)
+    q, k, v = (_randn(shape, i, cuda).bfloat16() for i in range(3))
+    if layout == "frame_major":
+        got = ttemp.temporal_attention(q, k, v, heads=heads)
+        want = ttemp.temporal_attention_plain(q, k, v, heads=heads)
+    else:
+        got = ttemp.temporal_attention_posmajor(q, k, v, heads=heads)
+        want = ttemp.temporal_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), heads=heads).transpose(1, 2)
+    torch.cuda.synchronize()
+    _check(got, want)

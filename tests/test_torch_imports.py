@@ -85,7 +85,8 @@ def test_kernel_sources_ship(source):
     "__main__", "network.api", "network.chain", "network.deposit_listener",
     "network.http_transport", "network.services", "scoring.lpips", "utils.keccak",
     "utils.bridge", "economics.params", "economics.security", "economics.cost",
-    "economics.optimize"])
+    "economics.optimize", "models.dit_video", "models.vae", "models.zoo",
+    "pipelines.img2video", "ops.scheduler", "ops.rng"])
 def test_network_and_scoring_modules_import_without_jax(module):
     proc = _run("import sys\n"
                 "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"

@@ -18,6 +18,17 @@ both ways. The two validators' reports carry the same keys. The same holds
 for both packages loading one diffusers checkpoint (float32) with its CLIP
 BPE tokenizer.
 
+An honest miner across implementations may also be refused in exactly one
+way, ROADMAP §3.1 (open on purpose: the bound is the reference's own): the
+leaves are bf16 even for a float32 model, so the two programs' z_{t+1} can
+round to neighbouring bf16 values, and at |z| in [8, 16) one ulp (0.0625)
+exceeds atol 5e-2. The seed comes from the validator's random challenge,
+so about 1 round in 10 meets it. ``honest_or_known_refusal`` accepts that
+refusal, and only that one, and prints it (``pytest -rP``): it runs the
+validator's re-execution again on the miner's committed leaves and requires
+every element beyond the bound to lie one ulp apart at |z| >= 8 on both
+sides.
+
 Rounds that do not test liveness ping with a 30 s timeout, so CPU load under
 parallel test workers cannot drop a miner; the liveness tests use a miner
 that is absent or whose transport fails at once, never a slow one.
@@ -25,8 +36,10 @@ that is absent or whose transport fails at once, never a slow one.
 
 import asyncio
 import time
+from typing import NamedTuple
 
 import jax
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -40,6 +53,7 @@ from dvdx_tpu.network.transport import MockTransport as JMockTransport
 from dvdx_tpu.network.validator import Validator as JValidator
 from dvdx_tpu.network.validator import ValidatorConfig as JValidatorConfig
 from dvdx_tpu.verify.proof import Keypair as JKeypair
+from dvdx_tpu.verify.spotcheck import verify_revealed_steps as jverify_revealed_steps
 from dvdx_tpu_torch.network import protocol as P
 from dvdx_tpu_torch.network.base import Registry
 from dvdx_tpu_torch.network.ledger import Ledger
@@ -51,6 +65,7 @@ from dvdx_tpu_torch.pipelines.text2video import build_pipeline
 from dvdx_tpu_torch.utils.bridge import load_pipeline_params
 from dvdx_tpu_torch.verify.merkle import leaf_hash, verify_merkle_proof
 from dvdx_tpu_torch.verify.proof import Keypair
+from dvdx_tpu_torch.verify.spotcheck import verify_revealed_steps
 from tests.test_torch_generate_path import ckpt_pipes, fake_ckpt  # noqa: F401  (fixtures)
 
 torch.set_num_threads(2)
@@ -289,23 +304,102 @@ def _crossing(handler, outer, inner):
     return serve
 
 
+BF16_ULP_AT_8 = 0.0625  # one bf16 ulp of z at |z| in [8, 16)
+ATOL_CROSS = 5e-2       # the reference's cross-platform bound
+
+
+class CrossRound(NamedTuple):
+    """A round across the implementations: the validator, its report, the
+    miners (uid i is miners[i]) and the prompt."""
+    val: object
+    report: dict
+    miners: list
+    prompt: str
+
+
+def _bits(x) -> np.ndarray:
+    """A bf16 array of either package as its int16 bits."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy()
+    return np.asarray(x).view(np.int16)
+
+
+def _bits_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def _refused_z(r: CrossRound, d: dict):
+    """(the honest miner's committed z_{t+1} at the refused step, the
+    validator's re-derivation of it), float32: the validator's package's
+    ``verify_revealed_steps`` on its engine, run again on the miner's leaves
+    at the report's spot-check indices, as the validator ran it."""
+    com = r.miners[0]._proofs[r.report["request_id"]]
+    zs, epss = _bits(com.zs), _bits(com.epss)
+    ours = isinstance(r.val, Validator)
+    if ours:
+        native, verify = (lambda b: torch.from_numpy(b.copy()).view(torch.bfloat16),
+                          verify_revealed_steps)
+    else:
+        native, verify = lambda b: b.view(ml_dtypes.bfloat16), jverify_revealed_steps
+    checks, step = d["spotcheck_indices"], d["step"]
+    wanted = set(checks) | {i + 1 for i in checks if i + 1 < len(zs)}
+    leaves = {i: (int(com.timesteps[i]), native(zs[i]), native(epss[i])) for i in wanted}
+    cfg = r.val.config
+    _, z_next = verify(r.val.engine, r.prompt, "", leaves, checks, cfg.num_steps,
+                       cfg.guidance_scale, same_platform=False, atol=ATOL_CROSS)
+    return _bits_f32(zs[step + 1]), _bits_f32(_bits(z_next[checks.index(step)]))
+
+
+def honest_or_known_refusal(r: CrossRound, what: str) -> bool:
+    """The honest miner's (uid 0) report entry across implementations: True
+    when it passed; False when the validator refused it with exactly ROADMAP
+    §3.1's signature (printed): at ``reexecution``, on z_{t+1}, every
+    element beyond the bound one bf16 ulp (0.0625) apart with |z| >= 8 on
+    both sides (located by re-running the validator's re-execution), eps
+    within the bound, every earlier check passed. Any other refusal fails
+    the test."""
+    d = r.report["miners"]["0"]
+    if d.get("failed_check") != "reexecution":
+        assert not d.get("cheat") and "failed_check" not in d, d
+        return True
+    assert d["reason"] == "z_{t+1} re-derivation mismatch" \
+        and d["z_err"] == BF16_ULP_AT_8 and d["eps_err"] < ATOL_CROSS, d
+    z_miner, z_val = _refused_z(r, d)
+    err = np.abs(z_val - z_miner)
+    over = err > ATOL_CROSS
+    print(f"{what}: refused by the cross-platform bound (ROADMAP §3.1): step "
+          f"{d['step']}, z_err {d['z_err']}, eps_err {d['eps_err']}; beyond the bound: "
+          f"miner z {z_miner[over].tolist()}, validator z {z_val[over].tolist()}")  # pytest -rP
+    assert err.max() == d["z_err"], (err.max(), d)  # the validator's own difference
+    assert (err[over] == BF16_ULP_AT_8).all() and (np.abs(z_miner[over]) >= 8).all() \
+        and (np.abs(z_val[over]) >= 8).all(), (z_miner[over], z_val[over])
+    assert d["same_platform"] is False and d["regime_atol"] == ATOL_CROSS
+    assert all(d["checks"][c] for c in ("echo", "identity", "timesteps", "signature",
+                                        "authenticity", "merkle", "base_noise")), d
+    return False
+
+
 def _cross_round(miner_pipe, validator_pipe, torch_validator: bool, tmp, rid: str,
-                 miner_classes=None, prompt: str = "a red ball"):
+                 miner_classes=None, prompt: str = "a red ball", **cfg) -> CrossRound:
     """Miners of one package behind the other package's validator, every
-    message crossing as wire bytes -> (validator, report). The miners are
-    honest then lazy unless ``miner_classes`` says otherwise."""
+    message crossing as wire bytes. The miners are
+    honest then lazy unless ``miner_classes`` says otherwise; ``cfg``
+    overrides the validator's configuration."""
     vpk, mpk = (P, JP) if torch_validator else (JP, P)
     reg, led, tr = ((Registry(), Ledger(), MockTransport()) if torch_validator
                     else (JRegistry(), JLedger(), JMockTransport()))
     vcls, vcfg, vkp = ((Validator, ValidatorConfig, Keypair) if torch_validator
                        else (JValidator, JValidatorConfig, JKeypair))
-    val = vcls(validator_pipe, vkp.from_seed(b"validator"), reg, tr, led, vcfg(**_cfg(tmp)))
+    val = vcls(validator_pipe, vkp.from_seed(b"validator"), reg, tr, led,
+               vcfg(**_cfg(tmp, **cfg)))
     miner_reg, mkp = (JRegistry(), JKeypair) if torch_validator else (Registry(), Keypair)
     if miner_classes is None:
         miner_classes = (JMiner, JLazyMiner) if torch_validator else (Miner, LazyMiner)
     miner_reg.register(val.pubkey, "mock://validator", role="validator", stake=STAKE * 10)
+    miners = []
     for i, cls in enumerate(miner_classes):
         miner = cls(miner_pipe, mkp.from_seed(f"miner-{i}".encode()), miner_reg)
+        miners.append(miner)
         uid = reg.register(miner.pubkey, f"mock://m{i}", "miner", STAKE,
                            platform=miner.platform_tag)
         led.mint(f"miner-{uid}", STAKE)
@@ -315,7 +409,7 @@ def _cross_round(miner_pipe, validator_pipe, torch_validator: bool, tmp, rid: st
     led.mint("user", 20000)
     led.deposit_and_commit("user", rid, __import__("hashlib").sha256(prompt.encode()).digest(),
                            20000)
-    return val, _run(val.run_round(rid, prompt))
+    return CrossRound(val, _run(val.run_round(rid, prompt)), miners, prompt)
 
 
 @pytest.fixture(scope="module")
@@ -335,9 +429,11 @@ CROSS = ["torch_miners_jax_validator", "jax_miners_torch_validator"]
 
 @pytest.mark.parametrize("direction", CROSS)
 def test_cross_implementation_honest_miner_passes(direction, request):
-    val, report = request.getfixturevalue(direction)
+    r = request.getfixturevalue(direction)
+    val, report = r.val, r.report
     d = report["miners"]["0"]
-    assert not d.get("cheat") and "failed_check" not in d, d
+    if not honest_or_known_refusal(r, direction):
+        return
     assert all(d["checks"].values()) and d["checks"]["reexecution"] and \
         d["checks"]["video_binding"]
     assert d["same_platform"] is False and d["regime_atol"] == 5e-2
@@ -348,7 +444,8 @@ def test_cross_implementation_honest_miner_passes(direction, request):
 
 @pytest.mark.parametrize("direction", CROSS)
 def test_cross_implementation_lazy_miner_caught(direction, request):
-    val, report = request.getfixturevalue(direction)
+    r = request.getfixturevalue(direction)
+    val, report = r.val, r.report
     d = report["miners"]["1"]
     assert d["failed_check"] == "reexecution" and d["cheat"] is True, d
     assert d["same_platform"] is False and d["regime_atol"] == 5e-2
@@ -366,11 +463,12 @@ def test_checkpoint_round_across_implementations(ckpt_pipes, torch_validator, tm
     assert ours.tokenizer is not None and ref.tokenizer is not None
     np.testing.assert_array_equal(ours.tokenize(["", prompt]), ref.tokenize(["", prompt]))
     miners = (ref, ours) if torch_validator else (ours, ref)
-    val, report = _cross_round(*miners, torch_validator, tmp_path, "ckpt-1",
-                               miner_classes=(JMiner,) if torch_validator else (Miner,),
-                               prompt=prompt)
+    r = _cross_round(*miners, torch_validator, tmp_path, "ckpt-1",
+                     miner_classes=(JMiner,) if torch_validator else (Miner,), prompt=prompt)
+    val, report = r.val, r.report
     d = report["miners"]["0"]
-    assert not d.get("cheat") and "failed_check" not in d, d
+    if not honest_or_known_refusal(r, f"checkpoint round, torch validator {torch_validator}"):
+        return
     assert all(d["checks"].values())
     assert d["same_platform"] is False and d["regime_atol"] == 5e-2
     print(f"checkpoint round, torch validator {torch_validator}: reexec_max_err "
@@ -381,24 +479,41 @@ def test_checkpoint_round_across_implementations(ckpt_pipes, torch_validator, tm
 
 @pytest.mark.parametrize("pin", ["torch-cpu", "torch-cuda"])
 def test_jax_validator_regime_for_torch_pins(torch_miners_jax_validator, pin):
-    val, _ = torch_miners_jax_validator
+    val = torch_miners_jax_validator.val
     assert val._regime(pin) == (False, val.config.atol, "")
 
 
 def test_validators_reports_read_alike(torch_miners_jax_validator,
                                        jax_miners_torch_validator):
-    """The honest miner's entry, its checks, phases and MD-VQS keys are the
-    same in the JAX validator's report and in the port's."""
-    (_, ref), (_, ours) = torch_miners_jax_validator, jax_miners_torch_validator
-    assert set(ours) == set(ref)
-    for uid in ("0", "1"):
-        a, b = ours["miners"][uid], ref["miners"][uid]
+    """A miner's entry, its checks and phases read alike in the JAX
+    validator's report and in the port's, for the same outcome: the honest
+    miners' entries and MD-VQS keys, and the lazy miners' refusals at
+    ``reexecution``. An honest miner refused as ROADMAP §3.1 says
+    (``honest_or_known_refusal``) is held against the other report's lazy
+    miner, refused at the same check. A round in which no miner passed
+    reports ``ledger_error`` (nothing to distribute), in both packages."""
+    rounds = {"ref": torch_miners_jax_validator, "ours": jax_miners_torch_validator}
+    ref, ours = rounds["ref"].report, rounds["ours"].report
+    passed = {side: honest_or_known_refusal(r, f"{side} honest miner")
+              for side, r in rounds.items()}
+    for side, rep in (("ours", ours), ("ref", ref)):
+        assert ("ledger_error" in rep) is not passed[side], (side, rep.get("ledger_error"))
+    assert set(ours) - {"ledger_error"} == set(ref) - {"ledger_error"}
+    pairs = [(ours["miners"]["1"], ref["miners"]["1"])]
+    if passed["ours"] and passed["ref"]:
+        pairs.append((ours["miners"]["0"], ref["miners"]["0"]))
+    else:
+        print("honest entries compared with the lazy refusals: passed", passed)
+    pairs += [(ours["miners"]["0"], ref["miners"]["1"])] if not passed["ours"] else []
+    pairs += [(ours["miners"]["1"], ref["miners"]["0"])] if not passed["ref"] else []
+    for a, b in pairs:
         assert set(a) == set(b), set(a) ^ set(b)
         assert set(a["checks"]) == set(b["checks"])
         assert set(a["timings_s"]) == set(b["timings_s"])
-    a, b = ours["miners"]["0"], ref["miners"]["0"]
-    assert set(a["mdvqs"]) == set(b["mdvqs"])
-    assert set(a["mdvqs"]["timings_s"]) == set(b["mdvqs"]["timings_s"])
+    if passed["ours"] and passed["ref"]:
+        a, b = ours["miners"]["0"], ref["miners"]["0"]
+        assert set(a["mdvqs"]) == set(b["mdvqs"])
+        assert set(a["mdvqs"]["timings_s"]) == set(b["mdvqs"]["timings_s"])
 
 
 def test_bf16_step_gap_between_implementations(tiny_pipeline):
