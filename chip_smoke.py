@@ -104,6 +104,35 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      576x320 image (25 steps, CFG 3.0, recorded) twice, bit for bit; every
      distinct kernel input of one batched UNet call and of one VAE encode
      held against the plain versions, and that call through them;
+ 10. the distribution pillar (``dvdx_tpu_torch.parallel``) on Request A's
+     model, prompt and seed (16 x 576x320, 25 steps, CFG 7.5): single,
+     chunk, hybrid_ctx and precond through ``build_runner`` in this process
+     (2 chunks of 9 frames: UNet calls at batch 4), single's video equal to
+     Request A's, hybrid_ctx run twice bit for bit, s/video, peak memory and
+     the boundary metrics (``scoring.temporal``) against single's video;
+     fsdp, cp_exact and cp_ulysses (3 steps) on a one-rank NCCL group, each
+     bit-equal to single, the fsdp all-gathers launched (at a seq axis of 1
+     cp_* are the fsdp program, as in the JAX package); the exact-CP program
+     itself at that one rank (3 steps inside ``ring_context``, algo ring and
+     auto: the routed layers, the conv halo, the frame-sharded GroupNorm's
+     entry, the fused tail / block / frame-axis kernels off) within
+     ``REFERENCE_RELRMS_TOL`` of single's latent, and ``ring_attention`` /
+     ``ulysses_attention`` on the card at its frame-axis input against the
+     plain attention; a mesh miner (fsdp ``Miner`` on that group) that
+     shards its pipeline in place, with its peak memory beside the
+     runner's; every distinct
+     kernel input of one chunked UNet call held against the plain versions
+     (2 bf16 ulps, the same bits again) with its launches and bound per
+     kernel; a round of three hybrid_ctx miners (``build_mock_network``:
+     honest, lazy, and one committing num_chunks 0) behind the validator,
+     the honest one re-executed bit for bit in the hybrid_ctx regime, the
+     lazy one caught at ``reexecution``, the liar at ``chunk_plan``; and
+     ``python -m dvdx_tpu_torch strategy`` (one CSV row, every column
+     filled) and ``coordinator`` (two worker processes on the card over
+     sockets) as subprocesses, the coordinator's latent and video bit for
+     bit the in-process chunk program run one chunk per UNet batch (the
+     workers' batch of 2), and its distance from the batch-4 chunk video
+     printed;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
   phase 2 alone holds; ``launches_xl`` from phase 7's request;
@@ -112,7 +141,9 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
   distinct shapes, launches, kernel ms summed over the launches, largest
   error, and per UNet call the bound; phase 9's launches per family path
   and per DiT call, svd's and cogvideox's held inputs, and flash at the
-  DiT's three sequence lengths), and the result line.
+  DiT's three sequence lengths; phase 10's launches per strategy run and in
+  the chunked round, and the chunked UNet call's held inputs and bound),
+  and the result line.
 
 Imports nothing of JAX or of the JAX package. Detail too long for the end of
 the output goes to ``chiprun_out/``.
@@ -935,6 +966,7 @@ def run_path(steps_a: int):
     log(f"path: bound per frame's VAE decode {json.dumps(vae_bounds)}")
     return pipe, launches, dict(seconds_per_request=sec_a, steps=steps_a,
                           peak_bytes=peak, root=root_a,
+                          video_sha256=hashlib.sha256(video.tobytes()).hexdigest(),
                           seconds_request_b=[s1, s2], seconds_per_step=step_s,
                           launches_request_b=launches_b,
                           launches_per_unet_call=per_step, reexecution=reexec,
@@ -2156,6 +2188,13 @@ def run_dit(smi: str) -> dict:
     held_sigs = {name: set(calls) for name, calls in seen_frame.items()}
     del seen_frame
     gn_frame = out["held_vae_frame"].get("group_norm_act", {}).get("launches", 0)
+
+    def decode_frame():
+        with torch.inference_mode():
+            decode_frames_tiled(pipe.vae_decoder, zs[-1][:1].cuda().float())
+    # each kernel's bound summed over that frame's launches, from their shapes
+    out["bound_vae_frame"] = launch_bounds(pipe.vae_decoder, decode_frame)
+    log(f"dit: bound per frame's VAE decode {json.dumps(out['bound_vae_frame'])}")
     _require(gn_frame > 0 and gn_frame * DIT["num_frames"] == launches["group_norm_act"],
              "dit: one frame's decode launches GroupNorm as the request did, per frame",
              dict(frame=gn_frame, request=launches["group_norm_act"]))
@@ -2335,6 +2374,403 @@ def run_families(smi: str) -> dict:
     return out
 
 
+# --- phase 10: the distribution pillar ---------------------------------------
+
+STRAT_PROMPT = "a red panda rides a bicycle through a snowy forest"  # Request A's
+STRAT_SEED = 7
+STRAT_GEOMETRY = dict(num_frames=16, height=320, width=576, num_steps=25,
+                      guidance_scale=7.5)
+NCCL_STEPS = 3
+
+
+def _strategy_run(pipe, name, mesh, steps=25, **overrides):
+    """One video through ``build_runner``: its uint8 frames, s/video, peak
+    memory, kernel launches, chunk plan and the FSDP hooks' all-gathers."""
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.parallel.strategies import build_runner, get_strategy
+    from dvdx_tpu_torch.pipelines.text2video import to_uint8
+
+    runner = build_runner(pipe, get_strategy(name, **overrides), mesh,
+                          **dict(STRAT_GEOMETRY, num_steps=steps))
+    ids = torch.from_numpy(pipe.tokenize(["", STRAT_PROMPT])).long()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = runner(ids, rng.base_key(STRAT_SEED))
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=read_counts(), plan=runner.plan, frames=frames,
+               video=to_uint8(frames).cpu().numpy(),
+               gathers=sum(s.gathers for s in runner.shards))
+    runner.close()
+    return out
+
+
+def _chunked_unet_call(pipe):
+    """One batched CFG UNet call of the chunked program at Request A's
+    geometry: 2 chunks of 9 frames, [uncond x 2, cond x 2] -> batch 4."""
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.parallel.chunking import auto_chunk_count, gather_chunks, plan_chunks
+    from dvdx_tpu_torch.pipelines.text2video import encode_prompts
+
+    plan = plan_chunks(16, auto_chunk_count(16, 1))
+    z0 = rng.video_noise(rng.base_key(STRAT_SEED), 16, (40, 72, 4), device="cuda")
+    rows = gather_chunks(z0[None].bfloat16(), plan)[0]  # (2, 9, 40, 72, 4)
+    n = rows.shape[0]
+    hidden = encode_prompts(pipe, ["", STRAT_PROMPT])
+    ctx = torch.cat([hidden[0:1].repeat_interleave(n, 0), hidden[1:2].repeat_interleave(n, 0)])
+    t = int(make_ddim_schedule(25).timesteps[0])
+    ts = torch.full((2 * n,), t, dtype=torch.int32, device="cuda")
+
+    def call():
+        with torch.inference_mode():
+            return pipe.unet(torch.cat([rows, rows]), ts, ctx)
+    return call
+
+
+def _text_and_noise(pipe):
+    """Request A's (uncond, cond) text states and its base noise on the card."""
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.pipelines.text2video import encode_prompts
+
+    hidden = encode_prompts(pipe, ["", STRAT_PROMPT])
+    z0 = rng.video_noise(rng.base_key(STRAT_SEED), 16, (40, 72, 4), device="cuda")
+    return hidden[0:1], hidden[1:2], z0
+
+
+def _routed_at_one_rank(pipe, mesh, steps: int):
+    """The exact-CP program at a seq axis of 1: ``steps`` denoise steps
+    inside ``ring_context`` per algo (ring, auto), against the same steps
+    outside it. Counts the routed pieces the layers call (attention with
+    impl='ring', the conv halo, the frame-sharded GroupNorm) and the kernel
+    launches, and keeps the first frame-axis attention input."""
+    import dvdx_tpu_torch.models.layers as layers
+    from dvdx_tpu_torch.ops.attention import ring_context
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.pipelines.text2video import denoise
+    from dvdx_tpu_torch.utils.testing import REFERENCE_RELRMS_TOL, relative_rms
+
+    uncond, cond, z0 = _text_and_noise(pipe)
+    sched = make_ddim_schedule(25)
+    z0 = z0[None].bfloat16()
+    with torch.inference_mode():
+        ref = denoise(pipe.unet, sched, z0, cond, uncond, 7.5, step_range=(0, steps)).float()
+    saved = {k: getattr(layers, k) for k in ("multi_head_attention", "frame_halo",
+                                             "group_norm_act_sharded")}
+    out, first = {}, {}
+    for algo in ("ring", "auto"):
+        calls = dict.fromkeys(saved, 0)
+
+        def counted(name):
+            def fn(*a, **kw):
+                if name != "multi_head_attention" or kw.get("impl") == "ring":
+                    calls[name] += 1
+                    if name == "multi_head_attention" and "qkv" not in first:
+                        first["qkv"] = tuple(t.clone() for t in a[:3])
+                return saved[name](*a, **kw)
+            return fn
+
+        for k in saved:
+            setattr(layers, k, counted(k))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode(), ring_context(mesh, "seq", algo=algo):
+                z = denoise(pipe.unet, sched, z0, cond, uncond, 7.5,
+                            frame_positions=torch.arange(16, device="cuda"),
+                            step_range=(0, steps)).float()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                setattr(layers, k, v)
+        launches = read_counts()
+        dist_ = relative_rms(z, ref)
+        out[algo] = {"relative_rms_vs_single": dist_, "seconds": sec,
+                     "ring_impl_attention_calls": calls["multi_head_attention"],
+                     "frame_halo_calls": calls["frame_halo"],
+                     "sharded_group_norm_calls": calls["group_norm_act_sharded"],
+                     "launches": {k: launches[k] for k in MODEL_PATH}}
+        off = [k for k in ("fused_spatial_tail", "fused_temporal_block",
+                           "temporal_attention") if launches[k]]
+        on = [k for k in ("flash_attention", "geglu_ff", "group_norm_act") if not launches[k]]
+        _require(torch.isfinite(z).all().item() and dist_ <= REFERENCE_RELRMS_TOL
+                 and not off and not on and all(calls.values()),
+                 f"strategies: the exact-CP program at one rank ({algo})",
+                 dict(out[algo], kernels_not_off=off, kernels_not_on=on))
+    return out, first["qkv"]
+
+
+def _hold_ring_at_one_rank(q, k, v, mesh) -> dict:
+    """ring_attention and ulysses_attention on the card at the routed
+    frame-axis input, against the plain attention (the ring within 2 bf16
+    ulps of max|plain|: it rounds unnormalised probabilities; Ulysses, whose
+    all-to-alls are one-rank identities here, bit for bit)."""
+    from dvdx_tpu_torch.ops.kernels.flash_attention import flash_attention_plain
+    from dvdx_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
+
+    with torch.inference_mode():
+        ref = flash_attention_plain(q, k, v)
+        ring = ring_attention(q, k, v, mesh)
+        uly = ulysses_attention(q, k, v, mesh)
+    err = (ring.float() - ref.float()).abs().max().item()
+    tol = TOL_ULPS * 2.0 ** -7 * ref.float().abs().max().item()
+    row = {"shape": list(q.shape), "ring_max_abs_err": err, "ring_tol": tol,
+           "ulysses_bitwise": torch.equal(uly, ref),
+           "ring_ms": cuda_ms(lambda: ring_attention(q, k, v, mesh), 3),
+           "ulysses_ms": cuda_ms(lambda: ulysses_attention(q, k, v, mesh), 3),
+           "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 3)}
+    _require(np.isfinite(err) and err <= tol and row["ulysses_bitwise"],
+             "strategies: ring / Ulysses attention on the card", row)
+    return row
+
+
+def _mesh_miner_memory(pipe, mesh, runner_peak: int) -> dict:
+    """An fsdp ``Miner`` on the group: the bytes its construction allocates
+    (the engine shards the pipeline in place, so no second copy of the
+    weights), and the peak of a 3-step recorded generation beside the fsdp
+    runner's."""
+    from dvdx_tpu_torch.network.base import Registry
+    from dvdx_tpu_torch.network.miner import Miner
+    from dvdx_tpu_torch.verify.proof import Keypair
+
+    weights = sum(p.numel() * p.element_size() for p in pipe.parameters())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    miner = Miner(pipe, Keypair.from_seed(b"mesh-miner"), Registry(), mesh=mesh,
+                  strategy="fsdp")
+    torch.cuda.synchronize()
+    built, build_peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        miner.engine.generate_recorded(STRAT_PROMPT, seed=STRAT_SEED,
+                                       **dict(STRAT_GEOMETRY, num_steps=NCCL_STEPS))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        miner.engine.close()
+    torch.cuda.synchronize()
+    closed = torch.cuda.memory_allocated()
+    row = {"tag": miner.platform_tag, "weights_gib": weights / 2**30,
+           "construct_added_gib": (built - before) / 2**30,
+           "construct_peak_added_gib": (build_peak - before) / 2**30,
+           "generate_peak_gib": peak / 2**30, "runner_peak_gib": runner_peak / 2**30,
+           "after_close_added_gib": (closed - before) / 2**30}
+    _require(build_peak - before < 0.5 * weights and abs(closed - before) < 0.05 * weights
+             and miner.platform_tag == "torch-cuda:fsdp",
+             "strategies: the mesh miner shards in place and gives the weights back", row)
+    return row
+
+
+def _per_chunk_reference(pipe, steps: int = 25):
+    """The chunk program one chunk per UNet batch (the coordinator's
+    workers' CFG pair): (stitched float32 latent, uint8 video)."""
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.parallel.chunking import blend_chunks, gather_chunks, plan_chunks
+    from dvdx_tpu_torch.parallel.mesh import single_device_mesh
+    from dvdx_tpu_torch.parallel.strategies import decode_latents
+    from dvdx_tpu_torch.pipelines.text2video import denoise, to_uint8
+
+    uncond, cond, z0 = _text_and_noise(pipe)
+    plan = plan_chunks(16, 2)
+    rows = gather_chunks(z0[None].bfloat16(), plan)[0]
+    sched = make_ddim_schedule(steps)
+    with torch.inference_mode():
+        zs = [denoise(pipe.unet, sched, rows[i:i + 1], cond, uncond, 7.5)
+              for i in range(plan.num_chunks)]
+        z = blend_chunks(torch.cat(zs)[None].float(), plan)[0]
+        video = to_uint8(decode_latents(pipe, z, single_device_mesh("cuda")))
+    return z.cpu().numpy(), video.cpu().numpy()
+
+
+def _strategy_cli(args, timeout):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dvdx_tpu_torch", *args],
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m dvdx_tpu_torch {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc, time.perf_counter() - t0
+
+
+def run_strategies(pipe, request_a_sha: str) -> dict:
+    """Phase 10: the distribution strategies on Request A's model."""
+    import csv
+
+    import torch.distributed as dist
+
+    from dvdx_tpu_torch.network.mock import build_mock_network
+    from dvdx_tpu_torch.network.validator import ValidatorConfig
+    from dvdx_tpu_torch.parallel.latent_chunking import chunk_bounds
+    from dvdx_tpu_torch.parallel.mesh import (free_port, init_process_group, make_mesh,
+                                              single_device_mesh)
+    from dvdx_tpu_torch.scoring.temporal import (boundary_pairs, flow_warp_error,
+                                                 temporal_instability)
+
+    t_phase = time.perf_counter()
+    out = {"runs": {}}
+    one = single_device_mesh("cuda")
+    # 1. the strategies in this process, 25 steps
+    runs = {name: _strategy_run(pipe, name, one)
+            for name in ("single", "chunk", "hybrid_ctx", "precond")}
+    again = _strategy_run(pipe, "hybrid_ctx", one)
+    same = np.array_equal(again["video"], runs["hybrid_ctx"]["video"])
+    single_sha = hashlib.sha256(runs["single"]["video"].tobytes()).hexdigest()
+    _require(single_sha == request_a_sha, "strategies: single's video is Request A's",
+             {"single": single_sha, "request_a": request_a_sha})
+    _require(same, "strategies: hybrid_ctx run twice is not bit-identical", {})
+    pairs = boundary_pairs(chunk_bounds(runs["chunk"]["plan"]))
+    base_video = runs["single"]["video"]
+    for name, r in runs.items():
+        plan = r["plan"]
+        row = {"seconds": r["seconds"], "peak_gib": r["peak_bytes"] / 2**30,
+               "chunks": [plan.num_chunks, plan.chunk_len] if plan else None,
+               "temp_instab": temporal_instability(r["video"], pairs),
+               "flow_err": flow_warp_error(r["video"], pairs),
+               "max_level_diff_vs_single": int(np.abs(r["video"].astype(int)
+                                                      - base_video.astype(int)).max()),
+               "launches": r["launches"]}
+        out["runs"][name] = row
+        missing = [k for k in MODEL_PATH if r["launches"][k] == 0]
+        _require(not missing, f"strategies: {name} never launched", missing)
+        log(f"strategies: {name} {json.dumps({k: v for k, v in row.items() if k != 'launches'})}")
+    out["hybrid_ctx_repeat_bitwise"] = same
+    out["hybrid_ctx_repeat_seconds"] = again["seconds"]
+    chunk_frames = runs["chunk"]["frames"]
+    del runs, again
+    torch.cuda.empty_cache()
+
+    # 2. the value-preserving strategies on a one-rank NCCL group
+    init_process_group(f"tcp://127.0.0.1:{free_port()}", 1, 0, torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1, 1))
+        ref = _strategy_run(pipe, "single", mesh, steps=NCCL_STEPS)
+        nccl = {}
+        for name in ("fsdp", "cp_exact", "cp_ulysses"):
+            r = _strategy_run(pipe, name, mesh, steps=NCCL_STEPS)
+            equal = torch.equal(r["frames"], ref["frames"])
+            nccl[name] = {"bit_equal_to_single": equal, "seconds": r["seconds"],
+                          "all_gathers": r["gathers"], "peak_gib": r["peak_bytes"] / 2**30}
+            _require(equal and r["gathers"] > 0,
+                     f"strategies: {name} on a one-rank NCCL group", nccl[name])
+        nccl["single_seconds"] = ref["seconds"]
+        log(f"strategies: one-rank NCCL group ({dist.get_backend()}), {NCCL_STEPS} steps "
+            f"(cp_* at a seq axis of 1 run the fsdp program): {json.dumps(nccl)}")
+        out["nccl_world_1"] = nccl
+        routed, qkv = _routed_at_one_rank(pipe, mesh, NCCL_STEPS)
+        routed["attention_held"] = _hold_ring_at_one_rank(*qkv, mesh)
+        del qkv
+        log(f"strategies: the exact-CP program inside ring_context at one rank, "
+            f"{NCCL_STEPS} steps: {json.dumps(routed)}")
+        out["routed_world_1"] = routed
+        fsdp_peak = int(nccl["fsdp"]["peak_gib"] * 2**30)
+        out["mesh_miner"] = _mesh_miner_memory(pipe, mesh, fsdp_peak)
+        log(f"strategies: mesh miner: {json.dumps(out['mesh_miner'])}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 3. every distinct kernel input of one chunked UNet call
+    call = _chunked_unet_call(pipe)
+    with recorded_kernel_inputs() as seen:
+        call()
+    torch.cuda.synchronize()
+    held, rows = hold_recorded(seen, "one chunked UNet call (batch 4 x 9 frames)",
+                               tag="strategies")
+    bounds = launch_bounds(pipe.unet, call)
+    out["held_per_unet_call"], out["bound_per_unet_call"] = held, bounds
+    log("strategies: chunked UNet call, per kernel (launches, kernel ms, bound ms): "
+        + json.dumps({k: [held.get(k, {}).get("launches"), held.get(k, {}).get("ms"),
+                          bounds[k]["bound_ms"]] for k in MODEL_PATH}))
+    with open(os.path.join(OUT_DIR, "strategies_held_inputs.json"), "w") as f:
+        json.dump(rows, f, indent=1, default=str)
+
+    # 4. a chunked round: hybrid_ctx miners (honest, lazy, a num_chunks liar)
+    cfg = ValidatorConfig(width=576, height=320, num_frames=16, num_steps=25,
+                          num_checkpoints=3, sample_size=3, ping_timeout_s=30,
+                          timeout_s=600, results_dir=os.path.join(OUT_DIR, "chunked_round"))
+    net = build_mock_network(n_miners=3, adversaries=["honest", "lazy", "honest"],
+                             pipeline=pipe, validator_config=cfg, mesh_strategy="hybrid_ctx")
+    liar = net.miners[2]
+    honest_generate = liar._generate_with_proof
+
+    def lie(req):
+        resp = honest_generate(req)
+        resp.num_chunks = 0  # claims no chunk plan while pinned to one
+        return resp
+
+    liar._generate_with_proof = lie
+    report, wall, counts = _run_round(net, "round-hybrid-ctx", STRAT_PROMPT)
+    line = _round_line(report, wall)
+    line["launches"] = counts
+    for uid, d in report["miners"].items():
+        line["miners"][uid]["verify_engine"] = d.get("verify_engine")
+    log(f"strategies: chunked round: {json.dumps(line)}")
+    miners = report["miners"]
+    honest, lazy, lying = miners["0"], miners["1"], miners["2"]
+    _require(not honest.get("failed_check") and all(honest["checks"].values())
+             and honest["verify_engine"] == "hybrid_ctx" and honest["regime_atol"] == 0.1
+             and honest["reexec_bitwise"] is True and honest["score"] > 0,
+             "chunked round: the honest hybrid_ctx miner", honest)
+    _require(lazy.get("failed_check") == "reexecution" and lazy.get("cheat") is True,
+             "chunked round: the lazy miner", lazy)
+    _require(lying.get("failed_check") == "chunk_plan", "chunked round: the liar", lying)
+    _require(net.ledger.requests["round-hybrid-ctx"].status == "distributed",
+             "chunked round: ledger", net.ledger.requests["round-hybrid-ctx"].status)
+    missing = [k for k in MODEL_PATH if counts[k] == 0]
+    _require(not missing, "chunked round: kernels never launched", missing)
+    out["round"] = line
+    del net
+    torch.cuda.empty_cache()
+
+    # 5. the CLIs as subprocesses, on the card (no device flag)
+    csv_path = os.path.join(OUT_DIR, "strategy.csv")
+    if os.path.exists(csv_path):
+        os.unlink(csv_path)
+    proc, sec = _strategy_cli(["strategy", "--mode", "hybrid_ctx", "--world-size", "1",
+                               "--emu", "wifi", "--csv", csv_path, "--model",
+                               "zeroscope-v2-576w", "--perturb", "--prompt", STRAT_PROMPT,
+                               "--seed", str(STRAT_SEED)], 900)
+    with open(csv_path) as f:
+        rows_csv = list(csv.DictReader(f))
+    _require(len(rows_csv) == 1 and all(rows_csv[0][c] != "" for c in rows_csv[0]),
+             "strategy CLI: one full CSV row", rows_csv)
+    out["strategy_cli"] = dict(rows_csv[0], wall_s=sec)
+    log(f"strategies: strategy CLI in {sec:.1f} s: {json.dumps(rows_csv[0])}")
+
+    latent_path = os.path.join(OUT_DIR, "coordinator.npz")
+    proc, sec = _strategy_cli(["coordinator", "--num-chunks", "2", "--transport", "socket",
+                               "--model", "zeroscope-v2-576w", "--frames", "16", "--width",
+                               "576", "--height", "320", "--steps", "25", "--perturb",
+                               "--prompt", STRAT_PROMPT, "--seed", str(STRAT_SEED),
+                               "--save-latent", latent_path], 900)
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(latent_path) as saved:
+        coord_latent, coord_video = saved["latent"], saved["video"]
+    ref_latent, ref_video = _per_chunk_reference(pipe)
+    batch4 = ((chunk_frames + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    diff = np.abs(coord_video.astype(int) - batch4.astype(int))
+    coord = {"wall_s": sec, "video_shape": res["video_shape"], "device": res["device"],
+             "measured_network_bytes": res["measured_network_bytes"],
+             "net_gather_s": res["net_gather_s"], "worker_s": res["worker_s"],
+             "latent_bitwise_vs_per_chunk": bool(np.array_equal(coord_latent, ref_latent)),
+             "video_bitwise_vs_per_chunk": bool(np.array_equal(coord_video, ref_video)),
+             "max_level_diff_vs_batch4_chunk": int(diff.max()),
+             "share_of_levels_differing_vs_batch4": float((diff > 0).mean())}
+    _require(res["video_shape"] == [16, 320, 576, 3] and res["device"] == "cuda"
+             and res["measured_network_bytes"] > 0, "coordinator CLI", res)
+    _require(coord["latent_bitwise_vs_per_chunk"] and coord["video_bitwise_vs_per_chunk"],
+             "coordinator CLI: bit for bit the per-chunk program", coord)
+    log(f"strategies: coordinator CLI: {json.dumps(coord)}")
+    out["coordinator_cli"] = coord
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"strategies: phase 10 in {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2380,6 +2816,8 @@ def main():
     path["network_round"] = run_network_round(pipe)
     torch.cuda.empty_cache()
     path["services"] = run_services(pipe, smi)
+    torch.cuda.empty_cache()
+    path["strategies"] = run_strategies(pipe, path["video_sha256"])
     del pipe
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
@@ -2407,8 +2845,19 @@ def main():
                         bound_ms=svd["bound_per_unet_call"][name]["bound_ms"]),
                     "svd_vae_encode": svd["held_vae_encode"].get(name),
                     "svd_shapes": svd["shapes"].get(name),
-                    "cogvideox_vae_frame": dit["held_vae_frame"].get(name),
+                    "cogvideox_vae_frame": None if name not in dit["held_vae_frame"] else dict(
+                        dit["held_vae_frame"][name],
+                        bound_ms=dit["bound_vae_frame"][name]["bound_ms"]),
                     "cogvideox_round_held": dit["held_round"].get(name)}
+        strat = path["strategies"]
+        # phase 10: each strategy run's launches, the chunked call's numbers
+        families.update({
+            "launches_strategies": {k: v["launches"][name] for k, v in strat["runs"].items()},
+            "launches_chunked_round": strat["round"]["launches"][name],
+            "chunked_per_unet_call": None if name not in MODEL_PATH else dict(
+                strat["held_per_unet_call"].get(name, {}),
+                bound_ms=strat["bound_per_unet_call"][name]["bound_ms"],
+                bound_launches=strat["bound_per_unet_call"][name]["launches"])})
         if name == "flash_attention":
             families["dit_shape"] = {k: dit["flash"][k] for k in (
                 "shape", "ms", "library_ms", "bound_ms", "bound_by", "plain_slice_shape",

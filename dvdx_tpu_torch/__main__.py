@@ -11,10 +11,15 @@ Commands:
   convert      inspect / convert a diffusers checkpoint (utils.convert)
   mock-round   one in-process network round: miners, validator, ledger
                (network.mock)
+  strategy     one run of a distribution strategy, a CSV row of its metrics
+               (parallel.runner; --world-size N starts N ranks)
+  coordinator  chunks denoised by worker processes, stitched and decoded
+               (parallel.coordinator)
 
 ``miner`` and ``validator`` take the arguments of ``python -m
-dvdx_tpu_torch.network.services miner|validator``; like ``generate`` they run
-on the card unless given ``--device cpu`` (or ``--cpu``).
+dvdx_tpu_torch.network.services miner|validator``; like ``generate``,
+``strategy`` and ``coordinator`` they run on the card unless given
+``--device cpu`` (or ``--cpu``).
 
 ``--model`` takes a registry name (seeded random weights) or a diffusers
 checkpoint directory (its weights and CLIP BPE tokenizer).
@@ -115,6 +120,14 @@ def main(argv=None) -> int:
         from .utils.convert import main as convert_main
 
         return convert_main(rest)
+    if cmd == "strategy":
+        from .parallel.runner import main as runner_main
+
+        return runner_main(rest)
+    if cmd == "coordinator":
+        from .parallel.coordinator import main as coordinator_main
+
+        return coordinator_main(rest)
     if cmd == "mock-round":
         from .network.mock import demo
 

@@ -17,6 +17,17 @@ refuse a float32 model whose shapes a fused gate takes. Submodule and
 parameter names follow the reference's flax tree on both branches
 (``utils/bridge.py`` maps it leaf for leaf).
 
+Inside a ring context (``ops.attention.ring_context``: frames sharded over
+the mesh's seq group, the cp_exact / cp_ulysses strategies) the layers route
+as the JAX layers do there: the fused spatial tail, the fused temporal block
+and the frame-axis kernel are off, frame-axis attention re-lays out to
+(B*N, F, H, D) and runs ring / Ulysses attention, and what the JAX package's
+GSPMD gets from its sharded frame axis the port does by hand: the temporal
+GroupNorms all-reduce their moment sums over the group
+(``ops.groupnorm.group_norm_act_sharded``) and the (3, 1) temporal convs
+take a one-frame halo from each neighbour rank (``ops.ring_attention.
+frame_halo``). Outside a ring context none of this runs.
+
 Layout: activations stay channel-last, (N, H, W, C) per frame and
 (B, F, H, W, C) per video, as in the reference; convolutions view them as
 ``torch.channels_last`` NCHW tensors, which is the layout cuDNN prefers.
@@ -37,8 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multi_head_attention
-from ..ops.groupnorm import group_norm_act
+from ..ops.attention import multi_head_attention, ring_active, ring_mesh
+from ..ops.groupnorm import group_norm_act, group_norm_act_sharded
 from ..ops.kernels.geglu_ff import geglu_ff
 from ..ops.kernels import spatial_tail
 from ..ops.kernels import temporal_attention as frame_attention
@@ -46,6 +57,7 @@ from ..ops.kernels import temporal_block
 from ..ops.kernels.spatial_tail import fused_spatial_tail
 from ..ops.kernels.temporal_attention import temporal_attention, temporal_attention_plain
 from ..ops.kernels.temporal_block import fused_temporal_block
+from ..ops.ring_attention import frame_halo
 
 # Shape gates of the kernels (the JAX package's _fused_spatial_tail_wants /
 # _fused_block_wants and its fm kernel's limits, without the TPU's VMEM
@@ -67,7 +79,7 @@ TEMPORAL_BLOCK_MAX_FRAMES = temporal_block.MAX_FRAMES
 
 def fused_spatial_tail_wants(s: int, dim: int, heads: int, head_dim: int,
                              ctx_tokens: int) -> bool:
-    return (s >= SPATIAL_TAIL_MIN_SEQ and dim % 64 == 0
+    return (not ring_active() and s >= SPATIAL_TAIL_MIN_SEQ and dim % 64 == 0
             and dim <= spatial_tail.CHAIN_MAX_DIM and heads * head_dim == dim
             and head_dim % 8 == 0 and 8 <= head_dim <= spatial_tail.MAX_HEAD_DIM
             and 1 <= ctx_tokens <= spatial_tail.MAX_CONTEXT)
@@ -75,7 +87,7 @@ def fused_spatial_tail_wants(s: int, dim: int, heads: int, head_dim: int,
 
 def fused_temporal_block_wants(frames: int, positions: int, dim: int, heads: int,
                                head_dim: int) -> bool:
-    return (positions >= TEMPORAL_BLOCK_MIN_POSITIONS
+    return (not ring_active() and positions >= TEMPORAL_BLOCK_MIN_POSITIONS
             and frames <= TEMPORAL_BLOCK_MAX_FRAMES
             and dim % 64 == 0 and dim <= temporal_block.MAX_DIM
             and heads * head_dim == dim and head_dim % 8 == 0)
@@ -102,9 +114,9 @@ class Conv(nn.Conv2d):
     (B, F, H, W, C) is the same layer with kernel (3, 1) on the
     (B, F, H*W, C) view."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None,
-                     self.stride, self.padding)
+                     self.stride, self.padding if padding is None else padding)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
@@ -126,6 +138,19 @@ class GroupNorm(nn.Module):
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         return group_norm_act(x, self.weight, self.bias, groups=self.groups,
                               eps=self.eps, act=self.act, bias=bias)
+
+    def over_frames(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, F, ..., C) with statistics over (F, ...): inside a ring
+        context F is this rank's share and the moments are all-reduced over
+        the seq group."""
+        ctx = ring_mesh()
+        if ctx is None:
+            return self(x)
+        mesh, axis = ctx
+        return group_norm_act_sharded(x, self.weight, self.bias, groups=self.groups,
+                                      eps=self.eps, act=self.act,
+                                      group=mesh.group((axis,)),
+                                      group_size=mesh.shape[axis])
 
 
 class LayerNorm(nn.LayerNorm):
@@ -201,10 +226,14 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, f, hh, ww, c = x.shape
         h = x.reshape(b, f, hh * ww, c)
+        ctx = ring_mesh()
         for i in range(self.num_layers):
             last = i == self.num_layers - 1
-            h = getattr(self, f"norm{i}")(h)
-            h = getattr(self, f"conv{i}_zero" if last else f"conv{i}")(h)
+            h = getattr(self, f"norm{i}").over_frames(h)
+            conv = getattr(self, f"conv{i}_zero" if last else f"conv{i}")
+            # frames sharded: the neighbours' edge frames stand in for the
+            # frame padding
+            h = conv(h) if ctx is None else conv(frame_halo(h, *ctx), padding=(0, 0))
         return x + h.reshape(x.shape)
 
 
@@ -336,6 +365,18 @@ class _FrameAxisAttention(nn.Module):
         self.to_out = Dense(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if ring_active():
+            # frames sharded: (B*N, F, H, D) through ring / Ulysses attention
+            b, f, n, _ = x.shape
+            d = self.to_q.out_features // self.heads
+
+            def to_ring(t):
+                return t.view(b, f, n, self.heads, d).transpose(1, 2).reshape(
+                    b * n, f, self.heads, d)
+
+            o = multi_head_attention(to_ring(self.to_q(x)), to_ring(self.to_k(x)),
+                                     to_ring(self.to_v(x)), impl="ring")
+            return self.to_out(o.reshape(b, n, f, self.heads * d).transpose(1, 2))
         attend = (temporal_attention
                   if temporal_attention_wants(x.shape[1], self.to_q.out_features // self.heads)
                   else temporal_attention_plain)
@@ -404,7 +445,7 @@ class TransformerTemporal(nn.Module):
         """``frame_positions`` is not read (this style has no positions); it
         is taken so both temporal styles share one call."""
         b, f, hh, ww, c = x.shape
-        h = self.norm(x).reshape(b, f, hh * ww, c)
+        h = self.norm.over_frames(x).reshape(b, f, hh * ww, c)
         h = self.proj_out_zero(self.block0(self.proj_in(h)))
         return x + h.reshape(x.shape)
 
@@ -454,7 +495,7 @@ class TemporalAttention(nn.Module):
             pos = (torch.arange(f, device=x.device) if frame_positions is None
                    else frame_positions)
             q, k = rotary_embed(q, pos), rotary_embed(k, pos)
-        o = multi_head_attention(q, k, v).reshape(-1, f, self.heads * self.head_dim)
+        o = multi_head_attention(q, k, v, impl="ring").reshape(-1, f, self.heads * self.head_dim)
         o = self.to_out_zero(o).reshape(b, hh, ww, f, c).permute(0, 3, 1, 2, 4)
         return x + o
 

@@ -9,6 +9,12 @@ video and signs challenge || seed || sha256(video) || root. A signed
 and their Merkle paths. Callers are gated by signature, freshness, replay
 and the blacklist; the in-memory proof store is an LRU, optionally backed by
 a disk spool that keeps the leaves as uint16 views.
+
+With ``mesh`` and ``strategy`` the miner generates through that strategy's
+step program (``StepEngine(pipeline, mesh=, strategy=)``): it pins
+"torch-<device>:<strategy>" at registration, and a chunked miner commits its
+chunk count in the response. On a mesh of several ranks this miner is rank
+0; the other ranks run ``miner.engine.follow()``.
 """
 
 from __future__ import annotations
@@ -53,10 +59,10 @@ class Miner(Neuron):
     """In-process miner logic; a transport calls ``handle``."""
 
     def __init__(self, pipeline: Pipeline, keypair: Keypair, registry: Registry,
-                 config: Optional[MinerConfig] = None):
+                 config: Optional[MinerConfig] = None, *, mesh=None, strategy=None):
         super().__init__(keypair=keypair, registry=registry, role="miner")
         self.pipeline = pipeline
-        self.engine = StepEngine(pipeline)
+        self.engine = StepEngine(pipeline, mesh=mesh, strategy=strategy)
         self.config = config or MinerConfig()
         self._proofs: "collections.OrderedDict[str, MerkleCommitment]" = (
             collections.OrderedDict())
@@ -66,7 +72,8 @@ class Miner(Neuron):
 
     @property
     def platform_tag(self) -> str:
-        """Registration pin and response tag ("torch-cuda" / "torch-cpu")."""
+        """Registration pin and response tag ("torch-cuda" / "torch-cpu",
+        with ":<strategy>" for a strategy engine)."""
         return self.engine.platform_tag
 
     # -- policies --
@@ -166,6 +173,8 @@ class Miner(Neuron):
             num_steps=req.num_steps, timesteps=[int(t) for t in timesteps],
             latent_shape=[int(s) for s in zs.shape[1:]],
             latent_dtype=str(zs.dtype).removeprefix("torch."),
+            num_chunks=(self.engine.chunk_plan(req.num_frames).num_chunks
+                        if self.engine.chunked else 0),
             platform=self.platform_tag, gen_time_s=gen_s,
             timings={"generate": round(gen_s, 4),
                      **{f"gen_{k}": v for k, v in gen_phases.items()},

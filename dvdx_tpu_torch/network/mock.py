@@ -155,13 +155,17 @@ def build_mock_network(n_miners: int = 3, adversaries: Optional[List[str]] = Non
                        wan: Optional[WANProfile] = None,
                        validator_config: Optional[ValidatorConfig] = None,
                        stake: int = 10_000, seed: int = 0, device="cuda",
-                       validator_pipeline: Optional[Pipeline] = None) -> MockNetwork:
+                       validator_pipeline: Optional[Pipeline] = None,
+                       mesh=None, mesh_strategy: Optional[str] = None) -> MockNetwork:
     """Miners (``adversaries[i]`` names miner i's kind, honest by default)
     over ``pipeline``, or over a seeded ``zeroscope-tiny`` built on
     ``device`` with its zero leaves perturbed. Each miner pins its engine's
     platform tag at registration. The validator runs on
     ``validator_pipeline`` where given (the same weights on another device,
-    say), else on the miners' pipeline."""
+    say), else on the miners' pipeline. With ``mesh`` (a
+    ``parallel.mesh.Mesh``; its other ranks follow, ``StepEngine.follow``)
+    and / or ``mesh_strategy`` the miners generate through that strategy's
+    program (fsdp by default on a mesh, as in the JAX package)."""
     adversaries = adversaries or []
     if pipeline is None:
         pipeline = perturb_zero_params(build_pipeline("zeroscope-tiny", seed=seed,
@@ -176,8 +180,11 @@ def build_mock_network(n_miners: int = 3, adversaries: Optional[List[str]] = Non
     miners: List[Miner] = []
     for i in range(n_miners):
         kind = adversaries[i] if i < len(adversaries) else "honest"
-        miner = ADVERSARIES[kind](pipeline, Keypair.from_seed(f"miner-{i}".encode()),
-                                  registry)
+        # a mesh miner's engine shards its pipeline in place: each gets its
+        # own copy, so the validator and the other miners keep theirs whole
+        miner_pipe = copy.deepcopy(pipeline) if mesh is not None else pipeline
+        miner = ADVERSARIES[kind](miner_pipe, Keypair.from_seed(f"miner-{i}".encode()),
+                                  registry, mesh=mesh, strategy=mesh_strategy)
         addr = f"mock://miner-{i}"
         uid = miner.register(addr, stake=stake, platform=miner.platform_tag)
         ledger.mint(f"miner-{uid}", stake)

@@ -148,7 +148,7 @@ class InferenceResponse:
     timesteps: List[int] = dataclasses.field(default_factory=list)
     latent_shape: List[int] = dataclasses.field(default_factory=list)  # (F, h, w, C)
     latent_dtype: str = "bfloat16"
-    num_chunks: int = 0           # chunked-strategy miners only (not ported)
+    num_chunks: int = 0           # a chunked-strategy miner's committed chunk count
     platform: str = ""            # engine tag; the registry pin decides the regime
     gen_time_s: float = 0.0
     # advisory miner-side phase seconds (unsigned, observability only)

@@ -14,6 +14,12 @@ over the registered miners.
   python -m dvdx_tpu_torch miner --port 8201 --validator-api 127.0.0.1:8100 \\
       --model zeroscope-tiny --perturb
 
+A miner with ``--mesh data,model,seq`` generates through ``--mesh-strategy``
+(fsdp by default) over that many ranks: the service is rank 0 and starts the
+other ranks itself, one process each (NCCL on the card, card r for rank r;
+gloo on the CPU), which follow its generations. ``--mesh-strategy`` alone
+(a chunked one: chunk, hybrid, hybrid_ctx) runs that program on one device.
+
 Both run on the card unless given ``--device cpu`` (or ``--cpu``, the JAX
 package's spelling). The miner writes ``miner_metrics.json`` into its working
 directory at every sync, the validator ``validator_metrics.json`` and
@@ -45,10 +51,6 @@ from .validator import Validator, ValidatorConfig
 NOT_PORTED = {
     "params_ckpt": "--params-ckpt (orbax checkpoints, utils/checkpoint) is not "
                    "ported yet: ROADMAP.md §1, M12 rest",
-    "mesh": "--mesh (PoI generation sharded over a miner's cards) is not ported "
-            "yet: ROADMAP.md §1, M10",
-    "mesh_strategy": "--mesh-strategy (with --mesh) is not ported yet: ROADMAP.md "
-                     "§1, M10",
 }
 
 
@@ -82,14 +84,56 @@ def _metrics(metrics: dict, device) -> dict:
     return out
 
 
+def _mesh_follower(rank: int, world: int, init_method: str, shape, args) -> None:
+    """Rank ``rank`` of a miner's mesh: the service's pipeline and engine,
+    following rank 0's generations until the service ends."""
+    import torch
+
+    from ..parallel.mesh import init_process_group, make_mesh
+    from ..verify.spotcheck import StepEngine
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    pipe = _pipeline(args.model, args.perturb, device)
+    init_process_group(init_method, world, rank, device)
+    StepEngine(pipe, mesh=make_mesh(shape, device=device),
+               strategy=args.mesh_strategy or "fsdp").follow()
+
+
+def build_miner(args, pipe, kp, registry) -> Miner:
+    """The service's miner: with --mesh, rank 0 of a process group over
+    that mesh (the other ranks started here, as daemons); with
+    --mesh-strategy alone, that strategy's one-device program."""
+    mcfg = MinerConfig(spool_dir=args.spool_dir) if args.spool_dir else None
+    mesh, strategy = None, args.mesh_strategy or None
+    if args.mesh:
+        import multiprocessing
+
+        import numpy as np
+
+        from ..parallel.mesh import free_port, init_process_group, make_mesh
+
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        world = int(np.prod(shape))
+        init = f"tcp://127.0.0.1:{free_port()}"
+        ctx = multiprocessing.get_context("spawn")
+        for r in range(1, world):
+            ctx.Process(target=_mesh_follower, args=(r, world, init, shape, args),
+                        daemon=True).start()
+        init_process_group(init, world, 0, pipe.device)
+        mesh = make_mesh(shape, device=pipe.device)
+        strategy = strategy or "fsdp"
+    return Miner(pipe, kp, registry, mcfg, mesh=mesh, strategy=strategy)
+
+
 async def run_miner(args):
     import aiohttp
 
     pipe = _pipeline(args.model, args.perturb, args.device)
     kp = _keypair(args.key_seed, f"miner-{args.port}")
     registry = Registry()
-    mcfg = MinerConfig(spool_dir=args.spool_dir) if args.spool_dir else None
-    miner = Miner(pipe, kp, registry, mcfg)
+    miner = build_miner(args, pipe, kp, registry)
 
     runner, port = await serve_neuron(miner.handle, args.host, args.port)
     address = f"{args.host}:{port}"
@@ -264,8 +308,12 @@ def build_parser():
     m.add_argument("--spool-dir", default="miner_spool",
                    help="disk spool for reveal-able traces ('' disables)")
     m.add_argument("--params-ckpt", default="", help="not ported yet (M12)")
-    m.add_argument("--mesh", default="", help="not ported yet (M10)")
-    m.add_argument("--mesh-strategy", default="", help="not ported yet (M10)")
+    m.add_argument("--mesh", default="",
+                   help="data,model,seq mesh shape (e.g. 1,2,1): PoI generation over "
+                        "that many ranks, started by this service")
+    m.add_argument("--mesh-strategy", default="",
+                   help="the strategy of --mesh (default fsdp), or a chunked one "
+                        "(chunk, hybrid, hybrid_ctx) alone")
 
     v = sub.add_parser("validator")
     _device_args(v, top=False)

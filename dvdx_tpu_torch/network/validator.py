@@ -13,19 +13,24 @@ out pro rata to score and the weight vector is emitted on the ledger. Check
 names and the round report's keys, ``timings_s`` phases included, are the
 JAX package's, so the two packages' reports read alike.
 
-The verification regime comes from the miner's registry pin: equal to this
-validator's own engine tag ("torch-cuda" / "torch-cpu"), the same program
-runs on both sides and the leaves must re-execute to the calibrated
-same-program bound (bitwise preferred); any other bare pin (a JAX miner's
-"cpu" or "tpu", or a torch miner on another device) gets the
-cross-platform tolerance. A strategy pin ("backend:strategy") names a
-sharded or chunked program the port does not run yet and is refused at
-``platform_pin`` without a slash.
+The verification regime comes from the miner's registry pin, as in the
+JAX package's ``_regime``: equal to this validator's own engine tag
+("torch-cuda" / "torch-cpu"), the same program runs on both sides and the
+leaves must re-execute to the calibrated same-program bound (bitwise
+preferred); a strategy pin on this backend ("torch-cuda:hybrid_ctx") gets
+that strategy's calibrated bound (``atol_by_strategy``, the JAX package's
+values); any other pin (a JAX miner's "cpu" or "cpu:fsdp", a torch miner on
+another device) the cross-platform tolerance. A chunked strategy is
+re-executed by an engine of the committed chunk plan (the response's
+``num_chunks``, checked against the leaves' shape first); value-preserving
+strategies re-execute on the plain program; an unknown strategy is refused
+at ``platform_pin`` without a slash.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import hashlib
 import json
@@ -52,9 +57,8 @@ from . import protocol as P
 from .base import Neuron, Registry, ScoreBook
 from .ledger import Ledger
 
-# Per-strategy tolerances of the JAX package's sharded and chunked miners
-# (``ValidatorConfig.atol_by_strategy``); the port refuses strategy pins
-# until it runs those programs, so nothing here reads them yet.
+# Same-backend tolerances of the sharded and chunked miners' regimes, the
+# JAX package's calibrated values (``ValidatorConfig.atol_by_strategy``).
 DEFAULT_REGIME_ATOL = {
     "fsdp": 2e-2,
     "cp_exact": 5e-2,
@@ -63,6 +67,8 @@ DEFAULT_REGIME_ATOL = {
     "hybrid": 1e-1,
     "hybrid_ctx": 1e-1,
 }
+# chunked verification engines kept between rounds
+MAX_CHUNK_ENGINES = 4
 
 
 @dataclasses.dataclass
@@ -156,20 +162,41 @@ class Validator(Neuron):
                                       gamma=self.config.mdvqs_gamma)
         self.metrics = {"rounds": 0, "responses": 0, "failures": 0,
                         "cheats_detected": 0, "reexec_steps": 0, "ledger_errors": 0}
+        # (strategy, num_chunks) -> chunked verification engine, least
+        # recently used first; a miner picks num_chunks, so the cache is
+        # bounded
+        self._chunk_engines: "collections.OrderedDict[Tuple[str, int], StepEngine]" = (
+            collections.OrderedDict())
+
+    def _chunk_engine(self, strategy_name: str, num_chunks: int) -> StepEngine:
+        """The single-device engine of the chunked program a miner pinned
+        and committed to."""
+        from ..parallel.strategies import get_strategy
+
+        key = (strategy_name, int(num_chunks))
+        eng = self._chunk_engines.pop(key, None)
+        if eng is None:
+            eng = StepEngine(self.pipeline,
+                             strategy=get_strategy(strategy_name, num_chunks=num_chunks))
+        self._chunk_engines[key] = eng
+        while len(self._chunk_engines) > MAX_CHUNK_ENGINES:
+            self._chunk_engines.popitem(last=False)
+        return eng
 
     def _regime(self, pinned: str) -> Tuple[bool, float, str]:
         """Registry pin -> (same_platform, atol, strategy_name). An empty pin
-        or this engine's own tag: the same-program bound; another bare pin:
-        the cross-platform atol; "backend:strategy": the strategy's name,
-        which the caller refuses."""
+        or this engine's own tag: the same-program bound; this backend with
+        a strategy: the strategy's calibrated bound; another backend: the
+        cross-platform atol (with its strategy's program where it names
+        one)."""
         if not pinned:
             return True, self.config.atol_same_program, ""
         pin_backend, _, strat = pinned.partition(":")
-        if strat:
-            return False, self.config.atol, strat
         if pin_backend != self.engine.platform_tag:
-            return False, self.config.atol, ""
-        return True, self.config.atol_same_program, ""
+            return False, self.config.atol, strat
+        if not strat:
+            return True, self.config.atol_same_program, ""
+        return False, self.config.atol_by_strategy.get(strat, self.config.atol), strat
 
     def _audit_decision(self) -> Tuple[bool, str]:
         """Audit-or-skip from OS entropy, so no miner can predict the
@@ -532,15 +559,40 @@ class Validator(Neuron):
         same_platform, atol, strat_name = self._regime(pinned)
         d["same_platform"] = same_platform
         d["regime_atol"] = atol
+
+        # the engine of the pinned program: value-preserving strategies run
+        # the plain one, a chunked strategy the committed chunk plan's
+        engine, ctx = self.engine, None
         if strat_name:
-            return fail("platform_pin", cheat=False, pinned=pinned)
-        d["verify_engine"] = ""
+            from ..parallel.strategies import get_strategy
+
+            try:
+                strat = get_strategy(strat_name)
+            except KeyError:
+                return fail("platform_pin", cheat=False, pinned=pinned)
+            if strat.chunked:
+                n = int(resp.num_chunks or 0)
+                if not 1 <= n <= req.num_frames:
+                    return fail("chunk_plan", chunks=n)
+                engine = self._chunk_engine(strat_name, n)
+                plan = engine.chunk_plan(req.num_frames)
+                spec = self.pipeline.spec
+                ds = spec.vae.downscale
+                expected = (plan.num_chunks, plan.chunk_len, req.height // ds,
+                            req.width // ds, spec.latent_channels)
+                if shape != expected:
+                    return fail("latent_shape", got=list(shape), expected=list(expected))
+                # the miner's CCI context is a function of the base noise
+                ctx = engine.context_latent(req.seed, req.num_frames, req.height,
+                                            req.width)
+        d["verify_engine"] = strat_name if engine is not self.engine else ""
         rtol = cfg.rtol_same_program if same_platform else 0.0
 
-        # base-noise binding: z_0 is the seed-derived base latent
+        # base-noise binding: z_0 is the seed-derived base latent (the
+        # gathered chunk stack for a chunked regime)
         t0 = time.perf_counter()
         if 0 in leaves:
-            base = self.engine.base_latent(req.seed, req.num_frames, req.height, req.width)
+            base = engine.base_latent(req.seed, req.num_frames, req.height, req.width)
             ok, err, _bit = compare_arrays(leaves[0][1], base, bitwise=same_platform,
                                            atol=atol, rtol=rtol)
             if not ok:
@@ -549,9 +601,9 @@ class Validator(Neuron):
         t0 = self._mark(d, "base_noise", t0)
 
         results, _ = verify_revealed_steps(
-            self.engine, req.prompt, req.negative_prompt, leaves, checks,
+            engine, req.prompt, req.negative_prompt, leaves, checks,
             req.num_steps, req.guidance_scale, same_platform=same_platform,
-            atol=atol, rtol=rtol, cfg_split=req.cfg_split)
+            atol=atol, rtol=rtol, cfg_split=req.cfg_split, ctx=ctx)
         t0 = self._mark(d, "reexecution", t0)
         self.metrics["reexec_steps"] += len(checks)
         for i in checks:
@@ -571,10 +623,10 @@ class Validator(Neuron):
             bind_frames = binding_frame_indices(audit_secret, resp.merkle_root,
                                                 req.num_frames, k=cfg.binding_num_frames)
             d["binding_frames"] = bind_frames
-            ok_bind, err = self.engine.verify_video_binding(
+            ok_bind, err = engine.verify_video_binding(
                 frames, leaves[last], last, req.num_steps, req.guidance_scale,
                 req.prompt, req.negative_prompt, frame_indices=bind_frames,
-                max_err=cfg.binding_max_err)
+                max_err=cfg.binding_max_err, num_frames=req.num_frames)
             self._mark(d, "video_binding", t0)
             d["video_binding_err"] = round(err, 4)
             if not ok_bind:

@@ -14,10 +14,20 @@ multi-head-native path (``flash_attention_mh`` on the projections'
 head-strip layout). The JAX package leaves that path off by default and the
 port has no switch for it, so the model path never routes through it and
 computes the same step program.
+
+``ring_context`` (the JAX module's, on a ``parallel.mesh.Mesh``) marks a
+region whose frame axis is sharded over the mesh's ``seq`` group: there a
+call with ``impl="ring"`` runs ``ops.ring_attention`` (ring, Ulysses, or
+Ulysses where the heads divide the group and ring elsewhere), and the layers
+take their frame-sharded routes (``ring_active``). Outside a ring context
+``impl="ring"`` is the default dispatch, so the single-device step program
+does not change.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -43,9 +53,61 @@ def wants_native_mh(s_q: int, s_kv: int, heads: int, head_dim: int) -> bool:
     return s_kv == s_q or s_kv <= MH_MAX_CONTEXT
 
 
+# A ContextVar, not a module global: a step program built on another thread
+# (the mock network's miners run in a thread pool) must not see this one's
+# ring context.
+_RING_CTX: contextvars.ContextVar[tuple] = contextvars.ContextVar("dvdx_ring_ctx",
+                                                                   default=())
+
+
+@contextlib.contextmanager
+def ring_context(mesh, axis_name: str = "seq", algo: str = "ring"):
+    """Inside this context the frame axis is sharded over ``axis_name`` of
+    ``mesh``, and attention calls with impl='ring' run as exact context
+    parallelism. algo: 'ring' (any head count), 'ulysses' (raises on heads
+    that do not divide the group) or 'auto' (Ulysses where they divide,
+    ring elsewhere)."""
+    if algo not in ("ring", "ulysses", "auto"):
+        raise ValueError(f"unknown cp algo {algo!r}")
+    token = _RING_CTX.set(_RING_CTX.get() + ((mesh, axis_name, algo),))
+    try:
+        yield
+    finally:
+        _RING_CTX.reset(token)
+
+
+def ring_active() -> bool:
+    """True inside a ring_context: the layers take their frame-sharded
+    routes (no fused temporal block or spatial tail, no frame-axis kernel,
+    GroupNorm moments and conv halos across the seq group)."""
+    return bool(_RING_CTX.get())
+
+
+def ring_mesh():
+    """(mesh, axis_name) of the innermost ring context, or None."""
+    stack = _RING_CTX.get()
+    return (stack[-1][0], stack[-1][1]) if stack else None
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v; q: (B, S, H, D), k/v: (B, T, H, D)."""
+                         scale: Optional[float] = None, impl: str = "auto") -> torch.Tensor:
+    """softmax(q k^T * scale) v; q: (B, S, H, D), k/v: (B, T, H, D).
+    impl 'ring' runs ring / Ulysses attention inside a ring context with a
+    seq group of more than one rank, and the default dispatch elsewhere."""
+    if impl == "ring":
+        stack = _RING_CTX.get()
+        if stack and q.shape[1] == k.shape[1]:
+            mesh, axis_name, algo = stack[-1]
+            n = mesh.shape[axis_name]
+            if n > 1:
+                from .ring_attention import ring_attention, ulysses_attention
+
+                if algo == "ulysses" or (algo == "auto" and q.shape[2] % n == 0):
+                    return ulysses_attention(q, k, v, mesh, axis_name=axis_name,
+                                             scale=scale)
+                return ring_attention(q, k, v, mesh, axis_name=axis_name, scale=scale)
+    elif impl != "auto":
+        raise ValueError(f"multi_head_attention: unknown impl {impl!r}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if wants_flash(q.shape[1], k.shape[1], q.shape[-1]):

@@ -13,7 +13,7 @@ The JAX package sends only deep-level rows (<= 512 KB) to its TPU kernel
 elsewhere; the port sends every GroupNorm of the UNet and the VAE through
 this one function. The kernel is one template over bf16 and float32 (the
 float32 test models), as the Pallas kernel takes either. Both compute f32
-one-pass moments; the pre-bias is added
+one-pass moments (the plain version sums them in float64 first); the pre-bias is added
 in f32 here, where the JAX ResnetBlock2D fallback adds it in the activation
 dtype first (tests state how far that moves the result).
 """
@@ -21,7 +21,7 @@ dtype first (tests state how far that moves the result).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,18 +58,26 @@ def plan(n: int, length: int, c: int, chunk_elems: Optional[int] = None) -> Grou
 def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, *, groups: int, eps: float,
                          act: str = "none",
-                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         bias: Optional[torch.Tensor] = None,
+                         moments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """GroupNorm over the non-leading axes of x (N, ..., C) in f32 with
     one-pass moments (variance clamped at 0), optional (N, C) pre-bias,
-    optional SiLU; result in x's dtype."""
+    optional SiLU; result in x's dtype. The moments' sums run in float64
+    and round once to float32, so they do not depend on the order of the
+    sum (``_moment_sums``); ``moments`` (mean, E[x^2]), each (N, groups)
+    float32, replaces x's own (``group_norm_act_sharded``)."""
     shape = x.shape
     n, c = shape[0], shape[-1]
     xf = x.reshape(n, -1, c).float()
     if bias is not None:
         xf = xf + bias.float()[:, None, :]
-    xg = xf.reshape(n, xf.shape[1], groups, c // groups)
-    mean = xg.mean(dim=(1, 3))
-    var = torch.clamp((xg * xg).mean(dim=(1, 3)) - mean * mean, min=0.0)
+    if moments is None:
+        sums, count = _moment_sums(xf, groups)
+        mean, sq = (sums / count).float()
+    else:
+        mean, sq = moments
+    var = torch.clamp(sq - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
     cpg = c // groups
     scale = rstd.repeat_interleave(cpg, dim=1) * gamma.float()
@@ -78,6 +86,18 @@ def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
     if act == "silu":
         y = y * torch.sigmoid(y)
     return y.to(x.dtype).reshape(shape)
+
+
+def _moment_sums(xf: torch.Tensor, groups: int):
+    """(the float64 sums of x and x^2 per (sample, group), stacked (2, N,
+    G); the element count per group). A float32 square is exact in float64,
+    and the float64 sum of a row's float32 values rounds to the same float32
+    mean in any order (its error is ~2^-29 of a float32 ulp), so a sum split
+    across ranks gives the one-device moments."""
+    n, c = xf.shape[0], xf.shape[-1]
+    xg = xf.reshape(n, -1, groups, c // groups).double()
+    return (torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))]),
+            float(xg.shape[1] * xg.shape[3]))
 
 
 def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -131,3 +151,34 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     else:
         LAUNCHES += 1
     return y.reshape(shape)
+
+
+# ROADMAP item named where a frame-sharded GroupNorm meets a CUDA tensor
+SHARDED_ROADMAP = "ROADMAP.md §1, M10 rest: a moments-in entry for csrc/groupnorm.cu"
+
+
+def group_norm_act_sharded(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                           *, groups: int, eps: float, act: str = "none",
+                           group=None, group_size: int = 1) -> torch.Tensor:
+    """GroupNorm of x (N, ..., C) whose statistics span the non-leading
+    axes on every rank of ``group`` (frames sharded over the mesh's seq
+    axis): each rank's float64 group sums of x and x^2 and its element
+    count are all-reduced, and the plain version normalises with the global
+    moments (the one-device moments' float32 values: ``_moment_sums``). With one rank this is ``group_norm_act`` (the kernel on the
+    card). A CUDA tensor over more than one rank raises: the kernel takes no
+    moments yet, and its plain version does not stand in for it on the card."""
+    if group is None or group_size <= 1:
+        return group_norm_act(x, gamma, beta, groups=groups, eps=eps, act=act)
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            f"group_norm_act_sharded: GroupNorm over frames sharded on {group_size} "
+            f"ranks has no CUDA kernel yet ({SHARDED_ROADMAP})")
+    import torch.distributed as dist
+
+    sums, count = _moment_sums(x.reshape(x.shape[0], -1, x.shape[-1]).float(), groups)
+    count = torch.tensor([count], dtype=torch.float64)
+    dist.all_reduce(sums, group=group)
+    dist.all_reduce(count, group=group)
+    mean, sq = (sums / count).float()
+    return group_norm_act_plain(x, gamma, beta, groups=groups, eps=eps, act=act,
+                                moments=(mean, sq))

@@ -133,11 +133,18 @@ def frame_noise(key: torch.Tensor, frame_idx: int, shape: Sequence[int],
     return normal(fold_in(key, frame_idx), shape, device)
 
 
+def frame_range_noise(key: torch.Tensor, start: int, num_frames: int,
+                      shape: Sequence[int], device="cuda") -> torch.Tensor:
+    """Noise of frames [start, start + num_frames), stacked on axis 0: rows
+    start.. of ``video_noise`` (a chunk worker draws only its own frames)."""
+    return torch.stack([frame_noise(key, start + f, shape, device)
+                        for f in range(num_frames)])
+
+
 def video_noise(key: torch.Tensor, num_frames: int, shape: Sequence[int],
                 device="cuda") -> torch.Tensor:
     """Base latent (num_frames, h, w, C) f32 for a key."""
-    return torch.stack([frame_noise(key, f, shape, device)
-                        for f in range(num_frames)])
+    return frame_range_noise(key, 0, num_frames, shape, device)
 
 
 AUX_SALT = 0xAE0B5EED  # keeps aux streams disjoint from frame-index folds

@@ -25,12 +25,31 @@ Leaves are bfloat16 in channel-last (F, h, w, C) layout. numpy has no
 bfloat16 of its own, so the engine hands them out as bfloat16 CPU tensors
 (the ``verify.merkle`` leaf format); the checks take those or numpy arrays,
 including the JAX package's ``ml_dtypes`` bfloat16 arrays, read by their
-bytes. Mesh and chunked execution are not ported.
+bytes.
+
+Strategies (``parallel.strategies``): an engine built with ``strategy=``
+(and optionally ``mesh=``) runs that strategy's step program. A chunked
+strategy (chunk, hybrid, hybrid_ctx) changes the program even on one
+device: its leaves are the chunk-stacked (n, L, h, w, C) latents of the plan
+fixed by (frames, num_chunks, overlap), which a miner commits in its
+response, and ``chunk_prep_fn`` is the one function both sides derive the
+initial chunk stack and the CCI context with. On a mesh the parameters are
+sharded over ``model`` (fsdp and hybrid*; the engine shards the pipeline
+it is given, in place, and ``close`` gives the parameters back, so a caller
+whose pipeline others share hands it a copy), the chunk rows split over
+``seq``, or for cp_exact / cp_ulysses the frames split over ``seq`` with
+ring / Ulysses attention. Such an engine's tag is "torch-<device>:<strategy>"
+(the validator's per-strategy regime); precond is refused (its full-latent
+phase changes the leaf shape mid-trace), and a value-preserving strategy
+without a mesh is the plain program. On a mesh of several ranks every rank
+must run each generation: rank 0 broadcasts the call (``generate_recorded``)
+and the other ranks serve it (``follow``) until ``release_followers``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -38,7 +57,9 @@ import numpy as np
 import torch
 
 from ..ops import rng as rng_ops
+from ..ops.attention import ring_context
 from ..ops.scheduler import ddim_step, make_ddim_schedule
+from ..parallel.chunking import auto_chunk_count, blend_chunks, gather_chunks, plan_chunks
 from ..pipelines.text2video import Pipeline, cfg_denoise_step, generate_core, to_uint8
 from ..utils.bridge import to_tensor
 from .proof import sample_distinct_indices
@@ -51,21 +72,194 @@ def _tmark(timings: Optional[dict], name: str, t0: float) -> float:
     return now
 
 
-class StepEngine:
-    """The prover / verifier step program of a ``Pipeline`` on its device."""
+# one multi-rank generation at a time in a process: the ranks' collectives
+# must meet in one order (the mock network serves miners from a thread pool)
+_MESH_LOCK = threading.Lock()
 
-    def __init__(self, pipeline: Pipeline):
+
+class StepEngine:
+    """The prover / verifier step program of a ``Pipeline`` on its device,
+    optionally of a strategy and on a mesh (see the module docstring)."""
+
+    def __init__(self, pipeline: Pipeline, mesh=None, strategy=None):
+        self.mesh = mesh
+        if strategy is None and mesh is not None:
+            strategy = "fsdp"
+        if strategy is not None:
+            from ..parallel.strategies import get_strategy
+
+            if isinstance(strategy, str):
+                strategy = get_strategy(strategy)
+            if strategy.name == "single" or (mesh is None and not strategy.chunked):
+                # the plain program: value-preserving strategies without a
+                # mesh, and single anywhere
+                strategy = None
+        if strategy is not None and strategy.pre_steps:
+            raise ValueError(
+                "PoI does not compose with the precond strategy: its full-latent "
+                "pre-phase changes the leaf shape mid-trace (commit a hybrid / "
+                "hybrid_ctx plan instead)")
+        self.strategy = strategy
+        self._shards = []
+        if strategy is not None and mesh is not None and strategy.shard_params \
+                and mesh.group(("model",)) is not None:
+            from ..parallel.sharding import shard_pipeline
+
+            self._shards = shard_pipeline(pipeline, mesh)  # in place
         self.pipe = pipeline
+        self._plans: Dict[tuple, object] = {}
+        self._following = False
 
     @property
     def platform_tag(self) -> str:
         """What this engine's miner pins at registration: "torch-cuda" on
-        the card, "torch-cpu" on the CPU. The CUDA kernels are built for
-        sm_90a alone, so "torch-cuda" is always a Hopper card."""
+        the card, "torch-cpu" on the CPU, with ":<strategy>" where a strategy
+        changes the program or its accumulation order. The CUDA kernels are
+        built for sm_90a alone, so "torch-cuda" is always a Hopper card."""
         kind = self.pipe.device.type
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"StepEngine: unsupported device {self.pipe.device}")
-        return f"torch-{kind}"
+        tag = f"torch-{kind}"
+        return f"{tag}:{self.strategy.name}" if self.strategy is not None else tag
+
+    # -- strategies --
+
+    @property
+    def chunked(self) -> bool:
+        return self.strategy is not None and self.strategy.chunked
+
+    def chunk_plan(self, num_frames: int):
+        """The committed chunk plan at F frames: the strategy's num_chunks,
+        or auto-sized from the mesh's seq axis as the strategy runner does;
+        None for an unchunked engine."""
+        if not self.chunked:
+            return None
+        n = self.strategy.num_chunks
+        if not n:
+            n = auto_chunk_count(num_frames, self.mesh.shape["seq"] if self.mesh else 1)
+        key = (num_frames, n, self.strategy.overlap)
+        if key not in self._plans:
+            self._plans[key] = plan_chunks(num_frames, n, self.strategy.overlap)
+        return self._plans[key]
+
+    def chunk_prep_fn(self, num_frames: int, lh: int, lw: int, c: int,
+                      latent_dtype: torch.dtype = torch.bfloat16):
+        """The one function prover and verifier derive a chunked trace's
+        start from: seed key -> (the chunk-stacked initial latent (n, L, h,
+        w, C) in latent_dtype, the CCI context (1, 1, h, w, C) float32, the
+        frame mean of the base noise), on the engine's device."""
+        plan = self.chunk_plan(num_frames)
+        dev = self.pipe.device
+
+        def prep(key):
+            z0 = rng_ops.video_noise(key, num_frames, (lh, lw, c), device=dev)
+            ctx = z0.mean(dim=0, keepdim=True)[None]
+            return gather_chunks(z0[None].to(latent_dtype), plan)[0], ctx
+
+        return prep
+
+    def context_latent(self, seed: int, num_frames: int, height: int, width: int,
+                       latent_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """The verifier's CCI context, re-derived from the committed seed."""
+        spec = self.pipe.spec
+        ds = spec.vae.downscale
+        with torch.inference_mode():
+            return self.chunk_prep_fn(num_frames, height // ds, width // ds,
+                                      spec.latent_channels, latent_dtype)(
+                rng_ops.base_key(seed))[1]
+
+    def _gather(self, x: torch.Tensor, split: bool, dim: int = 0) -> torch.Tensor:
+        from ..parallel.strategies import _gather_cat
+
+        return _gather_cat(x, self.mesh, ("seq",), dim) if split else x
+
+    def _strategy_step(self, z, step_index: int, sched, cond, uncond,
+                       guidance_scale: float, cfg_split: bool, ctx=None):
+        """One step of the strategy's program on z with its batch axis: the
+        chunk stack (n, L, h, w, C), or (1, F, h, w, C)."""
+        from ..parallel.strategies import _my_rows
+
+        st, mesh, unet = self.strategy, self.mesh, self.pipe.unet
+        if st.chunked:
+            n = z.shape[0]
+            cw = st.context_weight
+            cond_n, uncond_n = cond.repeat_interleave(n, 0), uncond.repeat_interleave(n, 0)
+            ctx_n = (ctx.to(z.device).repeat_interleave(n, 0)
+                     if ctx is not None and cw > 0.0 else None)
+            r0, r1, split = (_my_rows(n, mesh, ("seq",)) if mesh is not None
+                             else (0, n, False))
+            z_next, eps = cfg_denoise_step(
+                unet, sched, z[r0:r1], step_index, cond_n[r0:r1], uncond_n[r0:r1],
+                guidance_scale, context_latent=None if ctx_n is None else ctx_n[r0:r1],
+                context_weight=cw, cfg_split=cfg_split)
+            return self._gather(z_next, split), self._gather(eps, split)
+        seq = mesh.shape["seq"]
+        if st.exact_cp and seq > 1:
+            f = z.shape[1]
+            fl = f // seq
+            off = mesh.index(("seq",)) * fl
+            with ring_context(mesh, "seq", algo=st.cp_algo):
+                z_next, eps = cfg_denoise_step(
+                    unet, sched, z[:, off:off + fl], step_index, cond, uncond,
+                    guidance_scale, frame_positions=torch.arange(off, off + fl,
+                                                                 device=z.device),
+                    cfg_split=cfg_split)
+            return self._gather(z_next, True, 1), self._gather(eps, True, 1)
+        return cfg_denoise_step(unet, sched, z, step_index, cond, uncond, guidance_scale,
+                                cfg_split=cfg_split)
+
+    def _decode_video(self, z: torch.Tensor, num_frames: int) -> torch.Tensor:
+        """Final latent (with its batch axis) -> uint8 video: the chunk stack
+        ramp-blended first; frames split over the mesh's seq axis."""
+        from ..parallel.strategies import decode_latents
+
+        if self.chunked:
+            zf = blend_chunks(z.float()[None], self.chunk_plan(num_frames))[0]
+        else:
+            zf = z[0].float()
+        if self.mesh is None:
+            from ..models.vae import decode_frames_tiled
+
+            frames = decode_frames_tiled(self.pipe.vae_decoder, zf)
+        else:
+            frames = decode_latents(self.pipe, zf, self.mesh)
+        return to_uint8(frames)
+
+    @property
+    def _multi_rank(self) -> bool:
+        return self.mesh is not None and self.mesh.world_size > 1
+
+    def follow(self) -> int:
+        """A non-leading rank of a mesh engine: run every generation rank 0
+        broadcasts, until it releases the followers; returns the count."""
+        import torch.distributed as dist
+
+        served = 0
+        self._following = True
+        try:
+            while True:
+                box = [None]
+                dist.broadcast_object_list(box, src=0)
+                if box[0] is None:
+                    return served
+                self.generate_recorded(**box[0])
+                served += 1
+        finally:
+            self._following = False
+
+    def release_followers(self) -> None:
+        """Rank 0: end the other ranks' ``follow``."""
+        import torch.distributed as dist
+
+        if self._multi_rank:
+            dist.broadcast_object_list([None], src=0)
+
+    def close(self) -> None:
+        """The sharded pipeline's whole parameters back (an engine that
+        sharded nothing has nothing to do)."""
+        for s in self._shards:
+            s.remove()
+        self._shards = []
 
     def _schedule(self, num_steps: int):
         return make_ddim_schedule(num_steps, prediction_type=self.pipe.spec.prediction_type)
@@ -95,6 +289,18 @@ class StepEngine:
         phase: "dispatch_loop" (text, noise, the denoise loop and the decode
         handed to the device), "compute_wall" (until the device is done),
         "leaf_fetch" and "video_fetch" (the copies to the host)."""
+        if self.strategy is not None:
+            call = dict(prompt=prompt, negative_prompt=negative_prompt, seed=seed,
+                        num_frames=num_frames, height=height, width=width,
+                        num_steps=num_steps, guidance_scale=guidance_scale,
+                        latent_dtype=latent_dtype, cfg_split=cfg_split)
+            if not self._multi_rank or self._following:
+                return self._generate_strategy(call, timings)
+            import torch.distributed as dist
+
+            with _MESH_LOCK:
+                dist.broadcast_object_list([call], src=0)
+                return self._generate_strategy(call, timings)
         t0 = time.perf_counter()
         sched = self._schedule(num_steps)
         ids = torch.from_numpy(self.pipe.tokenize([negative_prompt, prompt])).long()
@@ -114,34 +320,84 @@ class StepEngine:
         _tmark(timings, "video_fetch", t0)
         return video, zs, epss, sched.timesteps.copy()
 
+    def _generate_strategy(self, call: dict, timings: Optional[dict]):
+        """generate_recorded through the strategy's step program; the leaves
+        are (N, n, L, h, w, C) for a chunked engine."""
+        t0 = time.perf_counter()
+        spec = self.pipe.spec
+        ds = spec.vae.downscale
+        f, lh, lw, c = call["num_frames"], call["height"] // ds, call["width"] // ds, \
+            spec.latent_channels
+        dev = self.pipe.device
+        sched = self._schedule(call["num_steps"])
+        uncond, cond = self._encode(call["prompt"], call["negative_prompt"])
+        key = rng_ops.base_key(call["seed"])
+        ctx = None
+        if self.chunked:
+            z, ctx = self.chunk_prep_fn(f, lh, lw, c, call["latent_dtype"])(key)
+        else:
+            z = rng_ops.video_noise(key, f, (lh, lw, c), device=dev)[None].to(
+                call["latent_dtype"])
+        zs, epss = [], []
+        for i in range(call["num_steps"]):
+            z_next, eps = self._strategy_step(z, i, sched, cond, uncond,
+                                              call["guidance_scale"], call["cfg_split"], ctx)
+            zs.append(z)
+            epss.append(eps)
+            z = z_next
+        video = self._decode_video(z, f)
+        t0 = _tmark(timings, "dispatch_loop", t0)
+        if video.is_cuda:
+            torch.cuda.current_stream(video.device).synchronize()
+        t0 = _tmark(timings, "compute_wall", t0)
+        zs, epss = torch.stack(zs), torch.stack(epss)
+        if not self.chunked:
+            zs, epss = zs[:, 0], epss[:, 0]
+        zs, epss = zs.cpu(), epss.cpu()
+        t0 = _tmark(timings, "leaf_fetch", t0)
+        video = video.cpu().numpy()
+        _tmark(timings, "video_fetch", t0)
+        return video, zs, epss, sched.timesteps.copy()
+
     # -- verifier path --
 
     def _step(self, z_i, step_index: int, sched, cond, uncond,
-              guidance_scale: float, cfg_split: bool):
-        z = as_tensor(z_i).to(self.pipe.device)[None]
-        z_next, eps = cfg_denoise_step(self.pipe.unet, sched, z, step_index, cond,
-                                       uncond, guidance_scale, cfg_split=cfg_split)
+              guidance_scale: float, cfg_split: bool, ctx=None):
+        z = as_tensor(z_i).to(self.pipe.device)
+        if self.chunked:  # the chunk stack is the batch
+            z_next, eps = self._strategy_step(z, step_index, sched, cond, uncond,
+                                              guidance_scale, cfg_split, ctx)
+            return eps.cpu(), z_next.cpu()
+        if self.strategy is not None:
+            z_next, eps = self._strategy_step(z[None], step_index, sched, cond, uncond,
+                                              guidance_scale, cfg_split)
+        else:
+            z_next, eps = cfg_denoise_step(self.pipe.unet, sched, z[None], step_index,
+                                           cond, uncond, guidance_scale,
+                                           cfg_split=cfg_split)
         return eps[0].cpu(), z_next[0].cpu()
 
     @torch.inference_mode()
     def reexecute_pair(self, prompt: str, negative_prompt: str, z_i,
                        step_index: int, num_steps: int, guidance_scale: float,
-                       cfg_split: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (eps_i', z_{i+1}') recomputed from z_i (F, h, w, C)."""
+                       cfg_split: bool = False, ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (eps_i', z_{i+1}') recomputed from z_i (F, h, w, C), or from
+        the chunk stack (n, L, h, w, C) with the seed-derived CCI context
+        ``ctx`` (``context_latent``) for a chunked engine."""
         uncond, cond = self._encode(prompt, negative_prompt)
         return self._step(z_i, step_index, self._schedule(num_steps), cond, uncond,
-                          guidance_scale, cfg_split)
+                          guidance_scale, cfg_split, ctx)
 
     @torch.inference_mode()
     def reexecute_steps(self, prompt: str, negative_prompt: str, z_list: Sequence,
                         step_indices: Sequence[int], num_steps: int,
-                        guidance_scale: float, cfg_split: bool = False
+                        guidance_scale: float, cfg_split: bool = False, ctx=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """All k sampled steps after one text encode, one batch-1 step each
-        (the same call generation makes) -> (eps' (k, ...), z_next' (k, ...))."""
+        """All k sampled steps after one text encode, one step call each
+        (the call generation makes) -> (eps' (k, ...), z_next' (k, ...))."""
         uncond, cond = self._encode(prompt, negative_prompt)
         sched = self._schedule(num_steps)
-        out = [self._step(z, i, sched, cond, uncond, guidance_scale, cfg_split)
+        out = [self._step(z, i, sched, cond, uncond, guidance_scale, cfg_split, ctx)
                for z, i in zip(z_list, step_indices)]
         return torch.stack([e for e, _ in out]), torch.stack([z for _, z in out])
 
@@ -158,12 +414,14 @@ class StepEngine:
                              guidance_scale: float, prompt: str,
                              negative_prompt: str = "",
                              frame_indices: Sequence[int] = (0,),
-                             max_err: float = 0.12) -> Tuple[bool, float]:
+                             max_err: float = 0.12,
+                             num_frames: int = 0) -> Tuple[bool, float]:
         """Bind the delivered video to the committed trace: re-derive z_final
         from the revealed last leaf (ddim_step on the engine's device, as
         generation takes it), decode the frames at ``frame_indices`` and
         compare each, 4x average-pooled, against the delivered frame.
-        Returns (all_ok, worst mean absolute error)."""
+        A chunked engine ramp-blends the final chunk stack to ``num_frames``
+        frames first. Returns (all_ok, worst mean absolute error)."""
         if last_index != num_steps - 1:
             raise ValueError("video binding requires the final leaf (T-1); "
                              "the final eps must also be re-executed so a "
@@ -173,6 +431,10 @@ class StepEngine:
         z_next = ddim_step(self._schedule(num_steps), last_index,
                            as_tensor(z_last).to(dev)[None],
                            as_tensor(eps_last).to(dev)[None])[0]
+        if self.chunked:
+            if not num_frames:
+                raise ValueError("chunked video binding requires num_frames")
+            z_next = blend_chunks(z_next.float()[None], self.chunk_plan(num_frames))[0]
 
         def pool(x, k=4):
             h, w, c = x.shape
@@ -199,9 +461,14 @@ class StepEngine:
     def base_latent(self, seed: int, num_frames: int, height: int, width: int,
                     latent_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """The miner's base noise re-derived from the 64-bit seed, on the
-        engine's device as generation draws it -> (F, h, w, C) CPU tensor."""
+        engine's device as generation draws it -> (F, h, w, C) CPU tensor;
+        the gathered chunk stack (n, L, h, w, C) for a chunked engine."""
         spec = self.pipe.spec
         ds = spec.vae.downscale
+        if self.chunked:
+            return self.chunk_prep_fn(num_frames, height // ds, width // ds,
+                                      spec.latent_channels, latent_dtype)(
+                rng_ops.base_key(seed))[0].cpu()
         noise = rng_ops.video_noise(rng_ops.base_key(seed), num_frames,
                                     (height // ds, width // ds, spec.latent_channels),
                                     device=self.pipe.device)
@@ -258,7 +525,7 @@ def verify_revealed_steps(
     engine: StepEngine, prompt: str, negative_prompt: str,
     leaves: Dict[int, Tuple[int, object, object]], checks: Sequence[int],
     num_steps: int, guidance_scale: float, *, same_platform: bool,
-    atol: float = 5e-2, rtol: float = 0.0, cfg_split: bool = False,
+    atol: float = 5e-2, rtol: float = 0.0, cfg_split: bool = False, ctx=None,
 ) -> Tuple[Dict[int, CheckResult], torch.Tensor]:
     """Re-execute every sampled step after one text encode. A step that
     fails is re-verified with the single-step path before it is declared a
@@ -266,7 +533,7 @@ def verify_revealed_steps(
     checks = list(checks)
     eps_re, z_next_re = engine.reexecute_steps(
         prompt, negative_prompt, [leaves[i][1] for i in checks], checks,
-        num_steps, guidance_scale, cfg_split=cfg_split)
+        num_steps, guidance_scale, cfg_split=cfg_split, ctx=ctx)
     results: Dict[int, CheckResult] = {}
     for row, i in enumerate(checks):
         _t, _z_i, eps_i = leaves[i]
@@ -283,7 +550,7 @@ def verify_revealed_steps(
         results[i] = verify_revealed_step(
             engine, prompt, negative_prompt, leaves[i], i, num_steps,
             guidance_scale, same_platform=same_platform, atol=atol, rtol=rtol,
-            next_leaf=leaves.get(i + 1), cfg_split=cfg_split)
+            next_leaf=leaves.get(i + 1), cfg_split=cfg_split, ctx=ctx)
     return results, z_next_re
 
 
@@ -293,13 +560,13 @@ def verify_revealed_step(engine: StepEngine, prompt: str, negative_prompt: str,
                          same_platform: bool,
                          next_leaf: Optional[Tuple[int, object, object]] = None,
                          atol: float = 5e-2, rtol: float = 0.0,
-                         cfg_split: bool = False) -> CheckResult:
+                         cfg_split: bool = False, ctx=None) -> CheckResult:
     """Full re-execution check of sampled step i: eps_i always, z_{i+1} too
     when next_leaf (step i + 1) is given."""
     _t_i, z_i, eps_i = leaf_i
     eps_re, z_next_re = engine.reexecute_pair(prompt, negative_prompt, z_i, step_index,
                                               num_steps, guidance_scale,
-                                              cfg_split=cfg_split)
+                                              cfg_split=cfg_split, ctx=ctx)
     ok_e, err_e, bit_e = compare_arrays(eps_re, eps_i, bitwise=same_platform,
                                         atol=atol, rtol=rtol)
     if not ok_e:

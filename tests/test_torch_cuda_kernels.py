@@ -558,3 +558,36 @@ def test_temporal_kernel_25_frames(cuda, layout, n, heads, d):
                                               v.transpose(1, 2), heads=heads).transpose(1, 2)
     torch.cuda.synchronize()
     _check(got, want)
+
+
+def test_frame_sharded_groupnorm_on_the_card(cuda):
+    """Over one rank the frame-sharded GroupNorm is the kernel; over more it
+    raises (the kernel takes no moments yet), and its plain version never
+    runs on a CUDA tensor."""
+    x = _randn((2, 8, 64, 64), 3, cuda).bfloat16()
+    w, b = _randn((64,), 4, cuda), _randn((64,), 5, cuda)
+    before = tgn.LAUNCHES
+    got = tgn.group_norm_act_sharded(x, w, b, groups=8, eps=1e-5, act="silu")
+    torch.cuda.synchronize()
+    assert tgn.LAUNCHES == before + 1
+    _check(got, tgn.group_norm_act_plain(x, w, b, groups=8, eps=1e-5, act="silu"))
+    with pytest.raises(NotImplementedError, match="moments-in entry"):
+        tgn.group_norm_act_sharded(x, w, b, groups=8, eps=1e-5, group=object(),
+                                   group_size=2)
+    assert tgn.LAUNCHES == before + 1
+
+
+def test_blend_chunks_on_the_card(cuda):
+    """The float32 blend's index_add_ on the card: the CPU's values within
+    float32 rounding, and the same bits on a second call (deterministic
+    algorithms on)."""
+    from dvdx_tpu_torch import enable_determinism
+    from dvdx_tpu_torch.parallel.chunking import blend_chunks, plan_chunks
+
+    enable_determinism()
+    plan = plan_chunks(16, 2, 2)
+    chunks = _randn((1, 2, 9, 40, 72, 4), 6, torch.device("cpu"))
+    ref = blend_chunks(chunks, plan)
+    got = blend_chunks(chunks.to(cuda), plan)
+    assert torch.equal(got, blend_chunks(chunks.to(cuda), plan))
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-6)

@@ -86,7 +86,11 @@ def test_kernel_sources_ship(source):
     "network.http_transport", "network.services", "scoring.lpips", "utils.keccak",
     "utils.bridge", "economics.params", "economics.security", "economics.cost",
     "economics.optimize", "models.dit_video", "models.vae", "models.zoo",
-    "pipelines.img2video", "ops.scheduler", "ops.rng"])
+    "pipelines.img2video", "ops.scheduler", "ops.rng", "parallel.chunking",
+    "parallel.latent_chunking", "parallel.mesh", "parallel.sharding",
+    "parallel.strategies", "parallel.runner", "parallel.coordinator",
+    "parallel.worker", "ops.ring_attention", "ops.attention", "ops.groupnorm",
+    "scoring.temporal", "verify.spotcheck"])
 def test_network_and_scoring_modules_import_without_jax(module):
     proc = _run("import sys\n"
                 "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"

@@ -97,11 +97,12 @@ def tiny_port(tiny_pipeline):
 
 
 class StrategyPinnedMiner(Miner):
-    """An honest miner pinning a sharded strategy the port does not run."""
+    """An honest miner pinning a strategy no validator knows (the
+    validator's strategies are ``parallel.strategies.PRESETS``)."""
 
     @property
     def platform_tag(self) -> str:
-        return "torch-cpu:fsdp"
+        return "torch-cpu:warp"
 
 
 def _add_miner(net, miner, i):

@@ -554,12 +554,35 @@ def test_validator_service_subprocess(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["miner", "--params-ckpt", "ckpt"], "M12"),
     (["validator", "--params-ckpt", "ckpt"], "M12"),
-    (["miner", "--mesh", "1,8,1"], "M10"),
-    (["miner", "--mesh-strategy", "fsdp"], "M10"),
 ])
 def test_unported_flags_refused(argv, item, capsys):
     assert services.main(argv) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,tag", [
+    (["miner", "--cpu", "--mesh-strategy", "hybrid_ctx"], "torch-cpu:hybrid_ctx"),
+    (["miner", "--cpu", "--mesh", "1,1,1"], "torch-cpu:fsdp"),
+    (["miner", "--cpu", "--mesh", "1,1,1", "--mesh-strategy", "cp_exact"],
+     "torch-cpu:cp_exact"),
+])
+def test_mesh_flags_build_a_strategy_miner(argv, tag):
+    """--mesh (a one-rank gloo group here) and --mesh-strategy give the
+    service's miner that strategy's engine and pin."""
+    import torch.distributed as dist
+
+    from dvdx_tpu_torch.pipelines.text2video import build_pipeline
+    from dvdx_tpu_torch.verify.proof import Keypair
+
+    args = services.parse_args(argv)
+    pipe = build_pipeline("zeroscope-tiny", device="cpu")
+    try:
+        miner = services.build_miner(args, pipe, Keypair.from_seed(b"m"), services.Registry())
+        assert miner.platform_tag == tag
+        assert (miner.engine.mesh is not None) == bool(args.mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("argv,device", [
