@@ -28,8 +28,10 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      structure on the card (kernels) and on the CPU (plain versions) from
      the same weights and inputs, every kernel of the model path launched;
      the base noise's bits on the card and on the CPU;
-  4. the main path: zeroscope-v2-576w with seeded random weights (zero-init
-     leaves perturbed so every layer carries signal). Request A: 16 frames at
+  4. the main path: zeroscope-v2-576w with the JAX package's seeded weights
+     for that registry name (``utils.init.fast_init``; zero-init leaves
+     perturbed so every layer carries signal), their digest held to the
+     JAX-derived constant first (phase 11(a)). Request A: 16 frames at
      576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root; every
      kernel of the model path must have launched, as often per UNet call as
      the layers' routing says. Request B: another prompt and seed, 3 steps,
@@ -84,7 +86,8 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      geometry) gives each miner's Merkle root. Start-up seconds, the round's
      wall seconds, each miner's ``timings_s`` and each process's device
      memory are printed;
-  9. the other families at full width and depth, seeded random weights:
+  9. the other families at full width and depth, the JAX package's seeded
+     weights:
      cogvideox-5b (the v-prediction video DiT, 7.17 B + a 3.83 B text tower,
      bf16): one recorded request through ``StepEngine`` at its native 48 x
      720x480 (latent 48 x 60 x 90 x 16; 65,026 joint tokens), 3 of its 50
@@ -133,6 +136,17 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      bit the in-process chunk program run one chunk per UNet batch (the
      workers' batch of 2), and its distance from the batch-4 chunk video
      printed;
+ 11. one model per registry name: (a) in phase 4, ``utils.init.tree_digest``
+     of Request A's weights (1.8 B, bf16, read back from the card) must equal
+     the digest the JAX package derives for zeroscope-v2-576w at seed 0,
+     perturbed at seed 99 (``utils.init.REFERENCE_DIGESTS``), with the
+     start-up seconds printed; (b) Request A and its re-executed steps run on
+     those weights (phase 4); (c) the orbax directory the JAX package's
+     ``save_params`` wrote (``tests/data/zeroscope_tiny_p99_orbax``) loaded
+     through tensorstore must equal the port's own zeroscope-tiny bit for
+     bit, and a validator and a miner process on ``--params-ckpt`` run a
+     round to ``completed`` with the miner bitwise; where tensorstore does
+     not import, the miner must refuse the flag with exit 2 naming it;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
   phase 2 alone holds; ``launches_xl`` from phase 7's request;
@@ -166,6 +180,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 OUT_DIR = "chiprun_out"
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))  # the checkout this script is in
 
 
 def log(*args):
@@ -871,6 +886,30 @@ def launch_bounds(module, run):
     return out
 
 
+def check_weights(pipe, init_s: float, perturb_s: float) -> dict:
+    """Phase 11(a): the full-width weights are the JAX package's. The
+    sha256 over every leaf in the flax layout, in the reference's tree
+    order (``utils.init.tree_digest``, read back from the card), must equal
+    the digest the JAX package derives for zeroscope-v2-576w at seed 0,
+    perturbed at seed 99 (``utils.init.REFERENCE_DIGESTS``): this host's
+    numpy gave the same SFC64 and default_rng bits, and the copy to the
+    card is exact."""
+    from dvdx_tpu_torch.utils.init import REFERENCE_DIGESTS, param_bytes, param_count, tree_digest
+
+    t0 = time.perf_counter()
+    digest = tree_digest(pipe)
+    want = REFERENCE_DIGESTS[("zeroscope-v2-576w", 0, 99)]
+    out = {"fast_init_s": init_s, "perturb_s": perturb_s,
+           "digest_s": time.perf_counter() - t0, "digest": digest, "expected": want,
+           "params": param_count(pipe), "bytes": param_bytes(pipe)}
+    log(f"phase 11(a) weights: fast_init {init_s:.2f} s + perturb {perturb_s:.2f} s "
+        f"(start-up), {out['params']} params, {out['bytes'] / 2**30:.2f} GiB; digest "
+        f"{digest} in {out['digest_s']:.1f} s, the JAX package's {want}: "
+        f"{'equal' if digest == want else 'DIFFERENT'}")
+    _require(digest == want, "phase 11(a): full-width weights against the JAX package's", out)
+    return out
+
+
 def run_path(steps_a: int):
     from dvdx_tpu_torch.ops import rng
     from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
@@ -881,11 +920,15 @@ def run_path(steps_a: int):
 
     t0 = time.perf_counter()
     pipe = build_pipeline("zeroscope-v2-576w", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
     perturb_zero_params(pipe, seed=99)
     torch.cuda.synchronize()
-    log(f"path: built zeroscope-v2-576w (seeded random init, zero leaves "
-        f"perturbed) in {time.perf_counter() - t0:.1f} s; "
-        f"params: {sum(p.numel() for p in pipe.parameters()) / 1e9:.3f} B")
+    t_build = time.perf_counter() - t0
+    log(f"path: built zeroscope-v2-576w (the JAX package's fast_init draws, zero "
+        f"leaves perturbed) in {t_build:.1f} s; params: "
+        f"{sum(p.numel() for p in pipe.parameters()) / 1e9:.3f} B")
+    weights = check_weights(pipe, t_init, t_build - t_init)
 
     prompt_a = "a red panda rides a bicycle through a snowy forest"
     reset_counts()
@@ -971,7 +1014,7 @@ def run_path(steps_a: int):
                           launches_request_b=launches_b,
                           launches_per_unet_call=per_step, reexecution=reexec,
                           bound_per_unet_call=unet_bounds,
-                          bound_per_vae_frame=vae_bounds)
+                          bound_per_vae_frame=vae_bounds, weights=weights)
 
 
 def check_reexecution(pipe, prompt, seed, video, zs, epss, ts, root_hex):
@@ -1192,8 +1235,7 @@ class Services:
         with open(os.path.join(cwd, "service.log"), "w") as out:
             proc = subprocess.Popen([sys.executable, "-m", "dvdx_tpu_torch", *argv], cwd=cwd,
                                     stdout=out, stderr=subprocess.STDOUT,
-                                    env={**os.environ, "PYTHONPATH": os.path.dirname(
-                                        os.path.abspath(__file__))})
+                                    env={**os.environ, "PYTHONPATH": REPO_DIR})
         self.procs[name] = (proc, cwd, time.perf_counter())
 
     def log_text(self, name: str) -> str:
@@ -1297,6 +1339,29 @@ def _check_service_memory(pids: dict, apps: dict, reserved: dict) -> dict:
             **{name: round(reserved[name] / 2**20) for name in pids}}
 
 
+def _request_round(svc, api: str, rid: str, prompt: str, what: str):
+    """A request through a validator service's REST API: /deposit and
+    /submit_prompt, then /status until the round ends; it must end
+    ``completed``. -> (/result body, wall seconds from the deposit)."""
+    t0 = time.perf_counter()
+    for path, body in (("deposit", {"user": "user-1", "request_id": rid, "amount": 1_000_000,
+                                    "prompt_hash": hashlib.sha256(prompt.encode()).hexdigest()}),
+                       ("submit_prompt", {"request_id": rid, "prompt": prompt})):
+        st, resp = _http("POST", f"{api}/{path}", body)
+        _require(st == 200, f"{what}: {path}", resp)
+
+    def finished():
+        status, body = _http("GET", f"{api}/status/{rid}", timeout=30)
+        return body if status == 200 and body["status"] in ("completed", "failed") else None
+
+    status = _poll(svc, "the round", finished, ROUND_DEADLINE_S)
+    wall = round(time.perf_counter() - t0, 3)
+    st, result = _http("GET", f"{api}/result/{rid}")
+    _require(st == 200 and status["status"] == "completed", f"{what}: round status",
+             {"status": status, "result": result})
+    return result, wall
+
+
 def run_services(pipe, smi: str):
     """Phase 8: one validator and three miners of zeroscope-v2-576w as four
     ``python -m dvdx_tpu_torch`` processes on the card (no device flag), a
@@ -1310,7 +1375,7 @@ def run_services(pipe, smi: str):
     from dvdx_tpu_torch.verify.merkle import MerkleCommitment
     from dvdx_tpu_torch.verify.spotcheck import StepEngine
 
-    root = os.path.abspath(os.path.join("build", "services"))
+    root = os.path.join(REPO_DIR, "build", "services")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     lpips_path = os.path.join(root, "lpips_alex.pth")
@@ -1348,28 +1413,9 @@ def run_services(pipe, smi: str):
         _require(pins == ["torch-cuda"] * 3, "services: miner pins", miners)
         out["nvidia_smi_idle"] = _compute_apps()
 
-        rid = "svc-576w"
-        prompt_hash = hashlib.sha256(SERVICE_PROMPT.encode()).hexdigest()
-        t0 = time.perf_counter()
-        st, body = _http("POST", f"{api}/deposit", {"user": "user-1", "request_id": rid,
-                                                   "prompt_hash": prompt_hash,
-                                                   "amount": 1_000_000})
-        _require(st == 200, "services: deposit", body)
-        st, body = _http("POST", f"{api}/submit_prompt", {"request_id": rid,
-                                                         "prompt": SERVICE_PROMPT})
-        _require(st == 200, "services: submit_prompt", body)
-
-        def finished():
-            status, body = _http("GET", f"{api}/status/{rid}", timeout=30)
-            return body if status == 200 and body["status"] in ("completed", "failed") \
-                else None
-
-        status = _poll(svc, "the round", finished, ROUND_DEADLINE_S)
-        out["round_wall_s"] = round(time.perf_counter() - t0, 3)
+        result, out["round_wall_s"] = _request_round(svc, api, "svc-576w", SERVICE_PROMPT,
+                                                     "services")
         out["nvidia_smi_after_round"] = _compute_apps()
-        st, result = _http("GET", f"{api}/result/{rid}")
-        _require(st == 200 and status["status"] == "completed", "services: round status",
-                 {"status": status, "result": result})
         per_miner = result["miners"]
         _require(set(per_miner) == set(miners), "services: every miner answered",
                  sorted(per_miner))
@@ -1462,6 +1508,97 @@ def run_services(pipe, smi: str):
     return out
 
 
+# --- phase 11(c): shared weights through --params-ckpt --------------------------
+
+PARAMS_CKPT = os.path.join(REPO_DIR, "tests", "data", "zeroscope_tiny_p99_orbax")
+CKPT_GEOMETRY = dict(num_frames=4, height=32, width=32, num_steps=4)
+
+
+def run_params_ckpt(smi: str) -> dict:
+    """Phase 11(c): the orbax directory the JAX package's ``save_params``
+    wrote from zeroscope-tiny (seed 0, perturbed at seed 99) is read here
+    without JAX or orbax and must equal the port's own ``fast_init`` +
+    ``perturb_zero_params`` bit for bit; then ``python -m dvdx_tpu_torch
+    miner --model zeroscope-tiny --params-ckpt <it>`` on the card runs a
+    round with a port validator of the same checkpoint, to ``completed``.
+    Where tensorstore does not import, the miner must instead refuse the
+    flag with exit 2 and name the module."""
+    import shutil
+
+    from dvdx_tpu_torch.models.zoo import get_model_spec
+    from dvdx_tpu_torch.pipelines.text2video import build_pipeline, empty_pipeline
+    from dvdx_tpu_torch.utils.init import tree_digest
+    from dvdx_tpu_torch.utils.testing import perturb_zero_params
+
+    ckpt = PARAMS_CKPT
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError as e:
+        proc = subprocess.run([sys.executable, "-m", "dvdx_tpu_torch", "miner", "--model",
+                               "zeroscope-tiny", "--params-ckpt", ckpt], capture_output=True,
+                              text=True, timeout=120,
+                              env={**os.environ, "PYTHONPATH": REPO_DIR})
+        log(f"phase 11(c) --params-ckpt: tensorstore does not import on this host ({e}); "
+            f"the miner exited {proc.returncode}: {proc.stderr.strip()[-300:]}")
+        _require(proc.returncode == 2 and "tensorstore" in proc.stderr,
+                 "phase 11(c): --params-ckpt refused without tensorstore", proc.stderr)
+        return {"tensorstore": False, "refused_exit": proc.returncode}
+
+    from dvdx_tpu_torch.utils.checkpoint import load_params
+
+    t0 = time.perf_counter()
+    loaded = load_params(ckpt, like=empty_pipeline(get_model_spec("zeroscope-tiny"), "cuda"))
+    load_s = time.perf_counter() - t0
+    own = perturb_zero_params(build_pipeline("zeroscope-tiny", seed=0, device="cuda"), seed=99)
+    got, want = tree_digest(loaded), tree_digest(own)
+    out = {"tensorstore": True, "load_s": load_s, "digest_loaded": got, "digest_own": want}
+    log(f"phase 11(c) --params-ckpt: tensorstore imports; the checkpoint loaded in "
+        f"{load_s:.2f} s, digest {got}, the port's fast_init + perturb {want}: "
+        f"{'equal' if got == want else 'DIFFERENT'}")
+    _require(got == want, "phase 11(c): checkpoint leaves against fast_init + perturb", out)
+    del loaded, own
+
+    root = os.path.join(REPO_DIR, "build", "params_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    results = os.path.join(root, "validator", "results")
+    api_port, miner_port = _free_ports(2)
+    api = f"http://127.0.0.1:{api_port}"
+    g = CKPT_GEOMETRY
+    svc = Services(root)
+    try:
+        svc.start("validator", [
+            "validator", "--model", "zeroscope-tiny", "--params-ckpt", ckpt,
+            "--width", str(g["width"]), "--height", str(g["height"]),
+            "--frames", str(g["num_frames"]), "--steps", str(g["num_steps"]),
+            "--poll-interval", "0.2", "--api-port", str(api_port), "--results-dir", results])
+        svc.start("miner", ["miner", "--model", "zeroscope-tiny", "--params-ckpt", ckpt,
+                            "--sync-interval", "1", "--port", str(miner_port),
+                            "--validator-api", f"127.0.0.1:{api_port}"])
+        out["startup_s"] = svc.wait_started({"validator": "REST API at", "miner": "serving at"})
+
+        def registered():
+            status, reg = _http("GET", f"{api}/registry", timeout=10)
+            ms = {u: n for u, n in reg.items() if n["role"] == "miner"}
+            return ms if status == 200 and len(ms) == 1 else None
+
+        miners = _poll(svc, "the miner registered", registered, REGISTRY_DEADLINE_S)
+        result, out["round_wall_s"] = _request_round(svc, api, "ckpt-tiny", "a red ball",
+                                                     "phase 11(c)")
+        (uid, d), = result["miners"].items()
+        _require(set(result["miners"]) == set(miners) and not d.get("cheat")
+                 and all(d["checks"].values()) and d["same_platform"] is True
+                 and d["reexec_bitwise"] is True and d["score"] > 0,
+                 "phase 11(c): the checkpoint miner's round", d)
+        out["miner"] = {k: d.get(k) for k in ("score", "reexec_max_err", "merkle_root")}
+        log(f"phase 11(c) ({smi}): validator and miner on --params-ckpt, start-up "
+            f"{json.dumps(out['startup_s'])} s, round {out['round_wall_s']} s to completed; "
+            f"miner {uid}: {json.dumps(out['miner'])}")
+    finally:
+        svc.stop()
+    return out
+
+
 # --- phase 7: zeroscope-v2-xl from a full-scale checkpoint -------------------
 
 # zeroscope's architecture in tests/torch_ref.py's (diffusers key names)
@@ -1518,8 +1655,7 @@ def load_torch_ref():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "torch_ref", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                                  "torch_ref.py"))
+        "torch_ref", os.path.join(REPO_DIR, "tests", "torch_ref.py"))
     torch_ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(torch_ref)
     return torch_ref
@@ -1752,8 +1888,7 @@ def run_xl():
     from dvdx_tpu_torch.verify.merkle import MerkleCommitment
     from dvdx_tpu_torch.verify.spotcheck import StepEngine, verify_revealed_steps
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    root = os.path.join(here, "build", "synthetic_xl")
+    root = os.path.join(REPO_DIR, "build", "synthetic_xl")
     shutil.rmtree(root, ignore_errors=True)
     prompt = "a red panda rides a bicycle through a snowy forest"
     out = {}
@@ -1936,8 +2071,8 @@ def run_xl():
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "dvdx_tpu_torch", "generate", "--prompt",
                            "a red ball", "--model", "zeroscope-tiny", "--frames", "4",
-                           "--out", mp4], cwd=here, capture_output=True, text=True,
-                          timeout=600, env={**os.environ, "PYTHONPATH": here})
+                           "--out", mp4], cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, "PYTHONPATH": REPO_DIR})
     out["cli"] = dict(returncode=proc.returncode, seconds=time.perf_counter() - t0,
                       stdout=proc.stdout.strip()[-500:], stderr=proc.stderr.strip()[-2000:])
     log(f"xl cli: python -m dvdx_tpu_torch generate (no --device): rc {proc.returncode} "
@@ -2090,7 +2225,7 @@ def run_dit(smi: str) -> dict:
     out["params"] = {name: sum(p.numel() for p in m.parameters()) for name, m in
                      (("dit", pipe.unet), ("text", pipe.text_encoder),
                       ("vae_dec", pipe.vae_decoder))}
-    log(f"dit: built cogvideox-5b (seeded random init on the card, zero leaves perturbed) "
+    log(f"dit: built cogvideox-5b (the JAX package's fast_init draws, zero leaves perturbed) "
         f"in {out['build_s']:.1f} s; params {json.dumps(out['params'])}, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     _require(out["params"]["dit"] > 7e9 and out["params"]["text"] > 3.5e9,
@@ -2776,6 +2911,7 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import dvdx_tpu_torch
     from dvdx_tpu_torch.ops import _build
 
@@ -2818,6 +2954,7 @@ def main():
     path["services"] = run_services(pipe, smi)
     torch.cuda.empty_cache()
     path["strategies"] = run_strategies(pipe, path["video_sha256"])
+    path["params_ckpt"] = run_params_ckpt(smi)
     del pipe
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
@@ -2882,6 +3019,14 @@ def main():
                         "launches_xl": path["xl"]["request"]["launches"][name],
                         "xl_per_unet_call": xl_per_call.get(name),
                         "xl_vae_frame": xl["held_vae_frame"].get(name), **families})
+    w, ck = path["weights"], path["params_ckpt"]
+    log(f"phase 11 ({smi}): (a) full-width weights equal to the JAX package's "
+        f"(digest {w['digest']}, start-up {w['fast_init_s'] + w['perturb_s']:.2f} s); "
+        f"(b) Request A on them: root {path['root']}, {path['seconds_per_request']:.2f} "
+        f"s/request, steps {path['reexecution']['checks']} re-executed bitwise; (c) "
+        f"--params-ckpt: " + (f"round completed in {ck['round_wall_s']} s"
+                              if ck["tensorstore"] else "refused with exit 2 (no tensorstore)"))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # again near the end: the start of a long output may be cut off
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

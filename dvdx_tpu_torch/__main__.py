@@ -15,14 +15,19 @@ Commands:
                (parallel.runner; --world-size N starts N ranks)
   coordinator  chunks denoised by worker processes, stitched and decoded
                (parallel.coordinator)
+  keys         keygen / sign / verify (verify.cli)
+  econ         the economics pipeline: EV sweep, deposit bounds, sensitivity,
+               plots (economics.run)
 
 ``miner`` and ``validator`` take the arguments of ``python -m
 dvdx_tpu_torch.network.services miner|validator``; like ``generate``,
 ``strategy`` and ``coordinator`` they run on the card unless given
 ``--device cpu`` (or ``--cpu``).
 
-``--model`` takes a registry name (seeded random weights) or a diffusers
-checkpoint directory (its weights and CLIP BPE tokenizer).
+``--model`` takes a registry name (seeded random weights, the JAX package's
+for the same name and seed) or a diffusers checkpoint directory (its
+weights and CLIP BPE tokenizer); ``miner`` and ``validator`` also take
+``--params-ckpt DIR``, an orbax directory of shared weights.
 """
 
 from __future__ import annotations
@@ -133,6 +138,14 @@ def main(argv=None) -> int:
 
         demo(rest)
         return 0
+    if cmd == "keys":
+        from .verify.cli import main as keys_main
+
+        return keys_main(rest)
+    if cmd == "econ":
+        from .economics.run import main as econ_main
+
+        return econ_main(rest)
     print(f"unknown command {cmd!r}\n")
     print(__doc__)
     return 2

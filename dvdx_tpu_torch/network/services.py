@@ -46,27 +46,30 @@ from .ledger import Ledger
 from .miner import Miner, MinerConfig
 from .validator import Validator, ValidatorConfig
 
-# flags of the JAX package's services that the port does not run yet: the
-# process refuses them rather than serve other weights or another program
-NOT_PORTED = {
-    "params_ckpt": "--params-ckpt (orbax checkpoints, utils/checkpoint) is not "
-                   "ported yet: ROADMAP.md §1, M12 rest",
-}
-
-
 def _keypair(seed: Optional[str], default_tag: str) -> Keypair:
     return Keypair.from_seed((seed or default_tag).encode())
 
 
-def _pipeline(model: str, perturb: bool, device, seed: int = 0):
-    """``model``: a registry name (seeded random weights) or a diffusers
-    checkpoint directory; ``perturb`` fills the zero-init layers (seed 99),
-    as every service of one deployment must."""
+def _pipeline(model: str, perturb: bool, device, seed: int = 0, ckpt: str = ""):
+    """``model``: a registry name (seeded random weights, the reference's) or
+    a diffusers checkpoint directory. ``ckpt``, an orbax directory the
+    reference's ``save_params`` wrote, gives the weights instead (and then
+    ``perturb`` does nothing): a registry name's modules are built empty and
+    filled from it, with no draws; otherwise ``perturb`` fills the zero-init
+    layers (seed 99), as every service of one deployment must."""
     from ..pipelines.text2video import resolve_pipeline
     from ..utils.testing import perturb_zero_params
 
+    if ckpt and not os.path.isdir(model):
+        from ..utils.checkpoint import load_pipeline
+
+        return load_pipeline(model, ckpt, device)
     pipe = resolve_pipeline(model, seed=seed, device=device)
-    if perturb:
+    if ckpt:
+        from ..utils.checkpoint import load_params
+
+        load_params(ckpt, like=pipe)
+    elif perturb:
         perturb_zero_params(pipe, seed=99)
     return pipe
 
@@ -95,7 +98,7 @@ def _mesh_follower(rank: int, world: int, init_method: str, shape, args) -> None
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
-    pipe = _pipeline(args.model, args.perturb, device)
+    pipe = _pipeline(args.model, args.perturb, device, ckpt=args.params_ckpt)
     init_process_group(init_method, world, rank, device)
     StepEngine(pipe, mesh=make_mesh(shape, device=device),
                strategy=args.mesh_strategy or "fsdp").follow()
@@ -130,7 +133,7 @@ def build_miner(args, pipe, kp, registry) -> Miner:
 async def run_miner(args):
     import aiohttp
 
-    pipe = _pipeline(args.model, args.perturb, args.device)
+    pipe = _pipeline(args.model, args.perturb, args.device, ckpt=args.params_ckpt)
     kp = _keypair(args.key_seed, f"miner-{args.port}")
     registry = Registry()
     miner = build_miner(args, pipe, kp, registry)
@@ -200,7 +203,7 @@ def _scorer(args, vcfg: ValidatorConfig, device):
 async def run_validator(args, on_serving: Optional[Callable[[int], None]] = None):
     """The validator service; ``on_serving(port)`` is called once the REST
     API listens (``--api-port 0`` picks a free port)."""
-    pipe = _pipeline(args.model, args.perturb, args.device)
+    pipe = _pipeline(args.model, args.perturb, args.device, ckpt=args.params_ckpt)
     kp = _keypair(args.key_seed, "validator")
     registry = Registry()
     ledger = Ledger()
@@ -307,7 +310,9 @@ def build_parser():
     m.add_argument("--sync-interval", type=float, default=30.0)
     m.add_argument("--spool-dir", default="miner_spool",
                    help="disk spool for reveal-able traces ('' disables)")
-    m.add_argument("--params-ckpt", default="", help="not ported yet (M12)")
+    m.add_argument("--params-ckpt", default="",
+                   help="orbax directory of shared weights (the reference's save_params); "
+                        "replaces --perturb")
     m.add_argument("--mesh", default="",
                    help="data,model,seq mesh shape (e.g. 1,2,1): PoI generation over "
                         "that many ranks, started by this service")
@@ -339,7 +344,9 @@ def build_parser():
     v.add_argument("--stuck-timeout", type=float, default=600.0)
     v.add_argument("--results-dir", default="generated_videos")
     v.add_argument("--resume", action="store_true")
-    v.add_argument("--params-ckpt", default="", help="not ported yet (M12)")
+    v.add_argument("--params-ckpt", default="",
+                   help="orbax directory of shared weights (the reference's save_params); "
+                        "replaces --perturb")
     return ap
 
 
@@ -353,10 +360,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    refused = [msg for flag, msg in NOT_PORTED.items() if getattr(args, flag, "")]
-    if refused:
-        print("\n".join(refused), file=sys.stderr)
-        return 2
+    if args.params_ckpt:
+        try:
+            import tensorstore  # noqa: F401
+        except ImportError as e:
+            print(f"{args.role}: --params-ckpt reads orbax checkpoints through the "
+                  f"tensorstore module, which does not import here ({e})", file=sys.stderr)
+            return 2
     import torch
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():

@@ -20,8 +20,9 @@ from torch import nn
 from ..models.vae import VAEEncoder, decode_frames_tiled
 from ..ops import rng as rng_ops
 from ..ops.scheduler import make_ddim_schedule
-from ..utils.bridge import load_jax_params, load_pipeline_params
-from .text2video import Pipeline, build_pipeline, denoise, random_init, to_uint8
+from ..utils.bridge import load_tree
+from ..utils.init import fast_init
+from .text2video import Pipeline, build_pipeline, denoise, to_uint8
 
 AUX_TAG_COND_AUG = 7  # the aux_noise tag of the conditioning augmentation
 
@@ -43,12 +44,19 @@ class Img2VideoPipeline(nn.Module):
     def device(self) -> torch.device:
         return self.base.device
 
+    def flax_trees(self) -> dict:
+        """The reference's img2vid ``Pipeline.params`` names of the modules."""
+        return {**self.base.flax_trees(), "vae_enc": self.vae_encoder}
+
 
 def build_img2video_pipeline(model_name: str = "svd-tiny", seed: int = 0,
                              device="cuda") -> Img2VideoPipeline:
     """Seeded random-init img2vid pipeline on ``device``: ``build_pipeline``'s
-    three modules (seeds seed .. seed + 2) and the VAE encoder (seed + 3).
-    Parity with the reference goes through ``load_img2video_params``."""
+    three modules (seeds seed .. seed + 2) and the VAE encoder (seed + 3),
+    the reference's draws (``utils.init.fast_init``; the reference keeps
+    the encoder's leaves in float32, the port rounds them once into the
+    encoder's compute dtype, so the two are bit-equal where that is
+    float32, as in svd-tiny)."""
     base = build_pipeline(model_name, seed=seed, device=device)
     if base.spec.conditioning != "image":
         raise ValueError(f"{model_name} is not an image-conditioned family")
@@ -56,7 +64,7 @@ def build_img2video_pipeline(model_name: str = "svd-tiny", seed: int = 0,
     enc = VAEEncoder(vae).to(device=base.device, dtype=vae.compute_dtype)
     if base.device.type == "cuda":
         enc.to(memory_format=torch.channels_last)
-    random_init(enc, seed + 3)
+    fast_init(enc, seed + 3)
     return Img2VideoPipeline(base, enc.eval())
 
 
@@ -64,9 +72,7 @@ def load_img2video_params(pipe: Img2VideoPipeline, tree) -> Img2VideoPipeline:
     """The reference's img2vid ``Pipeline.params`` ({'unet', 'text',
     'vae_dec', 'vae_enc'}) into ``pipe``'s four modules; a tree without
     'vae_enc' raises KeyError."""
-    load_pipeline_params(pipe.base, tree)
-    load_jax_params(pipe.vae_encoder, tree["vae_enc"])
-    return pipe
+    return load_tree(pipe, tree)
 
 
 def conditioning(pipe: Img2VideoPipeline, image: torch.Tensor, noise_key: torch.Tensor,

@@ -25,13 +25,13 @@ from torch import nn
 
 from .. import enable_determinism
 from ..models.dit_video import VideoDiT
-from ..models.layers import GroupNorm
 from ..models.text_encoder import CLIPTextEncoder, tokenize_batch
 from ..models.unet3d import UNet3D
 from ..models.vae import VAEDecoder, decode_frames_tiled
 from ..models.zoo import ModelSpec, get_model_spec
 from ..ops import rng as rng_ops
 from ..ops.scheduler import DDIMSchedule, ddim_step, make_ddim_schedule
+from ..utils.init import fast_init
 
 
 Denoiser = Union[UNet3D, VideoDiT]
@@ -57,6 +57,10 @@ class Pipeline(nn.Module):
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
 
+    def flax_trees(self) -> dict:
+        """The reference's ``Pipeline.params`` names of the three modules."""
+        return {"unet": self.unet, "text": self.text_encoder, "vae_dec": self.vae_decoder}
+
     def tokenize(self, texts: List[str]) -> np.ndarray:
         """Prompts -> (B, max_length) int32 ids. Part of the PoI chain: miner
         and validator hold the same tokenizer (the checkpoint's, or the hash
@@ -67,36 +71,10 @@ class Pipeline(nn.Module):
                               self.spec.text.max_length)
 
 
-@torch.no_grad()
-def random_init(module: nn.Module, seed: int) -> None:
-    """Seeded init on the module's device: dense and conv weights
-    N(0, 1/fan_in), ``*_zero`` layers and biases 0, norm scales 1,
-    embeddings N(0, 1/width), position tables and class tokens N(0, 0.02^2).
-    Drawn in float32 from one generator in parameter order, then cast once."""
-    dev = next(module.parameters()).device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for mod_name, mod in module.named_modules():
-        for name, p in mod.named_parameters(recurse=False):
-            if name == "bias" or mod_name.endswith("_zero"):
-                p.zero_()
-            elif name == "weight" and isinstance(mod, (nn.LayerNorm, GroupNorm)):
-                p.fill_(1.0)
-            else:
-                if name in ("position_embedding", "pos_embedding", "cls_token"):
-                    std = 0.02
-                elif isinstance(mod, nn.Embedding):
-                    std = p.shape[1] ** -0.5
-                else:
-                    std = (p[0].numel()) ** -0.5
-                draw = torch.randn(p.shape, generator=gen, device=dev,
-                                   dtype=torch.float32)
-                p.copy_(draw * std)
-
-
 def empty_pipeline(spec: ModelSpec, device="cuda", tokenizer=None) -> Pipeline:
     """The spec's modules on ``device`` with uninitialised parameters in each
     module's compute dtype, for a caller that sets every parameter
-    (``random_init``, or a checkpoint through ``utils.bridge``)."""
+    (``utils.init.fast_init``, or a checkpoint through ``utils.bridge``)."""
     device = torch.device(device)
     if device.type == "cuda":
         enable_determinism()
@@ -117,14 +95,17 @@ def empty_pipeline(spec: ModelSpec, device="cuda", tokenizer=None) -> Pipeline:
 
 def build_pipeline(model: Union[str, ModelSpec] = "zeroscope-v2-576w",
                    seed: int = 0, device="cuda") -> Pipeline:
-    """Seeded random-init pipeline for a registered family (or a spec),
-    built on ``device`` with parameters in each module's compute dtype.
-    Weights are not the reference's ``fast_init`` draws; parity with the
-    reference goes through ``utils.bridge.load_pipeline_params``."""
+    """Seeded pipeline for a registered family (or a spec), built on
+    ``device`` with parameters in each module's compute dtype. The weights
+    are the reference's for the same name and seed, bit for bit:
+    ``utils.init.fast_init`` of the denoiser, the text encoder and the VAE
+    decoder at seeds seed, seed + 1, seed + 2, each leaf drawn in float32
+    and cast once to the denoiser's compute dtype."""
     spec = model if isinstance(model, ModelSpec) else get_model_spec(model)
     pipe = empty_pipeline(spec, device)
+    dtype = spec.denoiser_config.compute_dtype
     for i, module in enumerate((pipe.unet, pipe.text_encoder, pipe.vae_decoder)):
-        random_init(module, seed + i)
+        fast_init(module, seed + i, dtype=dtype)
     return pipe
 
 

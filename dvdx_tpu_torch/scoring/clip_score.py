@@ -21,7 +21,7 @@ from torch import nn
 from ..models.clip_vision import CLIPVisionEncoder, VisionConfig, tiny_vision_config
 from ..models.text_encoder import (CLIPTextEncoder, TextEncoderConfig, tiny_text_config,
                                    tokenize_batch)
-from ..pipelines.text2video import random_init
+from ..utils.init import fast_init
 from .common import as_device_u8
 
 
@@ -84,13 +84,18 @@ class CLIPScorer(nn.Module):
     def device(self) -> torch.device:
         return self.text_proj.device
 
+    def flax_trees(self) -> dict:
+        """The reference scorer's ``params`` names: two towers and the bare
+        ``text_proj``."""
+        return {"vision": self.vision, "text": self.text, "text_proj": self.text_proj}
+
     @classmethod
     def build(cls, vision_cfg: Optional[VisionConfig] = None,
               text_cfg: Optional[TextEncoderConfig] = None, seed: int = 1234,
               device="cuda") -> "CLIPScorer":
-        """Seeded random towers (``pipelines.text2video.random_init``, not
-        the reference's draws; parity goes through ``utils.bridge``), and
-        ``text_proj`` drawn as the reference draws it: numpy
+        """Seeded random towers, the reference's draws
+        (``utils.init.fast_init`` at seed and seed + 1, float32 not cast),
+        and ``text_proj`` drawn as the reference draws it: numpy
         default_rng(seed + 2), N(0, hidden^-1/2)."""
         vision_cfg = vision_cfg or tiny_vision_config()
         text_cfg = text_cfg or tiny_text_config()
@@ -98,8 +103,8 @@ class CLIPScorer(nn.Module):
             scorer = cls(vision_cfg, text_cfg)
         scorer.vision.to(vision_cfg.compute_dtype)
         scorer.text.to(text_cfg.compute_dtype)
-        random_init(scorer.vision, seed)
-        random_init(scorer.text, seed + 1)
+        fast_init(scorer.vision, seed)
+        fast_init(scorer.text, seed + 1)
         proj = np.random.default_rng(seed + 2).normal(
             0, text_cfg.hidden_size ** -0.5,
             (text_cfg.hidden_size, vision_cfg.projection_dim)).astype(np.float32)

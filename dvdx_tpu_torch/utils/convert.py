@@ -499,6 +499,36 @@ def convert_vae_decoder(sd: Dict[str, np.ndarray], cfg: VAEConfig) -> Dict[str, 
     return {"params": m.unflatten()}
 
 
+def convert_vae_encoder(sd: Dict[str, np.ndarray], cfg: VAEConfig) -> Dict[str, Any]:
+    """AutoencoderKL's encoder half -> {'params': tree} of
+    ``models.vae.VAEEncoder`` (the mean path). diffusers gives (mean,
+    logvar) through conv_out (2C channels) and then quant_conv (1x1 over
+    2C); the encoder emits the mean only, so quant_conv's mean rows are
+    folded into conv_out exactly, as the reference folds them:
+    W'[o] = sum_c Q[o, c] C[c], b' = Q_b[o] + sum_c Q[o, c] C_b[c]."""
+    m = _Mapper(sd)
+    levels = len(cfg.channel_mults)
+    m.conv2d("conv_in", "encoder.conv_in")
+    for i in range(levels):
+        for j in range(cfg.layers_per_block):
+            _map_resnet(m, f"down_{i}_{j}", f"encoder.down_blocks.{i}.resnets.{j}",
+                        time_emb=False)
+        if i < levels - 1:
+            m.conv2d(f"down_{i}_conv", f"encoder.down_blocks.{i}.downsamplers.0.conv")
+    _map_resnet(m, "mid_res1", "encoder.mid_block.resnets.0", time_emb=False)
+    if cfg.use_mid_attention:
+        _map_vae_attention(m, "mid_attn", "encoder.mid_block.attentions.0")
+    _map_resnet(m, "mid_res2", "encoder.mid_block.resnets.1", time_emb=False)
+    m.norm("norm_out", "encoder.conv_norm_out")
+    cw, cb = m.take("encoder.conv_out.weight"), m.take("encoder.conv_out.bias")
+    qw, qb = m.take("quant_conv.weight")[:, :, 0, 0], m.take("quant_conv.bias")
+    c = cfg.latent_channels
+    m.put("conv_mean/kernel", t_conv2d(np.einsum("oc,cihw->oihw", qw[:c], cw)))
+    m.put("conv_mean/bias", qb[:c] + qw[:c] @ cb)
+    m.check_all_used("VAE-encoder", ("decoder.", "post_quant_conv."))
+    return {"params": m.unflatten()}
+
+
 # --- spec and pipeline ------------------------------------------------------------
 
 def spec_from_diffusers_configs(root: str, name: Optional[str] = None,

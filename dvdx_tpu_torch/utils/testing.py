@@ -4,14 +4,15 @@ A freshly initialised model has zero-init output projections (temporal
 mixers, spatial transformer proj_out, the UNet's conv_out) and zero biases,
 so eps is identically 0 and the temporal paths are multiplied by zero.
 ``perturb_zero_params`` fills every all-zero parameter with small seeded
-noise so that signal flows through every layer, as the reference's
-``dvdx_tpu/utils/testing.py`` does for its parameter trees.
+noise so that signal flows through every layer, bit for bit as the
+reference's ``dvdx_tpu/utils/testing.py`` does for the same weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -19,6 +20,8 @@ from ..models import text_encoder, unet3d, vae, zoo
 from ..ops import rng
 from ..ops.scheduler import make_ddim_schedule
 from ..pipelines.text2video import Pipeline, build_pipeline, encode_prompts
+from .bridge import flax_leaves
+from .init import drawn
 
 # The reference check (``chip_smoke.py``): one UNet call of
 # ``reference_check_pipeline`` on the card (its kernels) against the same
@@ -31,17 +34,60 @@ REFERENCE_RELRMS_TOL = 0.03
 
 
 @torch.no_grad()
-def perturb_zero_params(module: nn.Module, seed: int = 0,
-                        scale: float = 0.02) -> nn.Module:
-    """Replace every all-zero parameter with N(0, scale) noise, in place,
-    drawn on the parameter's device from a generator seeded per parameter."""
-    for i, param in enumerate(module.parameters()):
-        if param.numel() and not param.any():
-            gen = torch.Generator(device=param.device).manual_seed(seed * 100003 + i)
-            noise = torch.randn(param.shape, generator=gen, device=param.device,
-                                dtype=torch.float32)
-            param.copy_(noise * scale)
-    return module
+def perturb_zero_params(obj: nn.Module, seed: int = 0, scale: float = 0.02) -> nn.Module:
+    """Replace every all-zero parameter with N(0, scale) noise, in place, as
+    the reference's ``perturb_zero_params`` does to the same weights: the
+    index i runs over the leaves of the reference's whole tree in
+    ``jax.tree.flatten`` order (``utils.bridge.flax_leaves``; for a
+    pipeline {'text', 'unet', 'vae_dec'} with their ``params`` levels), and
+    leaf i gets numpy ``default_rng(seed * 100003 + i).normal(0, scale)`` in
+    the flax shape, in float64, cast to the leaf's dtype (through float32,
+    as ``ml_dtypes`` casts float64 to bfloat16), then moved into the port's
+    layout."""
+    zero = [(i, leaf) for i, leaf in enumerate(flax_leaves(obj))
+            if leaf.param.numel() and not leaf.param.any()]
+
+    def draw(item):
+        i, leaf = item
+        noise = np.random.default_rng(seed * 100003 + i).normal(0.0, scale, leaf.shape)
+        return torch.from_numpy(noise.astype(np.float32))
+
+    for (_, leaf), value in drawn(zero, draw):
+        leaf.param.copy_(leaf.to_torch(value.to(leaf.param.device).to(leaf.param.dtype)))
+    return obj
+
+
+def amplify_temporal_params(obj: nn.Module, gain: float) -> nn.Module:
+    """Scale the temporal mixers' output leaves (zero-init at birth:
+    ``temporal_attn/to_out_zero``, ``temp_conv/conv*_zero``) by ``gain``,
+    in place. A perturbed-zero model couples frames only at the
+    perturbation's scale; amplifying the temporal outputs moves the random
+    parameter point toward a trained model's strong frame coupling, so
+    chunk-boundary metrics have signal at toy scale (the reference's
+    ``amplify_temporal_params``)."""
+    return _amplify_matching(obj, gain, lambda ks: ("temporal_attn" in ks or "temp_conv" in ks)
+                             and "zero" in ks)
+
+
+def amplify_output_params(obj: nn.Module, gain: float) -> nn.Module:
+    """Scale the UNet's zero-init output conv (``conv_out_zero``) by
+    ``gain``, in place, so eps matters against the base noise (the
+    reference's ``amplify_output_params``)."""
+    return _amplify_matching(obj, gain, lambda ks: "conv_out_zero" in ks)
+
+
+@torch.no_grad()
+def _amplify_matching(obj: nn.Module, gain: float, match) -> nn.Module:
+    """Multiply the leaves whose reference key string (``['unet']['params']
+    ['conv_out_zero']['kernel']``, as ``jax.tree_util.keystr`` writes it)
+    matches by ``gain``: in float32 with gain rounded to float32, then cast
+    to the leaf's dtype, as numpy multiplies a float32 or bfloat16 leaf by
+    a Python float."""
+    g = torch.tensor(gain, dtype=torch.float32)
+    for leaf in flax_leaves(obj):
+        if match("".join(f"['{k}']" for k in leaf.path)):
+            leaf.param.copy_((leaf.param.float() * g.to(leaf.param.device)).to(leaf.param.dtype))
+    return obj
 
 
 def reference_check_spec(dtype: str) -> zoo.ModelSpec:

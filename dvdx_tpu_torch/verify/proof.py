@@ -11,8 +11,10 @@ other:
   merkle_root;
 * Ed25519 signatures (the ``cryptography`` package, which both hosts carry);
 * the length-prefixed registration message with its replay bound;
-* commit-then-reveal spot-check indices, drawn from a post-commit audit
-  secret so the miner cannot grind its fake leaves against them.
+* commit-then-reveal spot-check indices (and their consecutive pairs),
+  drawn from a post-commit audit secret so the miner cannot grind its fake
+  leaves against them;
+* ``InferenceProof``, the proof dict a miner returns.
 """
 
 from __future__ import annotations
@@ -154,3 +156,49 @@ def sample_spotcheck_indices(merkle_root: bytes, challenge: bytes, num_steps: in
         return []
     return sample_distinct_indices(b"", secret + merkle_root + challenge,
                                    num_steps, num_checks)
+
+
+def sample_spotcheck_pairs(merkle_root: bytes, challenge: bytes, num_steps: int,
+                           secret: bytes, num_checks: int = 3) -> List[Tuple[int, int]]:
+    """(i, min(i + 1, T - 1)) pairs of ``sample_spotcheck_indices``: step i
+    is re-executed and z_{i+1} re-derived from it. ``secret`` is required,
+    as there."""
+    if not secret:
+        raise ValueError("sample_spotcheck_pairs requires the post-commit "
+                         "audit secret; commit-time-known inputs alone are "
+                         "grindable by the miner")
+    idxs = sample_spotcheck_indices(merkle_root, challenge, num_steps, num_checks,
+                                    secret=secret)
+    return [(i, i + 1) if i + 1 < num_steps else (i, i) for i in idxs]
+
+
+@dataclasses.dataclass
+class InferenceProof:
+    """The proof a miner returns with a response, as a JSON-able dict of
+    hex strings and ints (the reference's schema)."""
+
+    merkle_root: bytes
+    signature: bytes
+    miner_pubkey: bytes
+    challenge: bytes
+    seed: int
+    num_steps: int
+    timesteps: List[int]
+    video_sha256: bytes
+
+    def to_dict(self) -> dict:
+        return {"merkle_root": self.merkle_root.hex(), "signature": self.signature.hex(),
+                "miner_pubkey": self.miner_pubkey.hex(), "challenge": self.challenge.hex(),
+                "seed": self.seed, "num_steps": self.num_steps,
+                "timesteps": [int(t) for t in self.timesteps],
+                "video_sha256": self.video_sha256.hex()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "InferenceProof":
+        return cls(merkle_root=bytes.fromhex(d["merkle_root"]),
+                   signature=bytes.fromhex(d["signature"]),
+                   miner_pubkey=bytes.fromhex(d["miner_pubkey"]),
+                   challenge=bytes.fromhex(d["challenge"]), seed=int(d["seed"]),
+                   num_steps=int(d["num_steps"]),
+                   timesteps=[int(t) for t in d["timesteps"]],
+                   video_sha256=bytes.fromhex(d["video_sha256"]))

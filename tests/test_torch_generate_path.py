@@ -387,10 +387,8 @@ def test_cli_help_and_no_card():
     r = _cli(["--help"], timeout=60)
     assert r.returncode == 0
     for cmd in ("generate", "miner", "validator", "convert", "mock-round", "strategy",
-                "coordinator"):
+                "coordinator", "keys", "econ"):
         assert f"  {cmd} " in r.stdout
-    for absent in ("keys", "econ"):
-        assert f"  {absent} " not in r.stdout
     assert _cli(["frobnicate"], timeout=60).returncode == 2
     if torch.cuda.is_available():
         pytest.skip("a card is present: generate would run on it")

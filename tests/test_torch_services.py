@@ -552,10 +552,14 @@ def test_validator_service_subprocess(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["miner", "--params-ckpt", "ckpt"], "M12"),
-    (["validator", "--params-ckpt", "ckpt"], "M12"),
+    (["miner", "--params-ckpt", "ckpt"], "tensorstore"),
+    (["validator", "--params-ckpt", "ckpt"], "tensorstore"),
 ])
-def test_unported_flags_refused(argv, item, capsys):
+def test_unported_flags_refused(argv, item, capsys, monkeypatch):
+    """--params-ckpt reads orbax checkpoints through tensorstore; where that
+    module does not import, the service refuses the flag with exit 2 and
+    names the module, rather than serve other weights."""
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
     assert services.main(argv) == 2
     assert item in capsys.readouterr().err
 
