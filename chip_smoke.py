@@ -19,7 +19,11 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      = 40; flash and frame-axis attention in float32), and the shapes the
      XL geometry adds (flash at 9216 tokens, held on two frames' batch-heads,
      and at level 2's 576; the fused tail and block over 24 x 9216; GroupNorm
-     at the UNet's level 0 and the VAE's full 1024x576 frame), with kernel /
+     at the UNet's level 0 and the VAE's full 1024x576 frame), the
+     frame-sharded GroupNorm's two entries (moments-out: the float32 moments
+     of its float64 sums bit-equal to the plain version's; moments-in given
+     the same moments) at the UNet's level-0 and level-2 frame-sharded
+     norms, with kernel /
      plain / library times
      (CUDA events, the launches queued behind a device spin), the roofline
      bound (the fused kernels' also split into their chain and FF launches),
@@ -32,7 +36,8 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      for that registry name (``utils.init.fast_init``; zero-init leaves
      perturbed so every layer carries signal), their digest held to the
      JAX-derived constant first (phase 11(a)). Request A: 16 frames at
-     576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root; every
+     576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root (held to
+     the recorded ``REQUEST_A_ROOT``); every
      kernel of the model path must have launched, as often per UNet call as
      the layers' routing says. Request B: another prompt and seed, 3 steps,
      run twice; leaves and roots must be bit-identical. The validator's
@@ -71,7 +76,9 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      which must run on the card;
   8. the network as processes: one validator and three miners of
      zeroscope-v2-576w started as four ``python -m dvdx_tpu_torch`` processes
-     with no device flag (each in its own directory under
+     with no device flag and ``DVDX_PARAM_CACHE`` set to the file phase 12
+     wrote, so each loads its weights instead of drawing them (the file is
+     deleted after the phase; each in its own directory under
      ``build/services/``; the validator scores VQ with LPIPS(alex) from a
      seeded lpips-package checkpoint written there). The three miners must
      register pinned ``torch-cuda``; a request goes through ``/deposit`` and
@@ -119,7 +126,9 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      itself at that one rank (3 steps inside ``ring_context``, algo ring and
      auto: the routed layers, the conv halo, the frame-sharded GroupNorm's
      entry, the fused tail / block / frame-axis kernels off) within
-     ``REFERENCE_RELRMS_TOL`` of single's latent, and ``ring_attention`` /
+     ``REFERENCE_RELRMS_TOL`` of single's latent, beside the same program
+     with the fused gates off and no route taken (its distance from single
+     and from the routed program), and ``ring_attention`` /
      ``ulysses_attention`` on the card at its frame-axis input against the
      plain attention; a mesh miner (fsdp ``Miner`` on that group) that
      shards its pipeline in place, with its peak memory beside the
@@ -147,8 +156,26 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      bit, and a validator and a miner process on ``--params-ckpt`` run a
      round to ``completed`` with the miner bitwise; where tensorstore does
      not import, the miner must refuse the flag with exit 2 naming it;
+ 12. the frame-sharded GroupNorm and the weight cache (run right after
+     phase 4): (a) Request A's first frame-sharded GroupNorm input (the
+     first ``GroupNorm.over_frames`` of its first UNet call) with its
+     frames split in two halves in this process: moments-out of each half,
+     the float64 sums added, moments-in of each half, concatenated (the
+     launch counts set to 0 just before and read just after: both entries
+     must launch and nothing else); the moments bit-equal to the plain
+     version's of the whole tensor, the result within 2 bf16 ulps of the
+     plain version given them, the same bits again; (b) ``DVDX_PARAM_CACHE``
+     under ``build/param_cache``: zeroscope-v2-576w built twice (the miss
+     draws and writes the 3.35 GB file, the hit loads it), the hit perturbed
+     at 99 must hash to ``REFERENCE_DIGESTS``; (c) the same GroupNorm
+     through the port's entry ``group_norm_act_sharded`` at two gloo ranks
+     on the one card (NCCL refuses two ranks on one device): each rank
+     launches each entry once, and the result is bit-equal to (a)'s or
+     within its tolerance of the plain version; the cache file is deleted
+     whatever fails after it is written;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
-  that runs it: Request A, or phase 6 for the float32 kernels; 0 for those
+  that runs it: Request A, phase 12(c)'s two ranks for the two sharded
+  GroupNorm entries, or phase 6 for the float32 kernels; 0 for those
   phase 2 alone holds; ``launches_xl`` from phase 7's request;
   ``launches_services`` per phase-8 process;
   ``xl_per_unet_call`` / ``xl_vae_frame`` from phase 7's held inputs:
@@ -169,6 +196,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -178,6 +206,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_F64_FLOPS = 34e12     # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 OUT_DIR = "chiprun_out"
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))  # the checkout this script is in
@@ -281,6 +310,17 @@ def gn_cost(n, l, c, bias, elem=2):
     # x read, y written and the (N, C) bias, of elem bytes each; gamma and
     # beta (f32)
     return 8.0 * n * l * c, 2.0 * n * l * c * elem + (n * c * elem if bias else 0) + 8 * c
+
+
+def gn_moments_cost(n, l, c, groups, elem=2):
+    # x read; the (2, N, G) float64 sums written; a float64 add and a fused
+    # multiply-add (3 operations) an element
+    return 3.0 * n * l * c, n * l * c * elem + 2 * n * groups * 8.0
+
+
+def gn_apply_cost(n, l, c, groups, elem=2):
+    # x read, y written, gamma / beta and the (2, N, G) float32 moments read
+    return 4.0 * n * l * c, 2.0 * n * l * c * elem + 8 * c + 2 * n * groups * 4.0
 
 
 def f32_cost(cost):
@@ -442,6 +482,34 @@ def kernel_cases():
             return F.silu(y) if act == "silu" else y
         cases.append(("group_norm_act", label, mk, kern, plain, lib, gn_cost(n, l, c, bias),
                       label not in GN_OFF_PATH and not label.startswith("xl_")))
+
+    # the frame-sharded GroupNorm's two entries at the UNet's frame-sharded
+    # norms (statistics over frames and positions): level 0's temporal
+    # transformer norm (2 x 16 frames x 2880 positions, C = 320, eps 1e-6)
+    # and level 2's temporal conv norm (180 positions, C = 1280, SiLU);
+    # moments-out held by the float32 moments of its float64 sums, bit for
+    # bit (COMPARE_AS), moments-in given the plain version's moments
+    for label, (n, l, c, act) in (("temporal_l0", (2, 46080, 320, "none")),
+                                  ("temporal_conv_l2", (2, 2880, 1280, "silu"))):
+        def mk_out(gen, n=n, l=l, c=c):
+            return [randn((n, l, c), gen, 2.0, 0.5)]
+
+        def mk_in(gen, n=n, l=l, c=c):
+            x = randn((n, l, c), gen, 2.0, 0.5)
+            sums, count = gn._moment_sums(x.float(), 32)
+            return [x, torch.rand((c,), generator=gen, device="cuda") + 0.5,
+                    torch.randn((c,), generator=gen, device="cuda") * 0.1,
+                    tuple((sums / count).float())]
+        cases.append(("group_norm_moments_out", label, mk_out,
+                      lambda x: gn.group_norm_moments(x, 32)[0],
+                      lambda x: gn._moment_sums(x.float(), 32)[0], None,
+                      gn_moments_cost(n, l, c, 32), True))
+        cases.append(("group_norm_moments_in", label, mk_in,
+                      lambda x, w, b_, m, act=act: gn.group_norm_apply(
+                          x, w, b_, m, groups=32, eps=1e-6, act=act),
+                      lambda x, w, b_, m, act=act: gn.group_norm_act_plain(
+                          x, w, b_, groups=32, eps=1e-6, act=act, moments=m), None,
+                      gn_apply_cost(n, l, c, 32), True))
 
     def sdpa_mh(heads, d):
         def fn(q, k, v):
@@ -607,6 +675,11 @@ BOUND_PARTS = {}
 # (kernel, shape label) -> (description, inputs -> inputs of the slice, output
 # -> the slice's output): cases whose plain version is held on a slice
 PLAIN_SLICE = {}
+# kernel -> (description, (output, inputs) -> what is held): kernels held by
+# a function of their output, the same function of the plain version's
+COMPARE_AS = {"group_norm_moments_out": (
+    "the float32 (mean, E[x^2]) of the float64 sums",
+    lambda sums, xs: (sums / (xs[0].shape[1] * xs[0].shape[2] // sums.shape[2])).float())}
 
 
 KERNEL_META = {
@@ -634,11 +707,25 @@ KERNEL_META = {
                             "dvdx_tpu/ops/pallas/flash_attention.py:470"),
     "temporal_attention_f32": ("dvdx_tpu_torch/csrc/attention_f32.cu",
                                "dvdx_tpu/ops/pallas/temporal_attention.py:183"),
+    # frame-sharded GroupNorm: the kernel's first and last phases as two
+    # entries, an all-reduce between them (the JAX package: group_norm_act
+    # under GSPMD's implicit all-reduce)
+    "group_norm_moments_out": ("dvdx_tpu_torch/csrc/groupnorm.cu",
+                               "dvdx_tpu/ops/groupnorm.py:179"),
+    "group_norm_moments_in": ("dvdx_tpu_torch/csrc/groupnorm.cu",
+                              "dvdx_tpu/ops/groupnorm.py:179"),
 }
+# the two entries phase 12's two-half split runs
+SHARDED_GN_PATH = ("group_norm_moments_out", "group_norm_moments_in")
 # kernels whose operations run on the CUDA cores in f32 (their bound takes
 # the float32 peak)
 CUDA_CORE_KERNELS = ("group_norm_act_f32", "geglu_ff_simt", "flash_attention_f32",
                      "temporal_attention_f32")
+# the peak rate each kernel's operations run at, where it is not the bf16
+# tensor cores'
+KERNEL_PEAK = {**{k: PEAK_F32_FLOPS for k in CUDA_CORE_KERNELS},
+               "group_norm_moments_out": PEAK_F64_FLOPS,
+               "group_norm_moments_in": PEAK_F32_FLOPS}
 # the kernels the UNet / VAE path runs (flash_attention_mh is opt-in in the
 # JAX package and off the port's path: phase 2 alone holds it)
 MODEL_PATH = ("flash_attention", "temporal_attention", "geglu_ff", "group_norm_act",
@@ -662,7 +749,7 @@ TOL_ULPS = 2.0
 # float32 outputs: max |kernel - plain| <= this share of max |plain| (both in
 # f32, summed in other orders; GroupNorm's one-pass variance cancels most
 # of its sums)
-F32_REL_TOL = {"group_norm_act_f32": 1e-4}
+F32_REL_TOL = {"group_norm_act_f32": 1e-4, "group_norm_moments_out": 0.0}
 F32_REL_TOL_DEFAULT = 1e-5
 
 
@@ -681,9 +768,12 @@ def check_kernels():
         if sliced is not None:
             plain_inputs, held = sliced[1](inputs), sliced[2](out)
         ref = plain(*plain_inputs)
+        compare = COMPARE_AS.get(name)
+        if compare is not None:
+            held, ref = compare[1](held, inputs), compare[1](ref, plain_inputs)
         err = (held.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
-        if out.dtype == torch.float32:
+        if held.dtype == torch.float32:
             tol = F32_REL_TOL.get(name, F32_REL_TOL_DEFAULT) * max(scale, 1e-6)
         else:
             tol = TOL_ULPS * 2.0 ** -7 * max(scale, 1e-6)
@@ -694,13 +784,14 @@ def check_kernels():
         ms = cuda_ms(lambda: kern(*inputs), iters)
         plain_ms = cuda_ms(lambda: plain(*plain_inputs), 2)
         lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
-        peak = PEAK_F32_FLOPS if name in CUDA_CORE_KERNELS else PEAK_BF16_FLOPS
+        peak = KERNEL_PEAK.get(name, PEAK_BF16_FLOPS)
         bms, bby = bound_ms(flops, nbytes, peak)
         parts = BOUND_PARTS.get((name, label))
         row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
                    max_abs_ref=scale, repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bms, bound_by=bby, main_path=main, ok=ok,
-                   bound_ms_parts=parts, plain_on=None if sliced is None else sliced[0])
+                   bound_ms_parts=parts, plain_on=None if sliced is None else sliced[0],
+                   held_as=None if compare is None else compare[0])
         rows.append(row)
         log(f"kernel {name:20s} {label:28s} err={err:.3e} tol={tol:.3e} "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -1225,8 +1316,9 @@ class Services:
     """The service processes of phase 8, each in its own working directory
     with its output in ``service.log`` there."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, env: dict):
         self.root = root
+        self.env = env    # set in every process's environment
         self.procs = {}   # name -> (Popen, cwd, start time)
 
     def start(self, name: str, argv):
@@ -1235,7 +1327,7 @@ class Services:
         with open(os.path.join(cwd, "service.log"), "w") as out:
             proc = subprocess.Popen([sys.executable, "-m", "dvdx_tpu_torch", *argv], cwd=cwd,
                                     stdout=out, stderr=subprocess.STDOUT,
-                                    env={**os.environ, "PYTHONPATH": REPO_DIR})
+                                    env={**os.environ, "PYTHONPATH": REPO_DIR, **self.env})
         self.procs[name] = (proc, cwd, time.perf_counter())
 
     def log_text(self, name: str) -> str:
@@ -1362,11 +1454,13 @@ def _request_round(svc, api: str, rid: str, prompt: str, what: str):
     return result, wall
 
 
-def run_services(pipe, smi: str):
+def run_services(pipe, smi: str, param_cache: str):
     """Phase 8: one validator and three miners of zeroscope-v2-576w as four
-    ``python -m dvdx_tpu_torch`` processes on the card (no device flag), a
-    request through the REST API to ``completed``, and each miner's Merkle
-    root against this process's kernel path on the same request."""
+    ``python -m dvdx_tpu_torch`` processes on the card (no device flag), each
+    with ``DVDX_PARAM_CACHE=param_cache`` (phase 12 wrote the weights there,
+    so each loads them instead of drawing), a request through the REST API
+    to ``completed``, and each miner's Merkle root against this process's
+    kernel path on the same request."""
     import shutil
 
     from dvdx_tpu_torch.network.base import ScoreBook
@@ -1384,8 +1478,8 @@ def run_services(pipe, smi: str):
     api_port, *miner_ports = _free_ports(4)
     api = f"http://127.0.0.1:{api_port}"
     g = SERVICE_GEOMETRY
-    svc = Services(root)
-    out = {}
+    svc = Services(root, {"DVDX_PARAM_CACHE": param_cache})
+    out = {"param_cache": param_cache}
     try:
         svc.start("validator", [
             "validator", "--model", "zeroscope-v2-576w", "--perturb",
@@ -1401,7 +1495,13 @@ def run_services(pipe, smi: str):
         pids = {name: proc.pid for name, (proc, _, _) in svc.procs.items()}
         out["startup_s"] = svc.wait_started({name: "REST API at" if name == "validator"
                                              else "serving at" for name in pids})
-        log(f"services ({smi}): start-up seconds {json.dumps(out['startup_s'])}")
+        out["weights_s"] = {}  # each process's build + perturbation, as it logs it
+        for name in pids:
+            found = re.search(r"weights in ([0-9.]+) s", svc.log_text(name))
+            out["weights_s"][name] = float(found[1]) if found else None
+        log(f"services ({smi}): start-up seconds {json.dumps(out['startup_s'])}, of which "
+            f"the weights (the cache's load and the perturbation) "
+            f"{json.dumps(out['weights_s'])}")
 
         def miners_registered():
             status, reg = _http("GET", f"{api}/registry", timeout=10)
@@ -1596,6 +1696,217 @@ def run_params_ckpt(smi: str) -> dict:
             f"miner {uid}: {json.dumps(out['miner'])}")
     finally:
         svc.stop()
+    return out
+
+
+# --- phase 12: frame-sharded GroupNorm on the card, the weight cache ---------
+
+CACHE_DIR = os.path.join(REPO_DIR, "build", "param_cache")
+# Request A's Merkle root on the JAX package's weights with the kernels as they
+# stand, held: a change to a kernel's summation order moves it, and such a
+# change records its new root here
+REQUEST_A_ROOT = "0c3367b4"
+
+
+def first_frame_sharded_norm_input(pipe):
+    """The input and settings of the first frame-sharded GroupNorm (one whose
+    statistics span the frames: ``GroupNorm.over_frames``) of Request A's
+    first batched UNet call."""
+    import dvdx_tpu_torch.models.layers as layers
+    from dvdx_tpu_torch.ops import rng
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.pipelines.text2video import encode_prompts
+    from dvdx_tpu_torch.utils.testing import unet_pair_call
+
+    seen = []
+    saved = layers.GroupNorm.over_frames
+
+    def record(self, x):
+        if not seen:
+            seen.append((x.clone(), self.weight, self.bias, self.groups, self.eps, self.act))
+        return saved(self, x)
+
+    hidden = encode_prompts(pipe, ["", SERVICE_PROMPT])
+    z = rng.video_noise(rng.base_key(7), 16, (40, 72, 4), device="cuda")[None].bfloat16()
+    layers.GroupNorm.over_frames = record
+    try:
+        unet_pair_call(pipe.unet, z, hidden, int(make_ddim_schedule(25).timesteps[0]))
+    finally:
+        layers.GroupNorm.over_frames = saved
+    return seen[0]
+
+
+def split_norm(x, gamma, beta, groups, eps, act, parts: int = 2):
+    """The frame-sharded GroupNorm's ranks in one process: moments-out of
+    each part of x's frames, the float64 sums added (the all-reduce),
+    moments-in of each part with the global moments, concatenated."""
+    from dvdx_tpu_torch.ops import groupnorm as gn
+
+    pieces = [p.contiguous() for p in x.chunk(parts, dim=1)]
+    outs = [gn.group_norm_moments(p, groups) for p in pieces]
+    sums = sum(o[0] for o in outs)
+    moments = tuple((sums / sum(o[1] for o in outs)).float())
+    y = torch.cat([gn.group_norm_apply(p, gamma, beta, moments, groups=groups, eps=eps,
+                                       act=act) for p in pieces], dim=1)
+    return y, moments
+
+
+def _gloo_rank(rank, world, device, x, gamma, beta, groups, eps, act):
+    """One rank of the frame-sharded GroupNorm at ``world`` gloo ranks on the
+    one card: ``group_norm_act_sharded`` (the entry the cp_* strategies'
+    frame-sharded norms call) on this rank's frames of x, its launch counts
+    set to 0 just before and read just after."""
+    from dvdx_tpu_torch.ops import groupnorm as gn
+    from dvdx_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dvdx_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((1, 1, world), device="cuda")
+    fl = x.shape[1] // world
+    mine = x[:, rank * fl:(rank + 1) * fl].cuda().contiguous()
+    gamma, beta = gamma.cuda(), beta.cuda()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y = gn.group_norm_act_sharded(mine, gamma, beta, groups=groups, eps=eps, act=act,
+                                  group=mesh.group(("seq",)), group_size=world)
+    torch.cuda.synchronize()
+    return {"y": y.cpu(), "launches": launch_counts()}
+
+
+def gloo_ranks(x, gamma, beta, groups, eps, act, world: int = 2) -> dict:
+    """The frame-sharded GroupNorm at two gloo ranks on the one card (NCCL
+    refuses two ranks on one device): two processes, each with its half of
+    the frames on the card, the float64 sums all-reduced by gloo. Raises
+    where a rank fails."""
+    from dvdx_tpu_torch.parallel.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_gloo_rank, world, args=(x.cpu(), gamma.detach().cpu(),
+                                               beta.detach().cpu(), groups, eps, act),
+                      device="cpu", timeout_s=180,
+                      workdir=os.path.join(REPO_DIR, "build", "gloo_ranks"))
+    return {"seconds": time.perf_counter() - t0,
+            "y": torch.cat([r["y"] for r in ranks], dim=1).cuda(),
+            "launches_per_rank": [r["launches"] for r in ranks]}
+
+
+def run_sharded_and_cache(pipe, smi: str) -> dict:
+    """Phase 12: (a) the frame-sharded GroupNorm's two entries on Request
+    A's first frame-sharded GroupNorm input, its frames split in two halves
+    in this process (the launch counts set to 0 just before, read just
+    after), against the plain version of the whole tensor; (b) the
+    ``DVDX_PARAM_CACHE`` cache of zeroscope-v2-576w written and hit, the
+    hit's digest after the perturbation held to ``REFERENCE_DIGESTS``
+    (the file stays for phase 8's services); (c) ``group_norm_act_sharded``
+    itself at two gloo ranks on the card (each entry launched once a rank),
+    against the split of (a) and the plain version: its ranks' launches are
+    the ``kernels`` line's."""
+    import shutil
+
+    from dvdx_tpu_torch.ops import groupnorm as gn
+    from dvdx_tpu_torch.pipelines.text2video import build_pipeline, param_cache_path
+    from dvdx_tpu_torch.models.zoo import get_model_spec
+    from dvdx_tpu_torch.utils.bridge import load_flat_npz
+    from dvdx_tpu_torch.utils.init import REFERENCE_DIGESTS, tree_digest
+    from dvdx_tpu_torch.utils.testing import perturb_zero_params
+
+    out = {}
+    x, gamma, beta, groups, eps, act = first_frame_sharded_norm_input(pipe)
+    kw = dict(groups=groups, eps=eps, act=act)
+    reset_counts()
+    y, moments = split_norm(x, gamma, beta, groups, eps, act)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    sums, count = gn._moment_sums(x.reshape(x.shape[0], -1, x.shape[-1]).float(), groups)
+    plain_moments = (sums / count).float()
+    want = gn.group_norm_act_plain(x, gamma, beta, moments=tuple(plain_moments), **kw)
+    err = (y.float() - want.float()).abs().max().item()
+    tol = TOL_ULPS * 2.0 ** -7 * want.float().abs().max().item()
+    fused = gn.group_norm_act(x, gamma, beta, **kw)
+    again, _ = split_norm(x, gamma, beta, groups, eps, act)
+    out["split"] = {
+        "shape": list(x.shape), "groups": groups, "eps": eps, "act": act,
+        "launches": {k: launches[k] for k in SHARDED_GN_PATH},
+        "other_launches": {k: v for k, v in launches.items() if v and k not in SHARDED_GN_PATH},
+        "moments_bitwise": torch.equal(torch.stack(moments), plain_moments),
+        "max_abs_err": err, "tol": tol, "repeat_bitwise": torch.equal(y, again),
+        "vs_fused_max_abs_err": (y.float() - fused.float()).abs().max().item(),
+        "split_ms": cuda_ms(lambda: split_norm(x, gamma, beta, groups, eps, act), 5),
+        "fused_ms": cuda_ms(lambda: gn.group_norm_act(x, gamma, beta, **kw), 5)}
+    log(f"phase 12(a) ({smi}): frame-sharded GroupNorm, two halves of "
+        f"{json.dumps(out['split'])}")
+    _require(all(launches[k] >= 1 for k in SHARDED_GN_PATH) and not out["split"]["other_launches"]
+             and out["split"]["moments_bitwise"] and np.isfinite(err) and err <= tol
+             and out["split"]["repeat_bitwise"],
+             "phase 12(a): the two-half split against the whole", out["split"])
+
+    # (b) the weight cache, written then hit
+    name = "zeroscope-v2-576w"
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    saved = os.environ.get("DVDX_PARAM_CACHE")
+    os.environ["DVDX_PARAM_CACHE"] = CACHE_DIR
+    try:
+        path = param_cache_path(get_model_spec(name), 0)
+        timing = {}
+        for what in ("miss", "hit"):
+            t0 = time.perf_counter()
+            built = build_pipeline(name, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            timing[what] = time.perf_counter() - t0
+            if what == "miss":
+                del built
+                torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("DVDX_PARAM_CACHE")
+        else:
+            os.environ["DVDX_PARAM_CACHE"] = saved
+    # where a hit's time goes: the file read alone, then the npz parse into
+    # host tensors (the rest of the hit is the empty modules and the copies
+    # to the card)
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        while f.read(1 << 26):
+            pass
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = load_flat_npz(path)
+    load_npz_s = time.perf_counter() - t0
+    del tree
+    t0 = time.perf_counter()
+    perturb_zero_params(built, seed=99)
+    torch.cuda.synchronize()
+    perturb_s = time.perf_counter() - t0
+    digest = tree_digest(built)
+    del built
+    torch.cuda.empty_cache()
+    want_digest = REFERENCE_DIGESTS[(name, 0, 99)]
+    out["cache"] = {"file": os.path.basename(path), "bytes": os.path.getsize(path),
+                    "miss_s": timing["miss"], "hit_s": timing["hit"], "perturb_s": perturb_s,
+                    "file_read_s": read_s, "file_read_gbps": os.path.getsize(path) / read_s / 1e9,
+                    "load_flat_npz_s": load_npz_s,
+                    "digest": digest, "digest_equal": digest == want_digest}
+    log(f"phase 12(b) ({smi}): DVDX_PARAM_CACHE {json.dumps(out['cache'])}")
+    _require(digest == want_digest, "phase 12(b): the cache hit's weights", out["cache"])
+
+    # (c) the port's entry at two gloo ranks
+    ranks = gloo_ranks(x, gamma, beta, groups, eps, act)
+    got = ranks.pop("y")
+    per_rank = ranks.pop("launches_per_rank")
+    ranks["launches_per_rank"] = [{k: r[k] for k in SHARDED_GN_PATH} for r in per_rank]
+    ranks["other_launches"] = [{k: v for k, v in r.items() if v and k not in SHARDED_GN_PATH}
+                               for r in per_rank]
+    ranks["launches"] = {k: sum(r[k] for r in per_rank) for k in SHARDED_GN_PATH}
+    ranks["max_abs_err_vs_plain"] = (got.float() - want.float()).abs().max().item()
+    ranks["bitwise_vs_in_process_split"] = torch.equal(got, y)
+    out["gloo_ranks"] = ranks
+    log(f"phase 12(c) ({smi}): group_norm_act_sharded at two gloo ranks on the one card: "
+        f"{json.dumps(ranks)}")
+    _require(all(r == {k: 1 for k in SHARDED_GN_PATH} for r in ranks["launches_per_rank"])
+             and not any(ranks["other_launches"])
+             and (ranks["bitwise_vs_in_process_split"] or ranks["max_abs_err_vs_plain"] <= tol),
+             "phase 12(c): group_norm_act_sharded at two gloo ranks", ranks)
+    del x, y, again, want, fused, got
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2594,7 +2905,7 @@ def _routed_at_one_rank(pipe, mesh, steps: int):
         ref = denoise(pipe.unet, sched, z0, cond, uncond, 7.5, step_range=(0, steps)).float()
     saved = {k: getattr(layers, k) for k in ("multi_head_attention", "frame_halo",
                                              "group_norm_act_sharded")}
-    out, first = {}, {}
+    out, first, latents = {}, {}, {}
     for algo in ("ring", "auto"):
         calls = dict.fromkeys(saved, 0)
 
@@ -2623,6 +2934,7 @@ def _routed_at_one_rank(pipe, mesh, steps: int):
                 setattr(layers, k, v)
         launches = read_counts()
         dist_ = relative_rms(z, ref)
+        latents[algo] = z
         out[algo] = {"relative_rms_vs_single": dist_, "seconds": sec,
                      "ring_impl_attention_calls": calls["multi_head_attention"],
                      "frame_halo_calls": calls["frame_halo"],
@@ -2635,6 +2947,32 @@ def _routed_at_one_rank(pipe, mesh, steps: int):
                  and not off and not on and all(calls.values()),
                  f"strategies: the exact-CP program at one rank ({algo})",
                  dict(out[algo], kernels_not_off=off, kernels_not_on=on))
+    # ROADMAP §3.5: the same program with the fused gates off and no route
+    # taken (no ring context), so its distance from single is the unfused
+    # path's bf16 rounding alone
+    reset_counts()
+    t0 = time.perf_counter()
+    saved_active = layers.ring_active
+    layers.ring_active = lambda: True
+    try:
+        with torch.inference_mode():
+            z = denoise(pipe.unet, sched, z0, cond, uncond, 7.5,
+                        frame_positions=torch.arange(16, device="cuda"),
+                        step_range=(0, steps)).float()
+        torch.cuda.synchronize()
+    finally:
+        layers.ring_active = saved_active
+    launches = read_counts()
+    off = [k for k in ("fused_spatial_tail", "fused_temporal_block", "temporal_attention")
+           if launches[k]]
+    out["fused_off_unrouted"] = {
+        "relative_rms_vs_single": relative_rms(z, ref),
+        "relative_rms_vs_routed_ring": relative_rms(z, latents["ring"]),
+        "bit_equal_to_routed_ring": torch.equal(z, latents["ring"]),
+        "seconds": time.perf_counter() - t0,
+        "launches": {k: launches[k] for k in MODEL_PATH}}
+    _require(torch.isfinite(z).all().item() and not off,
+             "strategies: the fused-off, unrouted program", out["fused_off_unrouted"])
     return out, first["qkv"]
 
 
@@ -2949,9 +3287,19 @@ def main():
     check_against_cpu()
     log(f"reference check: {time.perf_counter() - t0:.1f} s")
     pipe, launches, path = run_path(steps_a=25)
-    path["network_round"] = run_network_round(pipe)
-    torch.cuda.empty_cache()
-    path["services"] = run_services(pipe, smi)
+    log(f"request A: root {path['root']} (the recorded {REQUEST_A_ROOT}...: "
+        f"{'same' if path['root'].startswith(REQUEST_A_ROOT) else 'MOVED'})")
+    _require(path["root"].startswith(REQUEST_A_ROOT), "request A's Merkle root",
+             {"root": path["root"], "recorded": REQUEST_A_ROOT})
+    try:  # the cache file (3.35 GB) goes whatever fails once it is written
+        path["sharded_and_cache"] = run_sharded_and_cache(pipe, smi)
+        path["network_round"] = run_network_round(pipe)
+        torch.cuda.empty_cache()
+        path["services"] = run_services(pipe, smi, CACHE_DIR)
+    finally:
+        import shutil
+
+        shutil.rmtree(CACHE_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     path["strategies"] = run_strategies(pipe, path["video_sha256"])
     path["params_ckpt"] = run_params_ckpt(smi)
@@ -3003,11 +3351,14 @@ def main():
                 dict({k: f[k] for k in ("shape", "ms", "max_abs_err")},
                      bound_ms=bound_ms(*flash_cost(*f["shape"]))[0])
                 for f in dit["round_flash"] + [dit["reduced_call"]["flash"]]]
+        sharded = path["sharded_and_cache"]["gloo_ranks"]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "path": ("request_a" if name in MODEL_PATH else "cross_device_round"
-                                 if name in CROSS_DEVICE_PATH else None),
+                                 if name in CROSS_DEVICE_PATH else "phase12_gloo_ranks"
+                                 if name in SHARDED_GN_PATH else None),
                         "launches": cross.get(name, 0) if name in CUDA_CORE_KERNELS
+                        else sharded["launches"][name] if name in SHARDED_GN_PATH
                         else launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -3026,6 +3377,15 @@ def main():
         f"s/request, steps {path['reexecution']['checks']} re-executed bitwise; (c) "
         f"--params-ckpt: " + (f"round completed in {ck['round_wall_s']} s"
                               if ck["tensorstore"] else "refused with exit 2 (no tensorstore)"))
+    p12 = path["sharded_and_cache"]
+    log(f"phase 12 ({smi}): (a) two-half frame-sharded GroupNorm on {p12['split']['shape']}: "
+        f"moments bitwise {p12['split']['moments_bitwise']}, max_abs_err "
+        f"{p12['split']['max_abs_err']:.3e} (tol {p12['split']['tol']:.3e}); (b) cache "
+        f"miss {p12['cache']['miss_s']:.2f} s, hit {p12['cache']['hit_s']:.2f} s, digest "
+        f"equal {p12['cache']['digest_equal']}; services' start-up on it "
+        f"{json.dumps(path['services']['startup_s'])}; (c) two gloo ranks: launches "
+        f"{json.dumps(p12['gloo_ranks']['launches_per_rank'])}, bitwise with (a) "
+        f"{p12['gloo_ranks']['bitwise_vs_in_process_split']}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # again near the end: the start of a long output may be cut off
     log(json.dumps({"kernels": kernels}))

@@ -36,6 +36,26 @@
 // The chunking is planned by the wrapper (ops/groupnorm.py plan) and depends
 // on the shape only, so the sums, whatever the grid, run in one fixed order
 // and a rerun is bit-identical.
+//
+// Frame-sharded GroupNorm (ops/groupnorm.py group_norm_act_sharded: each rank
+// holds some frames, the statistics span all of them) splits the launch at
+// its first barrier into two entries, with an all-reduce between them:
+//   moments-out (dvdx_group_norm_moments): phase 1 in float64, two plain
+//     launches. Per (sample, chunk) block, each thread sums its octet's
+//     rows in order (x and x^2, a float32 value and its square exact in
+//     float64), the block its row lanes per channel in order, then one
+//     thread per group its channels in order -> part (N, nchunks, G, 2);
+//     a second launch sums the chunks per (sample, group) strided then by a
+//     fixed halving tree -> sums (2, N, G) float64. A float64 sum of these
+//     values rounds to one float32 mean in any order, so the split across
+//     ranks gives the one-device moments (the JAX package gets the same
+//     moments from GSPMD's all-reduce of its float32 sums).
+//   moments-in (dvdx_group_norm_apply): phase 3 alone, one plain launch, from
+//     float32 (mean, E[x^2]) per (sample, group): the variance clamped at 0,
+//     1 / sqrt(var + eps), gamma / beta and SiLU, each float32 operation
+//     rounded as the plain version rounds it (no contraction).
+// Both are bounded by bytes: moments-out reads x once, moments-in reads x and
+// writes y once.
 #include "common.cuh"
 
 using namespace dvdx;
@@ -307,14 +327,19 @@ gn_fused(const GnArgs<T> a) {
 
 namespace {
 
+// the shapes every entry takes: C a multiple of 8 up to MAXC, G dividing C,
+// and chunks of chunk_rows rows covering L with none empty
+bool bad_shape(int N, int L, int C, int G, int chunk_rows, int nchunks) {
+  return N < 1 || L < 1 || C % 8 || C > MAXC || G < 1 || C % G || chunk_rows < 1 ||
+         nchunks < 1 || (long long)chunk_rows * nchunks < L ||
+         (long long)chunk_rows * (nchunks - 1) >= L;
+}
+
 template <typename T>
 int group_norm_launch(const void* x, const void* bias, const void* gamma, const void* beta,
                       void* y, void* part, void* stats, int N, int L, int C, int G,
                       int chunk_rows, int nchunks, float eps, int silu, cudaStream_t stream) {
-  if (N < 1 || L < 1 || C % 8 || C > MAXC || G < 1 || C % G || chunk_rows < 1 ||
-      nchunks < 1 || (long long)chunk_rows * nchunks < L ||
-      (long long)chunk_rows * (nchunks - 1) >= L)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(N, L, C, G, chunk_rows, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
   static int capacity = 0;  // co-resident blocks on the card
   if (capacity == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -339,6 +364,187 @@ int group_norm_launch(const void* x, const void* bias, const void* gamma, const 
 }
 
 }  // namespace
+
+namespace {
+
+// moments-out, launch 1: float64 sums of x and x^2 per (sample, chunk,
+// group), every sum in a fixed order. 40 KB of static shared memory.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+gn_moments_part(const T* __restrict__ x, double* __restrict__ part, int L, int C, int G,
+                int chunk_rows, int nchunks) {
+  __shared__ double csum[MAXC];
+  __shared__ double csq[MAXC];
+  const int cpg = C / G, octets = C / 8;
+  const int lanes = octets >= THREADS ? 1 : THREADS / octets;
+  const int pairs = lanes * octets;
+  const int n = blockIdx.x / nchunks, chunk = blockIdx.x % nchunks;
+  const int l0 = chunk * chunk_rows, l1 = min(L, l0 + chunk_rows);
+  for (int j = threadIdx.x; j < pairs; j += THREADS) {
+    const int rl = j / octets, c0 = (j % octets) * 8;
+    double s[8], q[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] = q[e] = 0.0;
+    const long long step = (long long)lanes * C;
+    const T* xp = x + ((long long)n * L + l0 + rl) * C + c0;
+#pragma unroll 4
+    for (int l = l0 + rl; l < l1; l += lanes, xp += step) {
+      float f[8];
+      Octet<T>::load(xp).unpack(f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const double v = f[e];
+        s[e] += v;
+        q[e] = fma(v, v, q[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      csum[rl * C + c0 + e] = s[e];
+      csq[rl * C + c0 + e] = q[e];
+    }
+  }
+  __syncthreads();
+  // channel totals over the row lanes, in lane order, into lane 0's slots
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    double s = 0.0, q = 0.0;
+    for (int rl = 0; rl < lanes; ++rl) {
+      s += csum[rl * C + c];
+      q += csq[rl * C + c];
+    }
+    csum[c] = s;
+    csq[c] = q;
+  }
+  __syncthreads();
+  for (int gi = threadIdx.x; gi < G; gi += THREADS) {
+    double s = 0.0, q = 0.0;
+    for (int c = gi * cpg; c < (gi + 1) * cpg; ++c) {
+      s += csum[c];
+      q += csq[c];
+    }
+    double* p = part + (((long long)n * nchunks + chunk) * G + gi) * 2;
+    p[0] = s;
+    p[1] = q;
+  }
+}
+
+// moments-out, launch 2: per (sample, group) block, the chunk partials
+// strided over the threads in order, then a fixed halving tree.
+__global__ void __launch_bounds__(THREADS)
+gn_moments_reduce(const double* __restrict__ part, double* __restrict__ sums, int N, int G,
+                  int nchunks) {
+  __shared__ double tree[2][THREADS];
+  const int n = blockIdx.x / G, gi = blockIdx.x % G;
+  double s = 0.0, q = 0.0;
+  for (int ch = threadIdx.x; ch < nchunks; ch += THREADS) {
+    const double* p = part + (((long long)n * nchunks + ch) * G + gi) * 2;
+    s += p[0];
+    q += p[1];
+  }
+  tree[0][threadIdx.x] = s;
+  tree[1][threadIdx.x] = q;
+  __syncthreads();
+  for (int h = THREADS / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) {
+      tree[0][threadIdx.x] += tree[0][threadIdx.x + h];
+      tree[1][threadIdx.x] += tree[1][threadIdx.x + h];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    sums[blockIdx.x] = tree[0][0];
+    sums[(long long)N * G + blockIdx.x] = tree[1][0];
+  }
+}
+
+// moments-in: normalise, affine, SiLU of one (sample, chunk) per block, from
+// the given float32 moments (2, N, G).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+gn_apply(const T* __restrict__ x, const float* __restrict__ moments,
+         const float* __restrict__ gamma, const float* __restrict__ beta, T* __restrict__ y,
+         int N, int L, int C, int G, int chunk_rows, int nchunks, float eps, int silu) {
+  const int cpg = C / G, octets = C / 8;
+  const int lanes = octets >= THREADS ? 1 : THREADS / octets;
+  const int pairs = lanes * octets;
+  const int n = blockIdx.x / nchunks, chunk = blockIdx.x % nchunks;
+  const int l0 = chunk * chunk_rows, l1 = min(L, l0 + chunk_rows);
+  for (int j = threadIdx.x; j < pairs; j += THREADS) {
+    const int rl = j / octets, c0 = (j % octets) * 8;
+    float sc[8], sh[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int gi = (c0 + e) / cpg;
+      const float mean = moments[n * G + gi];
+      const float sq = moments[N * G + n * G + gi];
+      const float var = fmaxf(__fsub_rn(sq, __fmul_rn(mean, mean)), 0.f);
+      const float rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+      sc[e] = __fmul_rn(rstd, gamma[c0 + e]);
+      sh[e] = __fsub_rn(beta[c0 + e], __fmul_rn(mean, sc[e]));
+    }
+    const long long off0 = ((long long)n * L + l0 + rl) * C + c0;
+    const long long step = (long long)lanes * C;
+    const T* xp = x + off0;
+    T* yp = y + off0;
+#pragma unroll 4
+    for (int l = l0 + rl; l < l1; l += lanes, xp += step, yp += step) {
+      float f[8];
+      Octet<T>::load(xp).unpack(f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        f[e] = __fadd_rn(__fmul_rn(f[e], sc[e]), sh[e]);
+        if (silu) f[e] = f[e] * (1.f / (1.f + expf(-f[e])));
+      }
+      Octet<T>::store(yp, f);
+    }
+  }
+}
+
+}  // namespace
+
+// moments-out. x: (N, L, C) contiguous, bf16 (f32 == 0) or float32 (f32 ==
+// 1), 16-byte aligned; part: (N, nchunks, G, 2) float64 scratch; sums: (2, N,
+// G) float64, the sums of x and of x^2 per (sample, group). Shape limits
+// and the chunking as dvdx_group_norm's.
+extern "C" int dvdx_group_norm_moments(const void* x, void* part, void* sums, int N, int L,
+                                       int C, int G, int chunk_rows, int nchunks, int f32,
+                                       void* stream) {
+  if (bad_shape(N, L, C, G, chunk_rows, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* p = static_cast<double*>(part);
+  if (f32)
+    gn_moments_part<float><<<N * nchunks, THREADS, 0, s>>>(static_cast<const float*>(x), p, L,
+                                                           C, G, chunk_rows, nchunks);
+  else
+    gn_moments_part<bf16><<<N * nchunks, THREADS, 0, s>>>(static_cast<const bf16*>(x), p, L, C,
+                                                          G, chunk_rows, nchunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gn_moments_reduce<<<N * G, THREADS, 0, s>>>(p, static_cast<double*>(sums), N, G, nchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// moments-in. x, y: as dvdx_group_norm's; moments: (2, N, G) float32, the
+// mean and E[x^2] per (sample, group); gamma, beta: (C) f32.
+extern "C" int dvdx_group_norm_apply(const void* x, const void* moments, const void* gamma,
+                                     const void* beta, void* y, int N, int L, int C, int G,
+                                     int chunk_rows, int nchunks, float eps, int silu, int f32,
+                                     void* stream) {
+  if (bad_shape(N, L, C, G, chunk_rows, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(moments);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  if (f32)
+    gn_apply<float><<<N * nchunks, THREADS, 0, s>>>(static_cast<const float*>(x), m, ga, be,
+                                                    static_cast<float*>(y), N, L, C, G,
+                                                    chunk_rows, nchunks, eps, silu);
+  else
+    gn_apply<bf16><<<N * nchunks, THREADS, 0, s>>>(static_cast<const bf16*>(x), m, ga, be,
+                                                   static_cast<bf16*>(y), N, L, C, G,
+                                                   chunk_rows, nchunks, eps, silu);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x, y: (N, L, C) contiguous, bf16 (f32 == 0) or float32 (f32 == 1), 16-byte
 // aligned; bias: (N, C) of x's type or null; gamma, beta: (C) f32; part:

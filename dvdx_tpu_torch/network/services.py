@@ -34,6 +34,7 @@ import asyncio
 import json
 import os
 import sys
+import time
 from typing import Callable, Optional
 
 from ..ops.kernels import launch_counts
@@ -133,7 +134,9 @@ def build_miner(args, pipe, kp, registry) -> Miner:
 async def run_miner(args):
     import aiohttp
 
+    t0 = time.perf_counter()
     pipe = _pipeline(args.model, args.perturb, args.device, ckpt=args.params_ckpt)
+    weights_s = time.perf_counter() - t0
     kp = _keypair(args.key_seed, f"miner-{args.port}")
     registry = Registry()
     miner = build_miner(args, pipe, kp, registry)
@@ -141,7 +144,7 @@ async def run_miner(args):
     runner, port = await serve_neuron(miner.handle, args.host, args.port)
     address = f"{args.host}:{port}"
     print(f"[miner] serving at {address} on {pipe.device} ({miner.platform_tag}), "
-          f"pubkey {kp.public_bytes.hex()[:16]}", flush=True)
+          f"pubkey {kp.public_bytes.hex()[:16]}, weights in {weights_s:.2f} s", flush=True)
 
     async def sync_loop():
         # register, then resync the registry snapshot every sync_interval
@@ -203,7 +206,9 @@ def _scorer(args, vcfg: ValidatorConfig, device):
 async def run_validator(args, on_serving: Optional[Callable[[int], None]] = None):
     """The validator service; ``on_serving(port)`` is called once the REST
     API listens (``--api-port 0`` picks a free port)."""
+    t0 = time.perf_counter()
     pipe = _pipeline(args.model, args.perturb, args.device, ckpt=args.params_ckpt)
+    weights_s = time.perf_counter() - t0
     kp = _keypair(args.key_seed, "validator")
     registry = Registry()
     ledger = Ledger()
@@ -223,7 +228,8 @@ async def run_validator(args, on_serving: Optional[Callable[[int], None]] = None
     app["scorebook"] = validator.scores  # the /weights endpoint
     runner, port = await serve_api(app, args.host, args.api_port)
     print(f"[validator] REST API at {args.host}:{port} on {pipe.device} "
-          f"({validator.engine.platform_tag}); round loop running", flush=True)
+          f"({validator.engine.platform_tag}); round loop running; weights in "
+          f"{weights_s:.2f} s", flush=True)
     if on_serving is not None:
         on_serving(port)
 

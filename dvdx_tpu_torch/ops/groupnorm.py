@@ -16,6 +16,12 @@ float32 test models), as the Pallas kernel takes either. Both compute f32
 one-pass moments (the plain version sums them in float64 first); the pre-bias is added
 in f32 here, where the JAX ResnetBlock2D fallback adds it in the activation
 dtype first (tests state how far that moves the result).
+
+A GroupNorm whose frames are sharded over ranks (``group_norm_act_sharded``)
+runs the kernel's first and last phases as two entries of the same source,
+with an all-reduce between them: ``group_norm_moments`` (moments-out, float64
+sums per (sample, group)) and ``group_norm_apply`` (moments-in, the
+normalisation from given float32 moments). Each has its own launch counter.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from . import _build
 
 LAUNCHES = 0      # bf16 kernel launches since the last reset (a plain count)
 F32_LAUNCHES = 0  # float32 kernel launches since the last reset
+MOMENTS_OUT_LAUNCHES = 0  # group_norm_moments calls on the card (either dtype)
+MOMENTS_IN_LAUNCHES = 0   # group_norm_apply calls on the card (either dtype)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_CHANNELS = 2560
 CHUNK_ELEMS = 16384        # elements of one work item (32 KB of bf16) ...
@@ -100,6 +108,22 @@ def _moment_sums(xf: torch.Tensor, groups: int):
             float(xg.shape[1] * xg.shape[3]))
 
 
+def _checked_rows(x: torch.Tensor, groups: int, what: str) -> torch.Tensor:
+    """x (N, ..., C) on the card as a contiguous (N, L, C) view the entries
+    take (bf16 or float32, C % 8 == 0, C <= 2560, 16-byte aligned), or raise."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the kernel takes bfloat16 or float32, not {x.dtype}")
+    c = x.shape[-1]
+    if c % groups or c % 8 or c > MAX_CHANNELS:
+        raise ValueError(f"{what}: C={c} with {groups} groups unsupported")
+    x3 = x.reshape(x.shape[0], -1, c).contiguous()
+    if x3.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be 16-byte aligned")
+    return x3
+
+
 def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    *, groups: int, eps: float, act: str = "none",
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -112,23 +136,18 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_act_plain(x, gamma, beta, groups=groups, eps=eps,
                                     act=act, bias=bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_act: unsupported device {x.device}")
-    if x.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"group_norm_act: the kernel takes bfloat16 or float32, not {x.dtype}")
+    x3 = _checked_rows(x, groups, "group_norm_act")
     shape = x.shape
-    n, c = shape[0], shape[-1]
-    if c % groups or c % 8 or c > MAX_CHANNELS or gamma.numel() != c or beta.numel() != c:
+    n, length, c = x3.shape
+    if gamma.numel() != c or beta.numel() != c:
         raise ValueError(f"group_norm_act: C={c} with {groups} groups unsupported")
     if any(t is not None and t.device != x.device for t in (gamma, beta, bias)):
         raise ValueError("group_norm_act: x, the affine and the bias must share one device")
-    x3 = x.reshape(n, -1, c).contiguous()
-    length = x3.shape[1]
     g32 = gamma.to(torch.float32).contiguous()
     b32 = beta.to(torch.float32).contiguous()
     bias_t = None if bias is None else bias.to(x.dtype).reshape(n, c).contiguous()
-    if any(t is not None and t.data_ptr() % 16 for t in (x3, bias_t)):
-        raise ValueError("group_norm_act: x and the bias must be 16-byte aligned")
+    if bias_t is not None and bias_t.data_ptr() % 16:
+        raise ValueError("group_norm_act: the bias must be 16-byte aligned")
     y = torch.empty_like(x3)
     pl = plan(n, length, c)
     part = torch.empty((n, pl.nchunks, groups, 2), dtype=torch.float32, device=x.device)
@@ -153,8 +172,66 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.reshape(shape)
 
 
-# ROADMAP item named where a frame-sharded GroupNorm meets a CUDA tensor
-SHARDED_ROADMAP = "ROADMAP.md §1, M10 rest: a moments-in entry for csrc/groupnorm.cu"
+def group_norm_moments(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, float]:
+    """Moments-out: (the float64 sums of x and x^2 per (sample, group) over
+    the non-leading axes of x (N, ..., C), stacked (2, N, G); the element
+    count per group). CPU tensors take ``_moment_sums``; CUDA tensors launch
+    the kernel's ``dvdx_group_norm_moments`` or raise."""
+    if x.device.type == "cpu":
+        return _moment_sums(x.reshape(x.shape[0], -1, x.shape[-1]).float(), groups)
+    x3 = _checked_rows(x, groups, "group_norm_moments")
+    n, length, c = x3.shape
+    pl = plan(n, length, c)
+    part = torch.empty((n, pl.nchunks, groups, 2), dtype=torch.float64, device=x.device)
+    sums = torch.empty((2, n, groups), dtype=torch.float64, device=x.device)
+    lib = _build.library("groupnorm")
+    fn = lib.dvdx_group_norm_moments
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(x3), _build.ptr(part), _build.ptr(sums), n, length, c, groups,
+            pl.chunk_rows, pl.nchunks, int(x.dtype == torch.float32), _build.stream(x.device))
+    _build.check(lib, rc, "group_norm_moments")
+    global MOMENTS_OUT_LAUNCHES
+    MOMENTS_OUT_LAUNCHES += 1
+    return sums, float(length * (c // groups))
+
+
+def group_norm_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     moments: Tuple[torch.Tensor, torch.Tensor], *, groups: int, eps: float,
+                     act: str = "none") -> torch.Tensor:
+    """Moments-in: GroupNorm of x (N, ..., C) with the given float32 moments
+    (mean, E[x^2]), each (N, groups), as ``group_norm_act_plain(...,
+    moments=)`` applies them. CPU tensors take that plain version; CUDA
+    tensors launch the kernel's ``dvdx_group_norm_apply`` or raise."""
+    if act not in ("none", "silu"):
+        raise ValueError(f"group_norm_apply: unknown act {act!r}")
+    if x.device.type == "cpu":
+        return group_norm_act_plain(x, gamma, beta, groups=groups, eps=eps, act=act,
+                                    moments=moments)
+    x3 = _checked_rows(x, groups, "group_norm_apply")
+    n, length, c = x3.shape
+    m = torch.stack([t.to(x.device, torch.float32).reshape(n, groups) for t in moments])
+    if gamma.numel() != c or beta.numel() != c or any(
+            t.device != x.device for t in (gamma, beta)):
+        raise ValueError("group_norm_apply: gamma and beta must be (C,) on x's device")
+    g32 = gamma.to(torch.float32).contiguous()
+    b32 = beta.to(torch.float32).contiguous()
+    y = torch.empty_like(x3)
+    pl = plan(n, length, c)
+    lib = _build.library("groupnorm")
+    fn = lib.dvdx_group_norm_apply
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(x3), _build.ptr(m), _build.ptr(g32), _build.ptr(b32), _build.ptr(y),
+            n, length, c, groups, pl.chunk_rows, pl.nchunks, float(eps), int(act == "silu"),
+            int(x.dtype == torch.float32), _build.stream(x.device))
+    _build.check(lib, rc, "group_norm_apply")
+    global MOMENTS_IN_LAUNCHES
+    MOMENTS_IN_LAUNCHES += 1
+    return y.reshape(x.shape)
 
 
 def group_norm_act_sharded(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -163,22 +240,17 @@ def group_norm_act_sharded(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Ten
     """GroupNorm of x (N, ..., C) whose statistics span the non-leading
     axes on every rank of ``group`` (frames sharded over the mesh's seq
     axis): each rank's float64 group sums of x and x^2 and its element
-    count are all-reduced, and the plain version normalises with the global
-    moments (the one-device moments' float32 values: ``_moment_sums``). With one rank this is ``group_norm_act`` (the kernel on the
-    card). A CUDA tensor over more than one rank raises: the kernel takes no
-    moments yet, and its plain version does not stand in for it on the card."""
+    count (moments-out) are all-reduced in one float64 message, and each
+    rank normalises its frames with the global moments (moments-in), which
+    are the one-device moments' float32 values (``_moment_sums``). With one
+    rank this is ``group_norm_act`` (the fused kernel on the card). CUDA
+    tensors launch the two entries of ``csrc/groupnorm.cu`` or raise."""
     if group is None or group_size <= 1:
         return group_norm_act(x, gamma, beta, groups=groups, eps=eps, act=act)
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"group_norm_act_sharded: GroupNorm over frames sharded on {group_size} "
-            f"ranks has no CUDA kernel yet ({SHARDED_ROADMAP})")
     import torch.distributed as dist
 
-    sums, count = _moment_sums(x.reshape(x.shape[0], -1, x.shape[-1]).float(), groups)
-    count = torch.tensor([count], dtype=torch.float64)
-    dist.all_reduce(sums, group=group)
-    dist.all_reduce(count, group=group)
-    mean, sq = (sums / count).float()
-    return group_norm_act_plain(x, gamma, beta, groups=groups, eps=eps, act=act,
-                                moments=(mean, sq))
+    sums, count = group_norm_moments(x, groups)
+    msg = torch.cat([sums.reshape(-1), sums.new_tensor([count])])
+    dist.all_reduce(msg, group=group)
+    mean, sq = (msg[:-1].view(sums.shape) / msg[-1]).float()
+    return group_norm_apply(x, gamma, beta, (mean, sq), groups=groups, eps=eps, act=act)

@@ -20,6 +20,8 @@ def launch_counters() -> dict:
             "fused_spatial_tail": (st, "LAUNCHES"),
             "fused_temporal_block": (tb, "LAUNCHES"),
             "group_norm_act_f32": (gn, "F32_LAUNCHES"), "geglu_ff_simt": (gf, "SIMT_LAUNCHES"),
+            "group_norm_moments_out": (gn, "MOMENTS_OUT_LAUNCHES"),
+            "group_norm_moments_in": (gn, "MOMENTS_IN_LAUNCHES"),
             "flash_attention_f32": (fa, "F32_LAUNCHES"),
             "temporal_attention_f32": (ta, "F32_LAUNCHES")}
 

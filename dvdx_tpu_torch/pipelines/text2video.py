@@ -17,6 +17,7 @@ leaves bit for bit.
 from __future__ import annotations
 
 import os
+import sys
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..models.vae import VAEDecoder, decode_frames_tiled
 from ..models.zoo import ModelSpec, get_model_spec
 from ..ops import rng as rng_ops
 from ..ops.scheduler import DDIMSchedule, ddim_step, make_ddim_schedule
+from ..utils.bridge import load_flat_npz, load_tree, save_flat_npz
 from ..utils.init import fast_init
 
 
@@ -100,13 +102,65 @@ def build_pipeline(model: Union[str, ModelSpec] = "zeroscope-v2-576w",
     are the reference's for the same name and seed, bit for bit:
     ``utils.init.fast_init`` of the denoiser, the text encoder and the VAE
     decoder at seeds seed, seed + 1, seed + 2, each leaf drawn in float32
-    and cast once to the denoiser's compute dtype."""
+    and cast once to the denoiser's compute dtype.
+
+    With ``DVDX_PARAM_CACHE=<dir>`` set (the reference's variable), the
+    drawn leaves are kept in ``param_cache_path``'s flat npz: a hit loads
+    them with no draws, a miss draws and writes the file, and a file that
+    does not read or does not match the modules is drawn again, with a note
+    on stderr. A fault of the copy to the device raises."""
     spec = model if isinstance(model, ModelSpec) else get_model_spec(model)
     pipe = empty_pipeline(spec, device)
     dtype = spec.denoiser_config.compute_dtype
+    path = param_cache_path(spec, seed)
+    if path is not None and os.path.exists(path):
+        # only a file that does not read, or whose tree does not match the
+        # modules, is drawn again: a fault of the copy to the device raises
+        try:
+            tree = load_flat_npz(path)
+        except Exception as e:  # noqa: BLE001 - a corrupt or partial file
+            tree, fault = None, e
+        if tree is not None:
+            try:
+                return load_tree(pipe, tree)
+            except (KeyError, ValueError, TypeError) as e:
+                fault = e
+        print(f"DVDX_PARAM_CACHE: {path} not used ({type(fault).__name__}: "
+              f"{str(fault)[:200]}); drawing the weights again", file=sys.stderr, flush=True)
     for i, module in enumerate((pipe.unet, pipe.text_encoder, pipe.vae_decoder)):
         fast_init(module, seed + i, dtype=dtype)
+    if path is not None:
+        try:
+            save_flat_npz(path, pipe)
+        except OSError:  # a cache that cannot be written leaves the weights as drawn
+            pass
     return pipe
+
+
+def init_scheme_tag(spec: ModelSpec) -> str:
+    """The cache key's part that changes with the derivation: a hash of
+    ``utils/init.py``'s source (an edit of the draw rules invalidates every
+    file; a stale hit would hand miner and validator different weights) and
+    of the spec's repr."""
+    import hashlib
+    import inspect
+
+    from ..utils import init as init_mod
+
+    h = hashlib.sha256(inspect.getsource(init_mod).encode())
+    h.update(repr(spec).encode())
+    return h.hexdigest()[:12]
+
+
+def param_cache_path(spec: ModelSpec, seed: int) -> Optional[str]:
+    """``$DVDX_PARAM_CACHE/<model>-s<seed>-<dtype>-<tag>.npz``, the
+    reference's name for the same weights' cache file, or None where the
+    variable is unset."""
+    cache_dir = os.environ.get("DVDX_PARAM_CACHE", "")
+    if not cache_dir:
+        return None
+    dtype = str(spec.denoiser_config.compute_dtype).replace("torch.", "")
+    return os.path.join(cache_dir, f"{spec.name}-s{seed}-{dtype}-{init_scheme_tag(spec)}.npz")
 
 
 def resolve_pipeline(name_or_dir: str, seed: int = 0, device="cuda") -> Pipeline:

@@ -25,8 +25,9 @@ its shape checked. Leaves are numpy arrays as ``jax.tree.map(np.asarray,
 params)`` gives them, or torch tensors; bfloat16 numpy leaves are read by
 their bytes, so ``ml_dtypes`` is never needed. ``load_flat_npz`` reads the
 reference's flat-npz parameter cache (``dvdx_tpu/pipelines/text2video.py``
-``_save_flat_npz``) the same way, and ``load_lpips_params`` the JAX
-package's flat LPIPS(alex) parameter dict.
+``_save_flat_npz``) the same way, ``save_flat_npz`` writes it from a port
+object, and ``load_lpips_params`` reads the JAX package's flat LPIPS(alex)
+parameter dict.
 """
 
 from __future__ import annotations
@@ -235,13 +236,47 @@ def load_flat_npz(path: str) -> Dict[str, Any]:
         for key in z.files:
             name, dtype_name, shape_s = key.rsplit("|", 2)
             shape = tuple(int(x) for x in shape_s.split(",") if x)
-            raw = z[key]
+            raw = z[key]  # a fresh, writable array: the tensor takes it as it is
             if dtype_name == "bfloat16":
-                leaf = torch.from_numpy(raw.view(np.int16).copy()).view(torch.bfloat16)
+                leaf = torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
             else:
-                leaf = torch.from_numpy(raw.view(np.dtype(dtype_name)).copy())
+                leaf = torch.from_numpy(raw.view(np.dtype(dtype_name)))
             flat[name] = leaf.reshape(shape)
     return unflatten(flat)
+
+
+def save_flat_npz(path: str, obj) -> None:
+    """Every parameter of ``obj`` (a pipeline, or one module) in the
+    reference's flat-npz layout, which ``load_flat_npz`` and the reference's
+    ``_load_flat_npz`` read: one entry per flax leaf, keyed
+    ``'/'.join(path)|dtype|shape`` over its raw bytes in the flax layout.
+    Written to a unique temporary file in the same directory and renamed into
+    place, so processes that write the same path at once never leave a mixed
+    file."""
+    import os
+    import tempfile
+
+    flat = {}
+    for leaf in flax_leaves(obj):
+        value = leaf.to_flax(leaf.param.detach()).contiguous().cpu()
+        name = str(value.dtype).replace("torch.", "")
+        if value.dtype == torch.bfloat16:
+            value = value.view(torch.int16)
+        key = f"{'/'.join(leaf.path)}|{name}|{','.join(map(str, value.shape))}"
+        flat[key] = value.numpy().reshape(-1).view(np.uint8)
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp.npz")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **flat)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def load_pipeline_params(pipe, tree: Dict[str, Any]):

@@ -1,4 +1,4 @@
-"""Checkpoint load and fetch for pipelines.
+"""Checkpoint save, load and fetch for pipelines.
 
 Counterpart of ``dvdx_tpu/utils/checkpoint.py``, without JAX or orbax:
 
@@ -8,15 +8,24 @@ Counterpart of ``dvdx_tpu/utils/checkpoint.py``, without JAX or orbax:
   the path ``'.'.join(tree keys)``) through ``tensorstore``, and loads it
   strictly into a port object through ``utils.bridge``. bfloat16 leaves are
   read by their bytes. Any other layout is refused with a clear error.
+* ``save_params`` writes that layout from a port object through
+  ``tensorstore``: every flax leaf (``utils.bridge.flax_leaves``) as a zarr
+  v2 array (one zstd chunk) under the OCDBT store, bfloat16 by its bytes,
+  ``_METADATA``, ``_CHECKPOINT_METADATA`` and the ``_sharding`` file the
+  reference's ``load_params`` needs when its target carries no sharding
+  (each leaf on JAX's first CPU device, as a CPU host's orbax save names
+  it). ``load_params`` here and the reference's both read it back.
 * ``fetch_checkpoint`` is the retry-hardened fetch (exponential backoff)
   over a local path, an ``hf://org/name[@revision]`` source or any
   fetcher(src, dst) of one attempt.
 
-Writing checkpoints (``save_params``) is left to the reference.
+Both directions need ``tensorstore``; where it does not import they raise
+``ImportError`` naming it.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import shutil
@@ -24,8 +33,18 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
-from .bridge import load_tree, to_tensor
+from .bridge import flax_leaves, load_tree, to_tensor
+
+# the OCDBT store's settings and the chunk compressor of an orbax save
+OCDBT_CONFIG = {"compression": {"id": "zstd"}, "max_decoded_node_bytes": 100000000,
+                "max_inline_value_bytes": 1024, "version_tree_arity_log2": 4}
+ZARR_COMPRESSOR = {"id": "zstd", "level": 1}
+HANDLER = "orbax.checkpoint._src.handlers.standard_checkpoint_handler.StandardCheckpointHandler"
+# where the reference's load_params places a leaf when its target has no
+# sharding: JAX's first CPU device, which every JAX host has
+SHARDING = json.dumps({"sharding_type": "SingleDeviceSharding", "device_str": "TFRT_CPU_0"})
 
 
 class CheckpointFormatError(ValueError):
@@ -36,6 +55,15 @@ def _array_spec(root: str, keys) -> dict:
     return {"driver": "zarr",
             "kvstore": {"driver": "ocdbt", "base": f"file://{root}/",
                         "path": ".".join(keys) + "/"}}
+
+
+def _tensorstore(what: str):
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(f"{what} an orbax checkpoint needs the tensorstore module, "
+                          "which does not import here") from e
+    return ts
 
 
 def read_tree(path: str) -> Dict[str, Any]:
@@ -50,11 +78,7 @@ def read_tree(path: str) -> Dict[str, Any]:
         raise CheckpointFormatError(
             f"{root}: use_ocdbt={meta.get('use_ocdbt')} use_zarr3={meta.get('use_zarr3')}; "
             "this reader takes OCDBT with zarr v2 (what save_params writes)")
-    try:
-        import tensorstore as ts
-    except ImportError as e:
-        raise ImportError("reading an orbax checkpoint needs the tensorstore module, "
-                          "which does not import here") from e
+    ts = _tensorstore("reading")
     entries = []
     for entry in meta["tree_metadata"].values():
         keys = [k["key"] for k in entry["key_metadata"]]
@@ -70,6 +94,59 @@ def read_tree(path: str) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[keys[-1]] = to_tensor(arr)
     return tree
+
+
+def save_params(obj, path: str) -> None:
+    """Write every parameter of ``obj`` (a pipeline, img2vid pipeline,
+    scorer or module) as the reference's ``save_params`` writes its tree:
+    the directory is replaced, leaves are in the flax layout under their
+    reference paths."""
+    ts = _tensorstore("writing")
+    root = os.path.abspath(path)
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    context = ts.Context()
+    tree, sharding, writes = {}, {}, []
+    for leaf in flax_leaves(obj):
+        value = leaf.to_flax(leaf.param.detach()).contiguous().cpu()
+        if value.dtype == torch.bfloat16:
+            arr, dtype = value.view(torch.int16).numpy().view(ts.bfloat16.numpy_dtype), "bfloat16"
+        else:
+            arr = value.numpy()
+            dtype = arr.dtype.str
+        spec = _array_spec(root, leaf.path)
+        spec["kvstore"]["config"] = OCDBT_CONFIG
+        spec["metadata"] = {"shape": list(arr.shape), "chunks": list(arr.shape), "dtype": dtype,
+                            "compressor": ZARR_COMPRESSOR, "fill_value": None, "order": "C",
+                            "filters": None, "dimension_separator": "."}
+        store = ts.open(spec, create=True, context=context).result()
+        writes.append(store.write(arr))
+        tree[str(leaf.path)] = {
+            "key_metadata": [{"key": k, "key_type": 2} for k in leaf.path],
+            "value_metadata": {"value_type": "jax.Array", "skip_deserialize": False,
+                               "write_shape": list(arr.shape)}}
+        name = base64.urlsafe_b64encode(".".join(leaf.path).encode()).decode()
+        sharding[name] = SHARDING
+    for write in writes:
+        write.result()
+    now = time.time_ns()
+    for name, content in (
+            ("_METADATA", {"tree_metadata": tree, "use_ocdbt": True, "use_zarr3": False,
+                           "store_array_data_equal_to_fill_value": True,
+                           "custom_metadata": None}),
+            ("_sharding", sharding),
+            ("_CHECKPOINT_METADATA", {"item_handlers": HANDLER, "metrics": {},
+                                      "performance_metrics": {}, "init_timestamp_nsecs": now,
+                                      "commit_timestamp_nsecs": now, "custom_metadata": {}})):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(content, f)
+
+
+def save_pipeline(pipe, path: str) -> None:
+    """The reference's ``save_pipeline``: a pipeline's weights as
+    ``save_params`` writes them."""
+    save_params(pipe, path)
 
 
 def load_params(path: str, like=None):

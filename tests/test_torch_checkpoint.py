@@ -1,6 +1,6 @@
 """``utils.checkpoint``: the port reads what the JAX package's ``save_params``
-writes, without JAX or orbax, bit for bit (tolerance 0), and fetches with
-retries.
+writes, and writes what the JAX package's ``load_params`` reads, without JAX
+or orbax, bit for bit (tolerance 0), and fetches with retries.
 
 * ``save_params`` (orbax) into ``tmp_path``, then the port's ``load_params``:
   every leaf bit-equal, float32 and bfloat16, loaded strictly into a
@@ -10,6 +10,10 @@ retries.
   ``save_params``; ``python tests/test_torch_checkpoint.py`` writes it
   again) is what the JAX package reads back as that model, and what the
   port's ``fast_init`` + ``perturb_zero_params`` give;
+* the port's ``save_params`` / ``save_pipeline`` restored by the JAX
+  package's ``load_params`` bit for bit (float32 and bfloat16), with the
+  fixture's tree metadata, and by the port's own reader; without
+  ``tensorstore`` both directions raise ``ImportError`` naming it;
 * other checkpoint layouts are refused; the reader imports with JAX, flax,
   orbax and the JAX package blocked;
 * ``fetch_checkpoint`` retries with backoff (fetcher replaced,
@@ -142,6 +146,59 @@ def test_no_port_source_imports_orbax_or_tensorstore_at_module_level():
             if re.match(r"^(import|from)\s+(orbax|tensorstore|ml_dtypes)\b", line):
                 bad.append(f"{path.name}: {line}")
     assert not bad, bad
+
+
+# --- save_params: the port writes what the JAX package reads -----------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jax_load_params_restores_the_ports_save_params(tmp_path, dtype):
+    """The port's ``save_params`` of its zeroscope-tiny (seed 0, perturbed at
+    99) restored by the JAX package's ``load_params(path, like=...)``: the
+    JAX tree's paths, order, shapes, dtypes and every bit; read back by the
+    port's ``load_params`` (into a pipeline and as a tree) the same."""
+    spec = get_model_spec("zeroscope-tiny") if dtype == "float32" \
+        else _bf16_spec("zeroscope-tiny")
+    port = perturb_zero_params(build_pipeline(spec, seed=0, device="cpu"), seed=99)
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_params(port, path)
+    ref = _jax_tiny(None if dtype == "float32" else jnp.bfloat16)
+    back = jckpt.load_params(path, like=ref.params)
+    assert differing(back, port) == []
+    assert all(np.asarray(a).dtype == np.asarray(b).dtype
+               for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(ref.params)))
+    again = checkpoint.load_params(path, like=empty_pipeline(spec, "cpu"))
+    assert tree_digest(again) == tree_digest(port)
+    tree = checkpoint.load_params(path)
+    assert sorted(tree) == ["text", "unet", "vae_dec"]
+    checkpoint.save_pipeline(port, path)  # replaces the directory
+    assert tree_digest(checkpoint.load_params(path, like=empty_pipeline(spec, "cpu"))) == \
+        tree_digest(port)
+
+
+def test_save_params_of_the_fixture_model_reads_as_the_fixture(tmp_path):
+    """The port's save of the fixture's model and the JAX package's fixture
+    hold the same tree: the same _METADATA leaves and the same values."""
+    own = perturb_zero_params(build_pipeline("zeroscope-tiny", seed=0, device="cpu"), seed=99)
+    checkpoint.save_params(own, str(tmp_path / "ckpt"))
+    meta = [json.loads((p / "_METADATA").read_text())["tree_metadata"]
+            for p in (tmp_path / "ckpt", __import__("pathlib").Path(FIXTURE))]
+    assert meta[0] == meta[1]
+    mine = checkpoint.load_pipeline("zeroscope-tiny", str(tmp_path / "ckpt"), device="cpu")
+    assert tree_digest(mine) == tree_digest(checkpoint.load_pipeline("zeroscope-tiny",
+                                                                    FIXTURE, "cpu"))
+
+
+def test_save_params_without_tensorstore_raises(tmp_path, monkeypatch):
+    """Where tensorstore does not import (the card's host) writing raises
+    ImportError naming it, as reading does, and writes nothing."""
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    pipe = build_pipeline("zeroscope-tiny", seed=0, device="cpu")
+    with pytest.raises(ImportError, match="tensorstore"):
+        checkpoint.save_params(pipe, str(tmp_path / "ckpt"))
+    with pytest.raises(ImportError, match="tensorstore"):
+        checkpoint.load_params(FIXTURE)
+    assert not (tmp_path / "ckpt").exists()
 
 
 # --- fetch ------------------------------------------------------------------------

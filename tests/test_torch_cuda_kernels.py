@@ -561,20 +561,75 @@ def test_temporal_kernel_25_frames(cuda, layout, n, heads, d):
 
 
 def test_frame_sharded_groupnorm_on_the_card(cuda):
-    """Over one rank the frame-sharded GroupNorm is the kernel; over more it
-    raises (the kernel takes no moments yet), and its plain version never
-    runs on a CUDA tensor."""
+    """Over one rank the frame-sharded GroupNorm is the fused kernel."""
     x = _randn((2, 8, 64, 64), 3, cuda).bfloat16()
     w, b = _randn((64,), 4, cuda), _randn((64,), 5, cuda)
-    before = tgn.LAUNCHES
+    before = tgn.LAUNCHES, tgn.MOMENTS_OUT_LAUNCHES, tgn.MOMENTS_IN_LAUNCHES
     got = tgn.group_norm_act_sharded(x, w, b, groups=8, eps=1e-5, act="silu")
     torch.cuda.synchronize()
-    assert tgn.LAUNCHES == before + 1
+    assert (tgn.LAUNCHES, tgn.MOMENTS_OUT_LAUNCHES, tgn.MOMENTS_IN_LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
     _check(got, tgn.group_norm_act_plain(x, w, b, groups=8, eps=1e-5, act="silu"))
-    with pytest.raises(NotImplementedError, match="moments-in entry"):
-        tgn.group_norm_act_sharded(x, w, b, groups=8, eps=1e-5, group=object(),
-                                   group_size=2)
-    assert tgn.LAUNCHES == before + 1
+
+
+# the UNet's level-0 temporal norm (frames and 2880 positions), a resnet's
+# level 2, the 2560-channel concat, a ragged last chunk, and float32
+GN_SHARDED_SHAPES = [((2, 16, 2880, 320), 32, torch.bfloat16),
+                     ((32, 180, 1280), 32, torch.bfloat16),
+                     ((4, 45, 2560), 32, torch.bfloat16),
+                     ((3, 1000, 320), 32, torch.bfloat16),
+                     ((2, 4, 256, 32), 8, torch.float32)]
+
+
+@pytest.mark.parametrize("shape,groups,dtype", GN_SHARDED_SHAPES)
+def test_group_norm_moments_out_kernel(cuda, shape, groups, dtype):
+    """Moments-out: the float32 mean and E[x^2] of the kernel's float64 sums
+    equal the plain version's (``_moment_sums``) bit for bit, and a second
+    call gives the same bits."""
+    x = _randn(shape, 7, cuda, 2.0, 0.5).to(dtype)
+    before = tgn.MOMENTS_OUT_LAUNCHES
+    sums, count = tgn.group_norm_moments(x, groups)
+    torch.cuda.synchronize()
+    assert tgn.MOMENTS_OUT_LAUNCHES == before + 1
+    ref, ref_count = tgn._moment_sums(x.reshape(shape[0], -1, shape[-1]).float(), groups)
+    assert sums.shape == (2, shape[0], groups) and count == ref_count
+    assert torch.equal((sums / count).float(), (ref / ref_count).float())
+    assert torch.equal(sums, tgn.group_norm_moments(x, groups)[0])
+
+
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("shape,groups,dtype", GN_SHARDED_SHAPES)
+def test_group_norm_moments_in_kernel(cuda, shape, groups, dtype, act):
+    """Moments-in against the plain version given the same moments (2 bf16
+    ulps of the output's scale; float32 1e-5 relative), the same bits on a
+    second call; and the frames split in two halves (moments-out of each,
+    added, moments-in of each) against the whole."""
+    x = _randn(shape, 8, cuda, 2.0, 0.5).to(dtype)
+    c = shape[-1]
+    w, b = _randn((c,), 9, cuda, 0.5, 1.0), _randn((c,), 10, cuda, 0.1)
+    kw = dict(groups=groups, eps=1e-6, act=act)
+    sums, count = tgn.group_norm_moments(x, groups)
+    moments = tuple((sums / count).float())
+    before = tgn.MOMENTS_IN_LAUNCHES
+    got = tgn.group_norm_apply(x, w, b, moments, **kw)
+    torch.cuda.synchronize()
+    assert tgn.MOMENTS_IN_LAUNCHES == before + 1
+    want = tgn.group_norm_act_plain(x, w, b, moments=moments, **kw)
+    if dtype == torch.float32:
+        _check_f32(got, want, 1e-5)
+    else:
+        _check(got, want)
+    assert torch.equal(got, tgn.group_norm_apply(x, w, b, moments, **kw))
+    halves = x.chunk(2, dim=1)
+    parts = [tgn.group_norm_moments(h.contiguous(), groups) for h in halves]
+    split = tuple(((parts[0][0] + parts[1][0]) / (parts[0][1] + parts[1][1])).float())
+    assert torch.equal(torch.stack(split), torch.stack(moments))
+    halved = torch.cat([tgn.group_norm_apply(h.contiguous(), w, b, split, **kw)
+                        for h in halves], dim=1)
+    if dtype == torch.float32:
+        _check_f32(halved, want, 1e-5)
+    else:
+        _check(halved, want)
 
 
 def test_blend_chunks_on_the_card(cuda):

@@ -216,3 +216,85 @@ def test_group_norm_vs_reference_resnet_fallback():
     err = np.abs(_f32(got) - _f32(want)).max()
     print(f"parity: max_abs_err {err:.3g}, max_abs_ref {np.abs(_f32(want)).max():.3g}")
     assert err <= 4 * 2 ** -8 * np.abs(_f32(want)).max(), err
+
+
+# --- frame-sharded GroupNorm: moments-out and moments-in (row 9 sharded) ------
+
+def _split_norm(x: torch.Tensor, gamma, beta, parts: int, **kw):
+    """A (B, F, ..., C) tensor's GroupNorm with its frames split in
+    ``parts``, as the ranks of ``group_norm_act_sharded`` compute it: each
+    part's float64 sums (moments-out), added, then each part normalised with
+    the global moments (moments-in), concatenated; and those moments."""
+    pieces = x.chunk(parts, dim=1)
+    sums, count = 0, 0.0
+    for p in pieces:
+        s, n = tgn.group_norm_moments(p, kw["groups"])
+        sums, count = sums + s, count + n
+    mean, sq = (sums / count).float()
+    return torch.cat([tgn.group_norm_apply(p, gamma, beta, (mean, sq), **kw)
+                      for p in pieces], dim=1), (mean, sq)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,groups", [((2, 8, 6, 16), 4), ((1, 6, 5, 7, 64), 8),
+                                          ((3, 4, 40), 8)])
+def test_moments_out_is_the_one_device_moments(dtype, shape, groups):
+    """Moments-out's plain version is ``_moment_sums``, and the float64 sums
+    of any split of the frames, added, give the same float32 mean and E[x^2]
+    bit for bit (tolerance 0); the JAX reference's float32 moments of the
+    whole (``_gn_reference``'s jnp.mean: a float32 sum of up to 840 terms,
+    a few float32 ulps from the exact mean) within 1e-6 relative of them
+    (measured 3.8e-7)."""
+    rng = np.random.default_rng(len(shape) + groups)
+    x = torch.from_numpy((rng.normal(size=shape) * 3 + 1).astype(np.float32)).to(
+        getattr(torch, dtype))
+    sums, count = tgn.group_norm_moments(x, groups)
+    ref, ref_count = tgn._moment_sums(x.reshape(shape[0], -1, shape[-1]).float(), groups)
+    assert sums.dtype == torch.float64 and torch.equal(sums, ref) and count == ref_count
+    whole = (sums / count).float()
+    for parts in (2, shape[1]):
+        _, split = _split_norm(x, torch.ones(shape[-1]), torch.zeros(shape[-1]), parts,
+                               groups=groups, eps=1e-5)
+        assert torch.equal(torch.stack(split), whole), parts
+    xg = jnp.asarray(x.float().numpy()).reshape(shape[0], -1, groups, shape[-1] // groups)
+    jmean = np.asarray(jnp.mean(xg, axis=(1, 3)))
+    jsq = np.asarray(jnp.mean(jnp.square(xg), axis=(1, 3)))
+    for got, want in ((whole[0].numpy(), jmean), (whole[1].numpy(), jsq)):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_split_frames_norm_equals_the_whole(dtype, act, parts):
+    """Moments-in over each part with the added moments, concatenated, is
+    ``group_norm_act_plain`` of the whole tensor bit for bit (the same
+    float32 moments, the same per-row arithmetic), and within the file's
+    tolerance of the JAX package's ``group_norm_act`` (Pallas interpreter)
+    and ``_gn_reference`` of the whole."""
+    rng = np.random.default_rng(parts)
+    x = (rng.normal(size=(2, 8, 5, 6, 32)) * 2 + 0.5).astype(np.float32)
+    gamma = (rng.uniform(size=32) + 0.5).astype(np.float32)
+    beta = (rng.normal(size=32) * 0.1).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    kw = dict(groups=8, eps=1e-6, act=act)
+    tx, tg, tb = torch.from_numpy(x).to(tdt), torch.from_numpy(gamma), torch.from_numpy(beta)
+    got, _ = _split_norm(tx, tg, tb, parts, **kw)
+    assert got.dtype == tdt
+    assert torch.equal(got, tgn.group_norm_act_plain(tx, tg, tb, **kw))
+    jx = jnp.asarray(x, jdt).reshape(2, -1, 32)
+    zero = jnp.zeros((2, 32), jdt)
+    _check(got.reshape(2, -1, 32), jgn._gn_pallas(jx, gamma, beta, zero, **kw), dtype)
+    _check(got.reshape(2, -1, 32), jgn._gn_reference(jx, gamma, beta, zero, **kw), dtype)
+
+
+@pytest.mark.parametrize("fn", ["group_norm_moments", "group_norm_apply"])
+def test_sharded_entries_refuse_other_devices(fn):
+    """Off the CPU the two entries launch their kernels or raise: a device
+    that is neither the CPU nor a CUDA card is refused before any launch."""
+    x = torch.empty((1, 4, 8, 32), device="meta", dtype=torch.bfloat16)
+    w = torch.empty(32, device="meta")
+    args = {"group_norm_moments": ((x, 8), {}),
+            "group_norm_apply": ((x, w, w, (w, w)), dict(groups=8, eps=1e-5))}[fn]
+    with pytest.raises(ValueError, match=f"{fn}: unsupported device"):
+        getattr(tgn, fn)(*args[0], **args[1])

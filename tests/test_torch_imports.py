@@ -56,6 +56,9 @@ def test_chip_smoke_imports_without_jax():
             "import dvdx_tpu_torch.verify.spotcheck\n"
             "import dvdx_tpu_torch.network.mock, dvdx_tpu_torch.network.validator\n"
             "import dvdx_tpu_torch.utils.testing\n"
+            "from dvdx_tpu_torch.ops.groupnorm import group_norm_moments, group_norm_apply\n"
+            "from dvdx_tpu_torch.pipelines.text2video import param_cache_path\n"
+            "from dvdx_tpu_torch.utils.checkpoint import save_params\n"
             "import torch\n"
             "assert torch.cuda.is_available() or g['main']() == 2\n"
             "print('ok')\n")

@@ -329,6 +329,54 @@ def test_two_ranks_match_jax_mesh(tiny_weights, two_ranks, name, shape):
         print(f"JAX cp_exact {shape} against JAX single: {own:.3g}")  # pytest -rP
 
 
+# ROADMAP §3.3: one float32 UNet call of the exact-CP program, port at 2 gloo
+# ranks against JAX on a (1, 1, 2) CPU mesh, before any bf16 latent rounding:
+# float32 summation order alone (measured 1.06e-6 of max|eps|)
+CP_EPS_TOL = 1e-5
+
+
+def test_cp_exact_unet_call_equals_jax_ring_in_float32(tiny_weights, tmp_path):
+    """The port's ring (``ops/ring_attention.py``), frame-sharded GroupNorm
+    and conv halos compute the JAX cp_exact function: eps of one CFG UNet
+    call of float32 zeroscope-tiny on 16 frames, its frames split over 2
+    ranks, within CP_EPS_TOL of max|eps| of the JAX cp_exact call (ring
+    attention under ``ring_context`` and ``frames_major``, GSPMD elsewhere)
+    on the same weights and inputs, and of both one-device calls."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from dvdx_tpu.ops.attention import ring_context as jring_context
+    from dvdx_tpu.ops.layout import frames_major
+
+    jp, weights = tiny_weights
+    rng = np.random.default_rng(33)
+    z = rng.normal(size=(2, 16, 4, 4, 4)).astype(np.float32)
+    hidden = rng.normal(size=(2, jp.spec.text.max_length, jp.spec.text.hidden_size)).astype(
+        np.float32)
+    t = np.full((2,), int(make_ddim_schedule(2).timesteps[0]), np.int32)
+    jmesh = jmake_mesh((1, 1, 2), devices=jax.devices()[:2])
+
+    def cp(params, z, t, h):
+        z = jax.lax.with_sharding_constraint(z, NamedSharding(jmesh, P(None, "seq")))
+        return jp.unet.apply(params, z, t, h)
+
+    with jring_context(jmesh, "seq", algo="ring"), frames_major():
+        jax_cp = np.asarray(jax.jit(cp)(jp.params["unet"], z, t, hidden))
+    jax_single = np.asarray(jax.jit(jp.unet.apply)(jp.params["unet"], z, t, hidden))
+    outs = run_ranks(workers.cp_unet_call, 2,
+                     args=("zeroscope-tiny", weights, torch.from_numpy(z), torch.from_numpy(t),
+                           torch.from_numpy(hidden)),
+                     device="cpu", timeout_s=60, workdir=str(tmp_path / "ranks"))
+    scale = float(np.abs(jax_single).max())
+    for rank, (port_cp, port_single) in enumerate(outs):
+        errs = {"port cp_exact vs JAX cp_exact": np.abs(port_cp.numpy() - jax_cp).max(),
+                "port cp_exact vs port single": (port_cp - port_single).abs().max().item(),
+                "port single vs JAX single": np.abs(port_single.numpy() - jax_single).max()}
+        print(f"rank {rank}: " + ", ".join(f"{k} {v / scale:.3g}" for k, v in errs.items())
+              + f" (of max|eps| {scale:.3g}; JAX cp_exact vs JAX single "
+              f"{np.abs(jax_cp - jax_single).max() / scale:.3g})")  # pytest -rP
+        assert all(v <= CP_EPS_TOL * scale for v in errs.values()), errs
+
+
 @pytest.mark.parametrize("name", ["cp_exact", "cp_ulysses"])
 def test_hf_context_parallel_two_ranks(bridged, two_ranks_hf, name):
     """The diffusers temporal style under exact CP: frame-axis attention

@@ -247,3 +247,22 @@ def in_place_shard(rank, world, device, model, weights):
         for m in net.miners:
             m.engine.close()
     return out
+
+
+def cp_unet_call(rank, world, device, model, weights, z, t, hidden, algo="ring"):
+    """One UNet call of the exact-CP program: this rank's frames of the
+    float32 latents z (B, F, h, w, C) inside ``ring_context`` on a (1, 1,
+    world) mesh, the ranks' eps gathered over the frames; and the
+    one-device call on the whole z beside it."""
+    from dvdx_tpu_torch.ops.attention import ring_context
+    from dvdx_tpu_torch.parallel.mesh import make_mesh
+    from dvdx_tpu_torch.parallel.strategies import _gather_cat
+
+    pipe = _pipe(model, weights)
+    mesh = make_mesh((1, 1, world), device="cpu")
+    fl = z.shape[1] // world
+    off = rank * fl
+    with torch.inference_mode():
+        with ring_context(mesh, "seq", algo=algo):
+            eps = pipe.unet(z[:, off:off + fl], t, hidden, torch.arange(off, off + fl))
+        return _gather_cat(eps, mesh, ("seq",), dim=1), pipe.unet(z, t, hidden)
