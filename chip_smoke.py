@@ -2,6 +2,10 @@
 """Smoke test of the PyTorch / CUDA port (``dvdx_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py --kernels NAME[,NAME...]   # phases 1-2 for those
+        # kernels alone (names as in the kernels line): their rows, no
+        # contract line; a quick timing of a kernel's change, e.g. a copy of
+        # the parent's package beside a copy of this script, run in one call
 
 Phases, each printing on its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi), torch / CUDA versions;
@@ -9,6 +13,10 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      ``dvdx_tpu_torch/csrc`` (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the card, in bf16, at
      the main path's full-width shapes, and the float32 kernels at phase 6's
+     and at phase 13's full-width shapes (the fused tail's and block's
+     float32 forms at level 0 and at a ragged S / N; float32 flash at S =
+     2880 and 720, frame-axis attention at levels 1-3, GEGLU's CUDA-core
+     pair at C = 640 / 1280, GroupNorm at the UNet's and the VAE's shapes)
      (and a few off it: the fused tail at
      C = 384, with tiles spanning two images, at T = 300, at C = 64 with T =
      16, at head width 40 and at C = 640 (the wide chain); frame-axis
@@ -173,10 +181,29 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      launches each entry once, and the result is bit-equal to (a)'s or
      within its tolerance of the plain version; the cache file is deleted
      whatever fails after it is written;
+ 13. float32 zeroscope-v2-576w (run right before phase 7, on the checkpoint
+     phase 7 loads, here with ``load_diffusers_checkpoint(dtype="float32")``:
+     7.0 GB of float32 weights, no leaf cast to bf16): (a) Request A's
+     prompt, seed and geometry (16 x 576x320, CFG 7.5), 3 DDIM steps, recorded
+     through ``StepEngine.generate_recorded`` twice, the leaves (bf16, as in
+     both packages) and the root the same bits; (b) launches per UNet call
+     of the float32 kernels as the routing says (``F32_EXPECTED_PER_UNET_CALL``:
+     the fused tail 5, the block 6) and no bf16 kernel; (c) every distinct
+     input one CFG UNet call and one frame's decode hand a kernel, held
+     against the plain version (1e-5 of max|plain|, 1e-4 for GroupNorm) on
+     those inputs and on random ones, the same bits again, and the call
+     again bit for bit; (d) that call and that decode through the plain
+     versions, within ``F32_PLAIN_RELRMS_TOL`` relative RMS; (e) 2 revealed
+     steps re-executed bit for bit, the video bound, a tampered eps leaf
+     refused; (f) the load seconds, s per request and per step, peak memory,
+     one traced step's device ms by group (``utils.profile_step``), each
+     float32 kernel's ms over the call beside its bound at the float32 peak;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, phase 12(c)'s two ranks for the two sharded
-  GroupNorm entries, or phase 6 for the float32 kernels; 0 for those
-  phase 2 alone holds; ``launches_xl`` from phase 7's request;
+  GroupNorm entries, or phase 13's float32 request for the float32 kernels
+  (phase 6's round under ``launches_cross_device_round``, phase 13's UNet
+  call and frame under ``float32_per_unet_call`` / ``float32_vae_frame``);
+  0 for those phase 2 alone holds; ``launches_xl`` from phase 7's request;
   ``launches_services`` per phase-8 process;
   ``xl_per_unet_call`` / ``xl_vae_frame`` from phase 7's held inputs:
   distinct shapes, launches, kernel ms summed over the launches, largest
@@ -533,16 +560,17 @@ def kernel_cases():
                           q, k, v, heads=h, head_dim=d),
                       sdpa_mh(heads, d), flash_mh_cost(b, sq, sk, heads, d), False))
 
-    def linear_params(keys, shapes, gen):
+    def linear_params(keys, shapes, gen, dtype=torch.bfloat16):
         # weights N(0, 1/fan_in), biases and LayerNorm biases N(0, 0.1^2),
         # LayerNorm scales 1 + N(0, 0.1^2)
         out = {}
         for key in keys:
             shape = shapes[key]
             if len(shape) == 2:
-                out[key] = randn(shape, gen, shape[1] ** -0.5)
+                out[key] = randn(shape, gen, shape[1] ** -0.5, dtype=dtype)
             else:
-                out[key] = randn(shape, gen, 0.1, 1.0 if key.endswith("_s") else 0.0)
+                out[key] = randn(shape, gen, 0.1, 1.0 if key.endswith("_s") else 0.0,
+                                 dtype=dtype)
         return out
 
     # the main path's level 0, then off it: C = 384 (two ring stages), S =
@@ -666,6 +694,91 @@ def kernel_cases():
             return [randn(shape, gen, dtype=f32) for _ in range(3)]
         cases.append(("temporal_attention_f32", label, mk, kern, plain, lib,
                       f32_cost(temporal_cost(2, 4, 256, 2, 16)), False))
+
+    # float32 zeroscope-v2-576w (phase 13) at 16 x 576x320: the fused tail and
+    # block at level 0 (and each at a ragged shape: S = 721, N = 2881), and
+    # the other float32 kernels at the shapes the layers hand them there
+    for label, (n, s_, c, heads, t), main in (("level0", (32, 2880, 320, 5, 77), True),
+                                              ("s721_ragged", (3, 721, 320, 5, 77), False)):
+        shapes = {k: (c,) for k in st.KEYS}
+        shapes.update({"o1_w": (c, c), "q2_w": (c, c), "o2_w": (c, c),
+                       "ffi_w": (8 * c, c), "ffi_b": (8 * c,), "ffo_w": (c, 4 * c)})
+
+        def mk(gen, n=n, s_=s_, c=c, t=t, shapes=shapes):
+            return [randn((n, s_, c), gen, dtype=f32), randn((n, s_, c), gen, dtype=f32),
+                    randn((n, t, c), gen, dtype=f32), randn((n, t, c), gen, dtype=f32),
+                    linear_params(st.KEYS, shapes, gen, f32)]
+        cases.append(("fused_spatial_tail_f32", label, mk,
+                      lambda *a, h=heads: st.fused_spatial_tail(*a, heads=h),
+                      lambda *a, h=heads: st.fused_spatial_tail_plain(*a, heads=h), None,
+                      f32_cost(spatial_tail_cost(n * s_, c, c, c, t, n)), main))
+    for label, (b, f, n, heads), main in (("level0", (2, 16, 2880, 5), True),
+                                          ("transformer_in_d40", (2, 16, 2880, 8), True),
+                                          ("n2881_ragged", (2, 16, 2881, 5), False)):
+        c = 320
+        shapes = {k: (c,) for k in tb.KEYS}
+        shapes.update({k: (c, c) for k in ("q1", "k1", "v1", "o1_w", "q2", "k2", "v2", "o2_w")})
+        shapes.update({"ffi_w": (8 * c, c), "ffi_b": (8 * c,), "ffo_w": (c, 4 * c)})
+
+        def mk(gen, b=b, f=f, n=n, c=c, shapes=shapes):
+            return [randn((b, f, n, c), gen, dtype=f32), linear_params(tb.KEYS, shapes, gen, f32)]
+        cases.append(("fused_temporal_block_f32", label, mk,
+                      lambda x, p, h=heads: tb.fused_temporal_block(x, p, heads=h),
+                      lambda x, p, h=heads: tb.fused_temporal_block_plain(x, p, heads=h), None,
+                      f32_cost(temporal_block_cost(b * f * n, f, c)), main))
+    for label, (b, s_, h, d) in (("level0", (32, 2880, 5, 64)), ("level1", (32, 720, 10, 64))):
+        def mk(gen, b=b, s_=s_, h=h, d=d):
+            return [randn((b, s_, h, d), gen, dtype=f32) for _ in range(3)]
+        cases.append(("flash_attention_f32", label, mk, fa.flash_attention,
+                      fa.flash_attention_plain, sdpa_bshd, f32_cost(flash_cost(b, s_, h, d)),
+                      True))
+    for label, (b, f, n, heads, d) in (("level1", (2, 16, 720, 10, 64)),
+                                       ("level2", (2, 16, 180, 20, 64)),
+                                       ("level3", (2, 16, 45, 20, 64))):
+        def mk(gen, shape=(b, f, n, heads * d)):
+            return [randn(shape, gen, dtype=f32) for _ in range(3)]
+        cases.append(("temporal_attention_f32", label, mk,
+                      lambda q, k, v, h=heads: ta.temporal_attention(q, k, v, heads=h),
+                      lambda q, k, v, h=heads: ta.temporal_attention_plain(q, k, v, heads=h),
+                      sdpa_fm(heads), f32_cost(temporal_cost(b, f, n, heads, d)), True))
+    for label, (t, c) in (("level1", (23040, 640)), ("level2", (5760, 1280)),
+                          ("level3", (1440, 1280))):
+        inner = 4 * c
+
+        def mk(gen, t=t, c=c, inner=inner):
+            return [randn((t, c), gen, dtype=f32),
+                    randn((2 * inner, c), gen, c ** -0.5, dtype=f32),
+                    randn((2 * inner,), gen, 0.1, dtype=f32),
+                    randn((c, inner), gen, inner ** -0.5, dtype=f32),
+                    randn((c,), gen, 0.1, dtype=f32)]
+        cases.append(("geglu_ff_simt", label, mk, gf.geglu_ff, gf.geglu_ff_plain, None,
+                      f32_cost(geglu_cost(t, c, inner)), True))
+    for label, (n, l, c, act, bias, eps, scale, shift) in (
+            ("resnet_l0", (32, 2880, 320, "silu", True, 1e-5, 2.0, 0.5)),
+            ("temporal_l0", (2, 46080, 320, "none", False, 1e-6, 2.0, 0.5)),
+            ("resnet_l2", (32, 180, 1280, "silu", True, 1e-5, 2.0, 0.5)),
+            ("resnet_l3_concat", (32, 45, 2560, "silu", False, 1e-5, 2.0, 0.5)),
+            ("vae_mid", (1, 2880, 512, "silu", False, 1e-6, 1.0, 3.0)),
+            ("vae_out_320x576", (1, 184320, 128, "silu", False, 1e-6, 1.0, 3.0))):
+        def mk(gen, n=n, l=l, c=c, bias=bias, scale=scale, shift=shift):
+            xs = [randn((n, l, c), gen, scale, shift, f32),
+                  torch.rand((c,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((c,), generator=gen, device="cuda") * 0.1]
+            xs.append(randn((n, c), gen, dtype=f32) if bias else None)
+            return xs
+
+        def kern(x, w, b_, bias, act=act, eps=eps):
+            return gn.group_norm_act(x, w, b_, groups=32, eps=eps, act=act, bias=bias)
+
+        def plain(x, w, b_, bias, act=act, eps=eps):
+            return gn.group_norm_act_plain(x, w, b_, groups=32, eps=eps, act=act, bias=bias)
+
+        def lib(x, w, b_, bias, act=act, eps=eps):
+            xb = x if bias is None else x + bias[:, None, :]
+            y = F.group_norm(xb.transpose(1, 2), 32, w, b_, eps)
+            return F.silu(y) if act == "silu" else y
+        cases.append(("group_norm_act_f32", f"full_{label}", mk, kern, plain, lib,
+                      gn_cost(n, l, c, bias, 4), True))
     return cases
 
 
@@ -707,6 +820,10 @@ KERNEL_META = {
                             "dvdx_tpu/ops/pallas/flash_attention.py:470"),
     "temporal_attention_f32": ("dvdx_tpu_torch/csrc/attention_f32.cu",
                                "dvdx_tpu/ops/pallas/temporal_attention.py:183"),
+    "fused_spatial_tail_f32": ("dvdx_tpu_torch/csrc/spatial_tail_f32.cu",
+                               "dvdx_tpu/ops/pallas/spatial_tail.py:304"),
+    "fused_temporal_block_f32": ("dvdx_tpu_torch/csrc/temporal_block_f32.cu",
+                                 "dvdx_tpu/ops/pallas/temporal_block.py:146"),
     # frame-sharded GroupNorm: the kernel's first and last phases as two
     # entries, an all-reduce between them (the JAX package: group_norm_act
     # under GSPMD's implicit all-reduce)
@@ -717,10 +834,14 @@ KERNEL_META = {
 }
 # the two entries phase 12's two-half split runs
 SHARDED_GN_PATH = ("group_norm_moments_out", "group_norm_moments_in")
+# the float32 form of each model-path kernel, by the name the layers call
+F32_NAME = {"flash_attention": "flash_attention_f32",
+            "temporal_attention": "temporal_attention_f32", "geglu_ff": "geglu_ff_simt",
+            "group_norm_act": "group_norm_act_f32", "fused_spatial_tail": "fused_spatial_tail_f32",
+            "fused_temporal_block": "fused_temporal_block_f32"}
 # kernels whose operations run on the CUDA cores in f32 (their bound takes
-# the float32 peak)
-CUDA_CORE_KERNELS = ("group_norm_act_f32", "geglu_ff_simt", "flash_attention_f32",
-                     "temporal_attention_f32")
+# the float32 peak): the float32 forms, which phase 13's model runs
+CUDA_CORE_KERNELS = tuple(F32_NAME.values())
 # the peak rate each kernel's operations run at, where it is not the bf16
 # tensor cores'
 KERNEL_PEAK = {**{k: PEAK_F32_FLOPS for k in CUDA_CORE_KERNELS},
@@ -753,14 +874,16 @@ F32_REL_TOL = {"group_norm_act_f32": 1e-4, "group_norm_moments_out": 0.0}
 F32_REL_TOL_DEFAULT = 1e-5
 
 
-def check_kernels():
-    """Each case's kernel against its plain version. Returns ({kernel: sums
-    over its main-path shapes, or over all its shapes where none is on the
-    path}, rows)."""
+def check_kernels(only=None):
+    """Each case's kernel against its plain version (the kernels named in
+    ``only``, or all). Returns ({kernel: sums over its main-path shapes, or
+    over all its shapes where none is on the path}, rows)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     sums = {}
     rows = []
     for name, label, mk, kern, plain, lib, (flops, nbytes), main in kernel_cases():
+        if only is not None and name not in only:
+            continue
         inputs = mk(gen)
         out = kern(*inputs)
         torch.cuda.synchronize()
@@ -817,7 +940,7 @@ def check_kernels():
         s["library_ms"] = None if lib_ms is None or s["library_ms"] is None \
             else s["library_ms"] + lib_ms
     summary = {}
-    for name in KERNEL_META:
+    for name in KERNEL_META if only is None else only:
         s = sums.get((name, True)) or sums[(name, False)]
         off = sums.get((name, False))
         if off is not None:
@@ -893,11 +1016,13 @@ def check_against_cpu():
                              f"the CPU's, over {REFERENCE_RELRMS_TOL}")
 
 
-def launch_bounds(module, run):
+def launch_bounds(module, run, f32: bool = False):
     """Run ``run()`` with forward hooks on the layers of ``module`` that hand
     work to a kernel, and sum each kernel's launches and bound from the
     shapes handed to it: {kernel: {"launches": n, "bound_ms": t}}. Each
-    hook's count must equal its kernel's own launch counter over the run."""
+    hook's count must equal its kernel's own launch counter over the run.
+    ``f32``: a float32 model, whose layers launch the float32 forms
+    (``F32_NAME``), with float32 operands at the float32 peak."""
     from dvdx_tpu_torch.models import layers
     from dvdx_tpu_torch.ops.attention import wants_flash
 
@@ -905,9 +1030,12 @@ def launch_bounds(module, run):
     chain_ff = [0.0, 0.0]  # the fused block's bound split: chain launch, FF launches
     tail_chain_ff = [0.0, 0.0]  # the fused tail's
 
+    def bound(cost):
+        return bound_ms(*f32_cost(cost), PEAK_F32_FLOPS)[0] if f32 else bound_ms(*cost)[0]
+
     def add(name, cost):
         acc[name][0] += 1
-        acc[name][1] += bound_ms(*cost)[0]
+        acc[name][1] += bound(cost)
 
     def on_gn(mod, args, kwargs, out):
         x, c = args[0], args[0].shape[-1]
@@ -943,16 +1071,16 @@ def launch_bounds(module, run):
         hd = mod.attn2.to_q.out_features
         add("fused_spatial_tail", spatial_tail_cost(n * s, c, a1.heads * a1.head_dim,
                                                     hd, ctx.shape[1], n))
-        tail_chain_ff[0] += bound_ms(*spatial_chain_cost(n * s, c, hd, ctx.shape[1], n))[0]
-        tail_chain_ff[1] += bound_ms(*temporal_ff_cost(n * s, c))[0]
+        tail_chain_ff[0] += bound(spatial_chain_cost(n * s, c, hd, ctx.shape[1], n))
+        tail_chain_ff[1] += bound(temporal_ff_cost(n * s, c))
 
     def on_temporal_block(mod, args, kwargs, out):
         x = args[0]
         if mod.fused(x):
             rows, f, c = x[..., 0].numel(), x.shape[1], x.shape[-1]
             add("fused_temporal_block", temporal_block_cost(rows, f, c))
-            chain_ff[0] += bound_ms(*temporal_chain_cost(rows, f, c))[0]
-            chain_ff[1] += bound_ms(*temporal_ff_cost(rows, c))[0]
+            chain_ff[0] += bound(temporal_chain_cost(rows, f, c))
+            chain_ff[1] += bound(temporal_ff_cost(rows, c))
 
     hooks = ((layers.GroupNorm, on_gn), (layers.GEGLUFeedForward, on_ff),
              (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn),
@@ -966,14 +1094,16 @@ def launch_bounds(module, run):
     for h in handles:
         h.remove()
     after = read_counts()
+    name = (lambda k: F32_NAME[k]) if f32 else (lambda k: k)
     for k, (n, _) in acc.items():
-        if after[k] - before[k] != n:
-            raise AssertionError(f"{k}: {after[k] - before[k]} launches, "
+        if after[name(k)] - before[name(k)] != n:
+            raise AssertionError(f"{name(k)}: {after[name(k)] - before[name(k)]} launches, "
                                  f"{n} seen by the bound's hooks")
-    out = {k: {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
-    out["fused_temporal_block"].update(bound_ms_chain=chain_ff[0], bound_ms_ff=chain_ff[1])
-    out["fused_spatial_tail"].update(bound_ms_chain=tail_chain_ff[0],
-                                     bound_ms_ff=tail_chain_ff[1])
+    out = {name(k): {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
+    out[name("fused_temporal_block")].update(bound_ms_chain=chain_ff[0],
+                                             bound_ms_ff=chain_ff[1])
+    out[name("fused_spatial_tail")].update(bound_ms_chain=tail_chain_ff[0],
+                                           bound_ms_ff=tail_chain_ff[1])
     return out
 
 
@@ -2138,10 +2268,16 @@ def _random_like(x, gen, key=""):
     return out.copy_(values)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bits as integers of its element size (bf16 or float32)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def hold_recorded(seen, where: str, tag: str = "xl"):
     """Each recorded call's kernel against its plain version (2 bf16 ulps of
-    max|plain|, and the same bits on a second call), on the inputs the path
-    gave it and on random inputs of the same shapes and strides (the
+    max|plain|, or ``F32_REL_TOL`` of it in float32, and the same bits on a
+    second call), on the inputs the path gave it and on random inputs of the
+    same shapes and strides (the
     synthetic checkpoint's small UNet weights leave some outputs at their
     bias, which the path's inputs alone would not test), and its time on the
     path's inputs -> ({kernel: {"shapes", "launches", "ms" (kernel ms summed
@@ -2149,6 +2285,16 @@ def hold_recorded(seen, where: str, tag: str = "xl"):
     sites = path_kernel_sites()
     gen = torch.Generator(device="cuda").manual_seed(4321)
     summary, rows = {}, []
+    with torch.inference_mode():  # as the path ran them (a float32 cast is no copy)
+        _hold_calls(seen, sites, gen, where, summary, rows)
+    torch.cuda.empty_cache()
+    log(f"{tag}: {where}: {len(rows)} distinct kernel inputs held against their plain "
+        f"versions: " + json.dumps(summary))
+    return summary, rows
+
+
+def _hold_calls(seen, sites, gen, where, summary, rows):
+    """hold_recorded's loop: fills ``summary`` and ``rows``."""
     for name, calls in seen.items():
         mod, attr, plain = sites[name]
         kern = getattr(mod, attr)
@@ -2161,8 +2307,12 @@ def hold_recorded(seen, where: str, tag: str = "xl"):
                 out = kern(*a, **kw)
                 ref = plain(*a, **kw)
                 err = (out.float() - ref.float()).abs().max().item()
-                tol = TOL_ULPS * 2.0 ** -7 * max(ref.float().abs().max().item(), 1e-6)
-                repeat = torch.equal(out.view(torch.int16), kern(*a, **kw).view(torch.int16))
+                scale = max(ref.float().abs().max().item(), 1e-6)
+                if out.dtype == torch.float32:
+                    tol = F32_REL_TOL.get(F32_NAME[name], F32_REL_TOL_DEFAULT) * scale
+                else:
+                    tol = TOL_ULPS * 2.0 ** -7 * scale
+                repeat = torch.equal(_bits(out), _bits(kern(*a, **kw)))
                 row.update({f"{inputs}_max_abs_err": err, f"{inputs}_tol": tol,
                             f"{inputs}_repeat_bitwise": repeat})
                 del out, ref
@@ -2177,16 +2327,29 @@ def hold_recorded(seen, where: str, tag: str = "xl"):
             s["shapes"] += 1
             s["launches"] += count
             s["ms"] += count * row["ms"]
+
+
+FULL_CKPT = os.path.join(REPO_DIR, "build", "synthetic_xl")
+
+
+def write_full_checkpoint(root: str) -> dict:
+    """The synthetic checkpoint at zeroscope's full architecture that phases
+    13 and 7 load, written under ``root`` (anything there first removed)."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    nbytes = write_synthetic_checkpoint(root, FULL_UNET, FULL_VAE, FULL_TEXT,
+                                        F32_PROMPT.split() * 3, "cuda")
     torch.cuda.empty_cache()
-    log(f"{tag}: {where}: {len(rows)} distinct kernel inputs held against their plain "
-        f"versions: " + json.dumps(summary))
-    return summary, rows
+    return {"checkpoint_bytes": nbytes, "checkpoint_write_s": time.perf_counter() - t0}
 
 
-def run_xl():
-    """Phase 7: zeroscope-v2-xl from a full-scale synthetic checkpoint: the
-    XL PoI request, the CLI's segmented runner on the same inputs (the same
-    bits), 3 re-executed steps, tiled against full-frame decode of one
+def run_xl(root: str, written: dict):
+    """Phase 7: zeroscope-v2-xl from the full-scale synthetic checkpoint at
+    ``root`` (``written``: its bytes and write seconds), deleted once loaded:
+    the XL PoI request, the CLI's segmented runner on the same inputs (the
+    same bits), 3 re-executed steps, tiled against full-frame decode of one
     frame, and the command line run on the card."""
     import shutil
 
@@ -2199,16 +2362,10 @@ def run_xl():
     from dvdx_tpu_torch.verify.merkle import MerkleCommitment
     from dvdx_tpu_torch.verify.spotcheck import StepEngine, verify_revealed_steps
 
-    root = os.path.join(REPO_DIR, "build", "synthetic_xl")
-    shutil.rmtree(root, ignore_errors=True)
-    prompt = "a red panda rides a bicycle through a snowy forest"
-    out = {}
+    prompt = F32_PROMPT
+    out = dict(written)
+    nbytes = written["checkpoint_bytes"]
     try:
-        t0 = time.perf_counter()
-        nbytes = write_synthetic_checkpoint(root, FULL_UNET, FULL_VAE, FULL_TEXT,
-                                            prompt.split() * 3, "cuda")
-        out["checkpoint_bytes"], out["checkpoint_write_s"] = nbytes, time.perf_counter() - t0
-        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         pipe = resolve_pipeline(root)
         torch.cuda.synchronize()
@@ -2393,6 +2550,249 @@ def run_xl():
         frames = decode_video(f.read())
     _require(frames.shape == (4, 32, 32, 3) and "device=" in proc.stdout
              and "device=cpu" not in proc.stdout, "xl: cli video", list(frames.shape))
+    return out
+
+
+# --- phase 13: float32 zeroscope-v2-576w from the full-architecture checkpoint --
+
+F32_PROMPT = "a red panda rides a bicycle through a snowy forest"  # Request A's
+# Request A's geometry; 3 of its 25 steps (a float32 UNet call runs on the
+# CUDA cores, about a second)
+F32_REQUEST = dict(num_frames=16, height=320, width=576, num_steps=3, guidance_scale=7.5)
+F32_CHECKS = [1, 2]  # re-executed steps; 2 is T-1 (the video binding)
+# shifts of a tampered eps leaf the validator must refuse: a gross forgery,
+# and twice the same-program atol of 1e-4
+F32_TAMPER_SHIFTS = (2.0 ** -4, 2e-4)
+# the float32 model routes as the bf16 one: the gates read shapes only
+F32_EXPECTED_PER_UNET_CALL = {F32_NAME[k]: n for k, n in EXPECTED_PER_UNET_CALL.items()}
+# one float32 UNet call through the kernels against the same call through the
+# plain versions (relative RMS): each kernel sits within 1e-5 of its plain
+# version's max (1e-4 for GroupNorm), both sides in float32 and the library
+# ops the same; the call composes about 240 kernel launches and as many
+# library ops, whose differences add in quadrature through the residual
+# stream, so 1e-4 leaves a factor 10 over one kernel's bound and is still
+# 300 times below REFERENCE_RELRMS_TOL's bf16 spread
+F32_PLAIN_RELRMS_TOL = 1e-4
+
+
+def run_float32(root: str, smi: str) -> dict:
+    """Phase 13: float32 zeroscope-v2-576w from the full-architecture
+    synthetic checkpoint at ``root`` (phase 7's, loaded a second time with
+    ``dtype="float32"``): (a) the request (Request A's prompt, seed and
+    geometry, 3 steps) twice through ``StepEngine.generate_recorded``, the
+    same bits both times; (b) launches per UNet call as the routing says,
+    from the request and from one CFG UNet call's hooks; (c) every distinct
+    input that call and one frame's decode hand a kernel, held against the
+    plain version (1e-5 relative, 1e-4 for GroupNorm; the same bits again);
+    (d) that call and that decode through the plain versions; (e) 2
+    revealed steps re-executed bit for bit, the video bound, a tampered eps
+    leaf refused; (f) load s, s per step, peak memory, one step's device ms
+    by group, each float32 kernel's ms over the call beside its bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
+    from dvdx_tpu_torch.pipelines.text2video import cfg_denoise_step, encode_prompts
+    from dvdx_tpu_torch.utils.convert import load_diffusers_checkpoint
+    from dvdx_tpu_torch.utils.profile_step import breakdown
+    from dvdx_tpu_torch.utils.testing import relative_rms, unet_pair_call
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+    from dvdx_tpu_torch.verify.spotcheck import StepEngine, verify_revealed_steps
+
+    t_phase = time.perf_counter()
+    out = {"device": smi}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = load_diffusers_checkpoint(root, dtype="float32")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    # no leaf cast to bf16 on the way: every parameter float32, and the towers
+    # the checkpoint stores in float32 (text, VAE) keep bits bf16 would drop
+    modules = (("unet", pipe.unet), ("text", pipe.text_encoder), ("vae_dec", pipe.vae_decoder))
+    out["weights"] = dict(
+        params={n: sum(p.numel() for p in m.parameters()) for n, m in modules},
+        bytes=sum(p.numel() * p.element_size() for _, m in modules for p in m.parameters()),
+        dtypes=sorted({str(p.dtype) for _, m in modules for p in m.parameters()}),
+        leaves_beyond_bf16={n: sum(int(not torch.equal(p, p.bfloat16().float()))
+                                   for p in m.parameters()) for n, m in modules})
+    w = out["weights"]
+    log(f"float32: zeroscope-v2-576w from the synthetic checkpoint, load_diffusers_checkpoint("
+        f"dtype='float32') in {out['load_s']:.1f} s: {w['bytes'] / 1e9:.3f} GB of weights, "
+        f"params {json.dumps(w['params'])}, dtypes {w['dtypes']}, leaves with bits below "
+        f"bf16's {json.dumps(w['leaves_beyond_bf16'])}")
+    _require(w["dtypes"] == ["torch.float32"] and w["params"]["unet"] > 1.3e9
+             and w["leaves_beyond_bf16"]["text"] > 0 and w["leaves_beyond_bf16"]["vae_dec"] > 0,
+             "phase 13: the float32 weights", w)
+
+    # (a) the request twice, the same bits
+    engine = StepEngine(pipe)
+    steps, frames = F32_REQUEST["num_steps"], F32_REQUEST["num_frames"]
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        video, zs, epss, ts = engine.generate_recorded(F32_PROMPT, seed=7, timings=timings,
+                                                       **F32_REQUEST)
+        runs.append(dict(video=video, zs=zs, epss=epss, ts=ts,
+                         seconds=time.perf_counter() - t0, timings_s=timings,
+                         launches=read_counts(), peak_bytes=torch.cuda.max_memory_allocated(),
+                         root=MerkleCommitment(ts, zs, epss).root.hex()))
+    first, again = runs
+    same = (torch.equal(_bits(first["zs"]), _bits(again["zs"]))
+            and torch.equal(_bits(first["epss"]), _bits(again["epss"]))
+            and np.array_equal(first["video"], again["video"]) and first["root"] == again["root"])
+    launches = first["launches"]
+    per_call = {k: launches[k] / steps for k in CUDA_CORE_KERNELS}
+    per_call["group_norm_act_f32"] = (launches["group_norm_act_f32"]
+                                      - VAE_GN_PER_FRAME * frames) / steps
+    stray = {k: launches[k] for k in MODEL_PATH if launches[k]}
+    out["request"] = {k: first[k] for k in ("seconds", "timings_s", "launches", "peak_bytes",
+                                            "root")}
+    out["request"].update(seconds_again=again["seconds"], bitwise=same,
+                          launches_per_unet_call=per_call)
+    log(f"float32 request ({smi}): video {first['video'].shape}, {steps} steps at "
+        f"{frames} x {F32_REQUEST['width']}x{F32_REQUEST['height']}: {first['seconds']:.2f} s, "
+        f"{again['seconds']:.2f} s again, peak memory {first['peak_bytes'] / 2**30:.2f} GiB; "
+        f"merkle roots {first['root']} / {again['root']}, bit-identical={same}; launches per "
+        f"UNet call {json.dumps(per_call)}")
+    video, zs, epss, ts = first["video"], first["zs"], first["epss"], first["ts"]
+    _require(video.shape == (frames, F32_REQUEST["height"], F32_REQUEST["width"], 3)
+             and video.dtype == np.uint8 and float(np.std(video)) > 0 and len(ts) == steps
+             and zs.dtype == torch.bfloat16 and epss.dtype == torch.bfloat16
+             and bool(torch.isfinite(zs.float()).all() and torch.isfinite(epss.float()).all()),
+             "phase 13(a): the request's output", dict(video=list(video.shape), zs=str(zs.dtype)))
+    _require(same, "phase 13(a): the request twice", out["request"])
+    _require(per_call == {k: float(n) for k, n in F32_EXPECTED_PER_UNET_CALL.items()}
+             and not stray, "phase 13(b): launches per UNet call (float32 kernels only)",
+             dict(per_call=per_call, bf16_kernels=stray))
+
+    # (b)-(d) one CFG UNet call (the request's first step): launches and bound
+    # by hooks, every kernel input recorded and held, the same bits again, and
+    # the call through the plain versions
+    hidden = encode_prompts(pipe, ["", F32_PROMPT])
+    z0 = zs[0][None].cuda()
+    eps = {}
+
+    def one_call(key):
+        eps[key] = unet_pair_call(pipe.unet, z0, hidden, int(ts[0]))
+    with recorded_kernel_inputs() as seen_unet:
+        out["bound_per_unet_call"] = launch_bounds(pipe.unet, lambda: one_call("kernels"),
+                                                   f32=True)
+    bounds = out["bound_per_unet_call"]
+    _require({k: bounds[k]["launches"] for k in CUDA_CORE_KERNELS}
+             == F32_EXPECTED_PER_UNET_CALL, "phase 13(b): one UNet call's launches", bounds)
+    held, held_rows = hold_recorded(seen_unet, "unet call", tag="float32")
+    out["held_per_unet_call"] = {F32_NAME[k]: v for k, v in held.items()}
+    del seen_unet
+    _require(all(out["held_per_unet_call"][k]["launches"] == bounds[k]["launches"]
+                 for k in CUDA_CORE_KERNELS),
+             "phase 13(c): recorded launches differ from the hooks'", out["held_per_unet_call"])
+    one_call("again")
+    out["unet_call_bitwise"] = torch.equal(_bits(eps["kernels"]), _bits(eps.pop("again")))
+    with swapped_kernels(lambda name, kern, plain: plain):
+        one_call("plain")
+    unet_dist = relative_rms(eps["kernels"], eps["plain"])
+    del eps
+
+    zf = zs[-1][0].cuda().float()[None]
+
+    def decode_one_frame():
+        with torch.inference_mode():
+            return pipe.vae_decoder(zf)
+    with recorded_kernel_inputs() as seen_vae:
+        out["bound_vae_frame"] = launch_bounds(pipe.vae_decoder, decode_one_frame, f32=True)
+    held_vae, vae_rows = hold_recorded(seen_vae, "vae frame", tag="float32")
+    out["held_vae_frame"] = {F32_NAME[k]: v for k, v in held_vae.items()}
+    del seen_vae
+    frame_k = decode_one_frame()
+    with swapped_kernels(lambda name, kern, plain: plain):
+        frame_p = decode_one_frame()
+    vae_dist = relative_rms(frame_k, frame_p)
+    del frame_k, frame_p
+    torch.cuda.empty_cache()
+    out["plain_path_relative_rms"] = dict(unet_call=unet_dist, vae_frame=vae_dist,
+                                          tolerance=F32_PLAIN_RELRMS_TOL)
+    with open(os.path.join(OUT_DIR, "float32_held_inputs.json"), "w") as f:
+        json.dump(held_rows + vae_rows, f, indent=1)
+    log(f"float32: one CFG UNet call, kernels against plain versions: relative RMS "
+        f"{unet_dist:.3e}, one frame's decode {vae_dist:.3e} (tolerance "
+        f"{F32_PLAIN_RELRMS_TOL}); the call again bit-identical: {out['unet_call_bitwise']}")
+    _require(out["unet_call_bitwise"], "phase 13(c): the UNet call again", out)
+    _require(unet_dist <= F32_PLAIN_RELRMS_TOL and vae_dist <= F32_PLAIN_RELRMS_TOL,
+             "phase 13(d): the call and the decode against the plain path",
+             out["plain_path_relative_rms"])
+
+    # (e) the validator's side: 2 revealed steps bit for bit, the video bound
+    # on its first and last frames, a tampered eps leaf refused, shifted by
+    # 2^-4 and by 2e-4, twice the atol (the synthetic checkpoint's
+    # 0.02-scaled weights leave eps near 1e-4, where phase 4's 1 + 2^-4
+    # scaling stays inside the atol of 1e-4: the second shift measures the
+    # refusal's margin instead of assuming it)
+    leaves = {i: (int(ts[i]), zs[i], epss[i]) for c in F32_CHECKS for i in (c, c + 1)
+              if i < steps}
+    tol = dict(atol=1e-4, rtol=2.0 ** -7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, _ = verify_revealed_steps(engine, F32_PROMPT, "", leaves, F32_CHECKS, steps,
+                                       F32_REQUEST["guidance_scale"], same_platform=True, **tol)
+    torch.cuda.synchronize()
+    reexec_s = time.perf_counter() - t0
+    bound, bind_err = engine.verify_video_binding(
+        video, leaves[steps - 1], steps - 1, steps, F32_REQUEST["guidance_scale"], F32_PROMPT,
+        frame_indices=(0, frames - 1))
+    t1, z1, e1 = leaves[1]
+    refused = {}
+    for shift in F32_TAMPER_SHIFTS:
+        tampered = {**leaves, 1: (t1, z1, (e1.float() + shift).bfloat16())}
+        refused[shift] = verify_revealed_steps(
+            engine, F32_PROMPT, "", tampered, [1], steps, F32_REQUEST["guidance_scale"],
+            same_platform=True, **tol)[0][1]
+    out["reexecution"] = dict(checks=F32_CHECKS, seconds=reexec_s,
+                              passed={i: r.passed for i, r in results.items()},
+                              bitwise={i: r.bitwise for i, r in results.items()},
+                              binding_ok=bound, binding_err=bind_err,
+                              max_abs_eps=float(epss.float().abs().max()),
+                              tampered_refused={str(k): not r.passed
+                                                for k, r in refused.items()},
+                              tampered_reason={str(k): r.reason for k, r in refused.items()})
+    log(f"float32 re-execution: steps {F32_CHECKS} in {reexec_s:.2f} s, passed "
+        f"{out['reexecution']['passed']} bitwise {out['reexecution']['bitwise']}; video "
+        f"binding on frames 0 and {frames - 1}: {bound} (mean |err| {bind_err:.4f}); eps leaf "
+        f"shifted (max |eps| {out['reexecution']['max_abs_eps']:.3e}), refused: "
+        + "; ".join(f"+{k:g}: {not r.passed} ({r.reason})" for k, r in refused.items()))
+    _require(all(r.passed and r.bitwise for r in results.values()) and bound
+             and not any(r.passed for r in refused.values()), "phase 13(e): re-execution",
+             out["reexecution"])
+
+    # (f) one CFG step traced: s per step and device ms by group; each float32
+    # kernel's ms summed over the call beside its bound
+    sched = make_ddim_schedule(steps)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cfg_denoise_step(pipe.unet, sched, z0, 0, hidden[1:2], hidden[0:1],
+                             F32_REQUEST["guidance_scale"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    out["step"] = dict(breakdown(prof, wall), seconds=wall)
+    del prof
+    out["kernels_per_unet_call"] = {
+        k: dict(launches=bounds[k]["launches"], ms=out["held_per_unet_call"][k]["ms"],
+                bound_ms=bounds[k]["bound_ms"],
+                max_abs_err=out["held_per_unet_call"][k]["max_abs_err"])
+        for k in CUDA_CORE_KERNELS}
+    log(f"float32 step ({smi}): {wall:.3f} s (one batched CFG UNet call + DDIM), device busy "
+        f"{out['step']['device_busy_ms']:.1f} ms, idle share {out['step']['idle_share']}, ms by "
+        f"group {json.dumps(out['step']['group_ms'])}")
+    for k, v in out["kernels_per_unet_call"].items():
+        log(f"float32 kernel {k:26s} per UNet call: {v['launches']} launches, {v['ms']:.3f} ms "
+            f"against a bound of {v['bound_ms']:.3f} ms ({v['bound_ms'] / v['ms']:.1%})")
+    del pipe, engine
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"float32: phase 13 in {out['seconds']:.1f} s ({smi})")
     return out
 
 
@@ -3245,6 +3645,15 @@ def run_strategies(pipe, request_a_sha: str) -> dict:
 
 
 def main():
+    argv = sys.argv[1:]
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--kernels" \
+                or not set(argv[1].split(",")) <= set(KERNEL_META):
+            print(f"usage: chip_smoke.py [--kernels NAME[,NAME...]] (names: "
+                  f"{', '.join(KERNEL_META)})", file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -3279,7 +3688,11 @@ def main():
                 log(f"ptxas {k}: " + " | ".join(x.split("ptxas info    :")[-1].strip()
                                                for x in lines[i:i + 4]))
 
-    summary, rows = check_kernels()
+    summary, rows = check_kernels(only)
+    if only is not None:
+        log(f"chip_smoke --kernels: {len(rows)} cases passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
         json.dump({"device": smi, "rows": rows}, f, indent=1)
 
@@ -3306,14 +3719,23 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
-    path["xl"] = run_xl()
+    # phases 13 and 7 load one checkpoint; phase 7 deletes it once loaded
+    written = write_full_checkpoint(FULL_CKPT)
+    try:
+        path["float32"] = run_float32(FULL_CKPT, smi)
+    except BaseException:
+        import shutil
+
+        shutil.rmtree(FULL_CKPT, ignore_errors=True)
+        raise
+    path["xl"] = run_xl(FULL_CKPT, written)
     path["families"] = run_families(smi)
     with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
         json.dump({"device": smi, "launches": launches, **path}, f, indent=1, default=str)
 
     kernels = []
     cross = path["cross_device_round"]["launches"]
-    xl = path["xl"]
+    xl, f32 = path["xl"], path["float32"]
     xl_per_call = {k: dict(v, bound_ms=xl["bound_per_unet_call"][k]["bound_ms"])
                    for k, v in xl["held_per_unet_call"].items()}
     fam = path["families"]
@@ -3352,12 +3774,20 @@ def main():
                      bound_ms=bound_ms(*flash_cost(*f["shape"]))[0])
                 for f in dit["round_flash"] + [dit["reduced_call"]["flash"]]]
         sharded = path["sharded_and_cache"]["gloo_ranks"]
+        # phase 13: the float32 request's launches and one float32 UNet call's
+        # kernel ms beside its bound
+        families.update({
+            "launches_cross_device_round": cross.get(name, 0),
+            "float32_per_unet_call": f32["kernels_per_unet_call"].get(name),
+            "float32_vae_frame": None if name not in f32["held_vae_frame"] else dict(
+                f32["held_vae_frame"][name],
+                bound_ms=f32["bound_vae_frame"][name]["bound_ms"])})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "path": ("request_a" if name in MODEL_PATH else "cross_device_round"
-                                 if name in CROSS_DEVICE_PATH else "phase12_gloo_ranks"
+                        "path": ("request_a" if name in MODEL_PATH else "float32_request"
+                                 if name in CUDA_CORE_KERNELS else "phase12_gloo_ranks"
                                  if name in SHARDED_GN_PATH else None),
-                        "launches": cross.get(name, 0) if name in CUDA_CORE_KERNELS
+                        "launches": f32["request"]["launches"][name] if name in CUDA_CORE_KERNELS
                         else sharded["launches"][name] if name in SHARDED_GN_PATH
                         else launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],

@@ -36,6 +36,11 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
   return pack_bf16(f.x * s, f.y * s);
 }
 
+// GELU, exact-erf form (the JAX kernels' A&S _erf is a TPU workaround).
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -12,12 +12,15 @@
 // is bounded by tensor-core operations.
 //
 // The wgmma products take bf16 with C % 64 == 0 and I % 128 == 0. Every other
-// input the Pallas kernel takes (float32, as in the float32 test models, and
-// any width, as zeroscope-tiny's C = 32) goes to the second pair below:
-// plain tiled products on the CUDA cores (geglu_ff_simt_in / _out), 64 x 64
-// output tiles of 256 threads, 4 x 4 outputs a thread, K in slices of 16
-// through shared memory, f32 accumulation in K order, the same epilogues and
-// rounding points in the activation type. Bound there by f32 operations.
+// input the Pallas kernel takes runs on the CUDA cores, bound there by f32
+// operations: float32 (the float32 models) through the port's one float32
+// GEGLU, f32_rows.cuh's two tiled products (dvdx_geglu_f32); bf16 at any
+// other width (zeroscope-tiny's C = 32) through a second pair below
+// (geglu_ff_simt_in / _out), 64 x 64 output tiles of 256 threads, 4 x 4
+// outputs a thread, K in slices of 16 through shared memory, f32
+// accumulation in K order, the wgmma pair's epilogues and bf16 rounding
+// points.
+#include "f32_rows.cuh"
 #include "geglu_gemm.cuh"
 
 using namespace dvdx;
@@ -27,34 +30,25 @@ struct geglu_ff_site {};
 
 constexpr int SIMT_TILE = 64, SIMT_K = 16, SIMT_THREADS = 256;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f(from_f<T>(v));
-}
-
 // rows [r0, r0 + 64) x K slice [k0, k0 + 16) of a (rows, K) row-major
 // matrix into dst[k][row] as f32, zeros past the edges
-template <typename T>
-__device__ __forceinline__ void simt_tile(float (*dst)[SIMT_TILE + 4], const T* src,
+__device__ __forceinline__ void simt_tile(float (*dst)[SIMT_TILE + 4], const bf16* src,
                                           int rows, int K, int r0, int k0) {
 #pragma unroll
   for (int i = 0; i < SIMT_TILE * SIMT_K / SIMT_THREADS; ++i) {
     const int e = threadIdx.x + i * SIMT_THREADS;
     const int r = e / SIMT_K, k = e % SIMT_K;
-    dst[k][r] = (r0 + r < rows && k0 + k < K) ? to_f(src[(long long)(r0 + r) * K + k0 + k])
-                                              : 0.f;
+    dst[k][r] = (r0 + r < rows && k0 + k < K)
+                    ? __bfloat162float(src[(long long)(r0 + r) * K + k0 + k])
+                    : 0.f;
   }
 }
 
-// h (T, I) = round(round(x Wv + bv) * gelu(round(x Wg + bg))): x (T, C),
+// h (T, I) = bf16(bf16(x Wv + bv) * gelu(bf16(x Wg + bg))): x (T, C),
 // w_in (2I, C) value rows first, b_in (2I). Block (column tile, row tile).
-template <typename T>
 __global__ void __launch_bounds__(SIMT_THREADS)
-geglu_ff_simt_in(const T* x, const T* w_in, const T* b_in, T* h, int rows, int C, int I) {
+geglu_ff_simt_in(const bf16* x, const bf16* w_in, const bf16* b_in, bf16* h, int rows, int C,
+                 int I) {
   __shared__ float xs[SIMT_K][SIMT_TILE + 4], vs[SIMT_K][SIMT_TILE + 4],
       gs[SIMT_K][SIMT_TILE + 4];
   const int r0 = blockIdx.y * SIMT_TILE, n0 = blockIdx.x * SIMT_TILE;
@@ -88,21 +82,21 @@ geglu_ff_simt_in(const T* x, const T* w_in, const T* b_in, T* h, int rows, int C
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + tx * 4 + j;
     if (n >= I) continue;
-    const float bv = to_f(b_in[n]), bg = to_f(b_in[I + n]);
+    const float bv = __bfloat162float(b_in[n]), bg = __bfloat162float(b_in[I + n]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + ty * 4 + i;
       if (r >= rows) continue;
-      const float v = round_t<T>(av[i][j] + bv), g = round_t<T>(ag[i][j] + bg);
-      h[(long long)r * I + n] = from_f<T>(v * gelu_erf(g));
+      const float v = bf16_round(av[i][j] + bv), g = bf16_round(ag[i][j] + bg);
+      h[(long long)r * I + n] = __float2bfloat16(v * gelu_erf(g));
     }
   }
 }
 
-// out (T, C) = round(h Wo^T + bo): h (T, I), w_out (C, I), b_out (C).
-template <typename T>
+// out (T, C) = bf16(h Wo^T + bo): h (T, I), w_out (C, I), b_out (C).
 __global__ void __launch_bounds__(SIMT_THREADS)
-geglu_ff_simt_out(const T* h, const T* w_out, const T* b_out, T* out, int rows, int C, int I) {
+geglu_ff_simt_out(const bf16* h, const bf16* w_out, const bf16* b_out, bf16* out, int rows,
+                  int C, int I) {
   __shared__ float hs[SIMT_K][SIMT_TILE + 4], ws[SIMT_K][SIMT_TILE + 4];
   const int r0 = blockIdx.y * SIMT_TILE, n0 = blockIdx.x * SIMT_TILE;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -130,28 +124,13 @@ geglu_ff_simt_out(const T* h, const T* w_out, const T* b_out, T* out, int rows, 
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + tx * 4 + j;
     if (n >= C) continue;
-    const float bo = to_f(b_out[n]);
+    const float bo = __bfloat162float(b_out[n]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + ty * 4 + i;
-      if (r < rows) out[(long long)r * C + n] = from_f<T>(acc[i][j] + bo);
+      if (r < rows) out[(long long)r * C + n] = __float2bfloat16(acc[i][j] + bo);
     }
   }
-}
-
-template <typename T>
-int geglu_simt_launch(const void* x, const void* w_in, const void* b_in, void* h,
-                      const void* w_out, const void* b_out, void* out, int rows, int C,
-                      int I, cudaStream_t stream) {
-  const dim3 block(SIMT_THREADS);
-  const int row_tiles = (rows + SIMT_TILE - 1) / SIMT_TILE;
-  geglu_ff_simt_in<T><<<dim3((I + SIMT_TILE - 1) / SIMT_TILE, row_tiles), block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_in), static_cast<const T*>(b_in),
-      static_cast<T*>(h), rows, C, I);
-  geglu_ff_simt_out<T><<<dim3((C + SIMT_TILE - 1) / SIMT_TILE, row_tiles), block, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w_out), static_cast<const T*>(b_out),
-      static_cast<T*>(out), rows, C, I);
-  return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
 
@@ -172,15 +151,35 @@ extern "C" int dvdx_geglu_out(const void* h, const void* w_out, const void* b_ou
                                          static_cast<cudaStream_t>(stream));
 }
 
-// The CUDA-core pair: x (T, C), w_in (2I, C), b_in (2I), h (T, I) scratch,
-// w_out (C, I), b_out (C), out (T, C); all contiguous, bf16 (f32 == 0) or
-// float32 (f32 == 1). Any T, C, I >= 1; row tiles in gridDim.y (T < 2^22).
+// The CUDA-core pair at bf16: x (T, C), w_in (2I, C), b_in (2I), h (T, I)
+// scratch, w_out (C, I), b_out (C), out (T, C); all contiguous bf16. Any T,
+// C, I >= 1; row tiles in gridDim.y (T < 2^22).
 extern "C" int dvdx_geglu_simt(const void* x, const void* w_in, const void* b_in, void* h,
                                const void* w_out, const void* b_out, void* out, int T,
-                               int C, int I, int f32, void* stream) {
+                               int C, int I, void* stream) {
   if (T < 1 || C < 1 || I < 1 || (T + SIMT_TILE - 1) / SIMT_TILE > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? geglu_simt_launch<float>(x, w_in, b_in, h, w_out, b_out, out, T, C, I, s)
-             : geglu_simt_launch<bf16>(x, w_in, b_in, h, w_out, b_out, out, T, C, I, s);
+  const dim3 block(SIMT_THREADS);
+  const int row_tiles = (T + SIMT_TILE - 1) / SIMT_TILE;
+  geglu_ff_simt_in<<<dim3((I + SIMT_TILE - 1) / SIMT_TILE, row_tiles), block, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w_in),
+      static_cast<const bf16*>(b_in), static_cast<bf16*>(h), T, C, I);
+  geglu_ff_simt_out<<<dim3((C + SIMT_TILE - 1) / SIMT_TILE, row_tiles), block, 0, s>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w_out),
+      static_cast<const bf16*>(b_out), static_cast<bf16*>(out), T, C, I);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 route: the same operands in float32 through f32_rows.cuh's
+// GEGLU (two tiled products, the bias epilogue on the second). Any T, C, I
+// >= 1 with I / 64 <= 65535.
+extern "C" int dvdx_geglu_f32(const void* x, const void* w_in, const void* b_in, void* h,
+                              const void* w_out, const void* b_out, void* out, int T, int C,
+                              int I, void* stream) {
+  if (T < 1 || C < 1 || I < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return dvdx::f32::geglu_launch<geglu_ff_site>(
+      f(x), f(w_in), f(b_in), f(w_out), f(b_out), nullptr, static_cast<float*>(h),
+      static_cast<float*>(out), T, C, I, static_cast<cudaStream_t>(stream));
 }

@@ -61,10 +61,6 @@ constexpr int FF_IN_BN = 128;    // inner columns of a geglu_in tile
 constexpr int FF_CLUSTER = 2;    // CTAs per cluster: two row tiles share B
 constexpr int FF_WIDE_ROWS = 4096;  // geglu_out takes 256-column tiles from here
 
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
 struct FfEpilogue {
   const bf16* bias;   // geglu_in: b_in (2I, value then gate); geglu_out: b_out
   const bf16* resid;  // geglu_out: null, or the residual (rows, ldo)

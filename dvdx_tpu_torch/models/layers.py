@@ -10,10 +10,11 @@ standard geometry: the five level-0 spatial transformers, and
 module runs the reference's unfused branch. The gates read shapes only, not
 the device or the dtype, so the CPU (the kernels' plain versions) and the
 card compute one step program. The fused kernels follow the TPU kernels'
-rounding order, which is not the unfused branch's. GroupNorm, GEGLU, flash
-and frame-axis attention take bf16 and float32 on the card (the small test
-models are float32); the two fused kernels take bf16 and their wrappers
-refuse a float32 model whose shapes a fused gate takes. Submodule and
+rounding order, which is not the unfused branch's. Every kernel takes bf16
+and float32 on the card (float32 models: the small test models, and a
+checkpoint loaded with ``dtype="float32"``), each at the same shapes in both
+dtypes, so a gate that reads shapes alone routes a float32 model as it does
+a bf16 one. Submodule and
 parameter names follow the reference's flax tree on both branches
 (``utils/bridge.py`` maps it leaf for leaf).
 

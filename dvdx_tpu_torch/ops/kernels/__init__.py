@@ -23,7 +23,9 @@ def launch_counters() -> dict:
             "group_norm_moments_out": (gn, "MOMENTS_OUT_LAUNCHES"),
             "group_norm_moments_in": (gn, "MOMENTS_IN_LAUNCHES"),
             "flash_attention_f32": (fa, "F32_LAUNCHES"),
-            "temporal_attention_f32": (ta, "F32_LAUNCHES")}
+            "temporal_attention_f32": (ta, "F32_LAUNCHES"),
+            "fused_spatial_tail_f32": (st, "F32_LAUNCHES"),
+            "fused_temporal_block_f32": (tb, "F32_LAUNCHES")}
 
 
 def launch_counts() -> dict:

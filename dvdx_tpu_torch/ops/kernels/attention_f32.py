@@ -5,7 +5,8 @@ The Pallas flash and frame-axis kernels take float32 as they take bf16; the
 port's bf16 kernels run on the tensor cores, and float32 inputs (the float32
 test models) launch this kernel instead: a warp per query row over tiles of
 32 keys staged in shared memory, one key a lane, an f32 online softmax, on
-the CUDA cores. Its callers count
+the CUDA cores (``csrc/attention_f32.cuh``, which the float32 forms of the
+fused tail and block launch too). Its callers count
 its launches (``F32_LAUNCHES`` in their modules).
 """
 
@@ -30,9 +31,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     take."""
     if any(t.dtype != torch.float32 for t in (q, k, v, out)):
         raise ValueError(f"{what}: the float32 kernel takes float32")
-    if not 1 <= d <= MAX_HEAD_DIM or batch * n > 65535 or heads > 65535:
+    if not 1 <= d <= MAX_HEAD_DIM or -(-s_q // 8) * heads * batch * n >= 2 ** 31:
         raise ValueError(f"{what}: the float32 kernel takes D <= {MAX_HEAD_DIM} "
-                         f"(D={d}) and B*N <= 65535")
+                         f"(D={d}) and ceil(Sq/8)*H*B*N < 2^31")
     if any(t.stride(-1) != 1 for t in (q, k, v, out)):
         raise ValueError(f"{what}: rows must be unit-stride")
     lib = _build.library("attention_f32")

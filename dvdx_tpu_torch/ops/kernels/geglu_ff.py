@@ -20,9 +20,12 @@ workaround for a missing primitive). Bounded by tensor-core operations at
 the UNet's token counts.
 
 The wgmma pair takes bf16 at C % 64 == 0 and I % 128 == 0. ``geglu_ff``
-launches every other input the Pallas kernel takes (float32, and any width,
-such as zeroscope-tiny's C = 32) on the CUDA-core pair of the same source
-(``dvdx_geglu_simt``), with the same rounding points.
+launches every other input the Pallas kernel takes on the CUDA cores, with
+the same rounding points: float32 through the port's one float32 GEGLU
+(``dvdx_geglu_f32``, ``csrc/f32_rows.cuh``'s products, which the float32
+fused tail and block run too), bf16 at any other width (such as
+zeroscope-tiny's C = 32) through the bf16 CUDA-core pair of the same source
+(``dvdx_geglu_simt``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch
 from .. import _build
 
 LAUNCHES = 0        # geglu_ff calls that launched the wgmma pair since the last reset
-SIMT_LAUNCHES = 0   # geglu_ff calls that launched the CUDA-core pair
+SIMT_LAUNCHES = 0   # geglu_ff calls that launched a CUDA-core pair (float32, or bf16
+                    # at another width)
 STAGE_LAUNCHES = 0  # geglu_in / geglu_out calls on their own (phase-3 rows)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -115,12 +119,12 @@ def _launch_simt(x2d, w_in, b_in, w_out, b_out) -> torch.Tensor:
     h = torch.empty((t, inner), dtype=x2d.dtype, device=x2d.device)
     out = torch.empty((t, c), dtype=x2d.dtype, device=x2d.device)
     lib = _build.library("geglu_ff")
-    fn = lib.dvdx_geglu_simt
+    fn = lib.dvdx_geglu_f32 if x2d.dtype == torch.float32 else lib.dvdx_geglu_simt
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     rc = fn(*(_build.ptr(a) for a in (x2d, w_in, b_in, h, w_out, b_out, out)), t, c, inner,
-            int(x2d.dtype == torch.float32), _build.stream(x2d.device))
+            _build.stream(x2d.device))
     _build.check(lib, rc, "geglu_ff (CUDA-core pair)")
     return out
 
@@ -190,7 +194,7 @@ def geglu_ff(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
              w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
     """GEGLU MLP over the last axis of x (..., C). CPU tensors take the plain
     version; CUDA tensors launch the wgmma pair (bf16, C % 64 == 0, I % 128
-    == 0) or else the CUDA-core pair (bf16 or float32, any width), or raise.
+    == 0) or else a CUDA-core pair (float32, or bf16 at any width), or raise.
     Weights are cast to x's dtype, as nn.Dense(dtype=...) does."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, w_in, b_in, w_out, b_out)

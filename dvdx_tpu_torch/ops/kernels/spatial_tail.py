@@ -18,6 +18,15 @@ the three C x C products on wgmma, the weights and each head's context K / V
 streamed by TMA through one ring, and the cross-attention on the tensor
 cores; at 384 < C <= 768 32-row tiles held in shared memory. Bounded by
 tensor-core operations at the UNet's level 0; I % 128 == 0.
+
+Float32 inputs (a float32 model, as ``load_diffusers_checkpoint(dtype=
+"float32")`` builds) launch ``csrc/spatial_tail_f32.cu`` instead, at the
+same shapes: the TPU kernel's math in float32 on the CUDA cores, eight
+simple launches (the three C x C products, LN2 / LN3, the cross-attention
+through the port's one float32 attention, ``csrc/attention_f32.cuh``, and
+the one float32 GEGLU pair, each product a tiled f32 kernel of
+``csrc/f32_rows.cuh`` with the residual in its epilogue), the operands kept
+in float32.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from .. import _build
 from .fused_math import dense, geglu_residual, layer_norm
 
 LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
+F32_LAUNCHES = 0  # calls that launched the float32 kernel (its eight launches)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_DIM = 768        # the wide chain's widths
 CHAIN_MAX_DIM = 384  # the 64-row chain's
 MAX_CONTEXT = 512
@@ -156,15 +167,17 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     o1: (N, S, HD1) attn1's P.V output before its out-projection; ctx_k /
     ctx_v: (N, T, HD) the context projected by attn2's to_k / to_v. params:
     the flat dict of ``KEYS`` with weights in nn.Linear's (out, in) layout.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 x; parameters cast to bf16) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    x's dtype (bf16 or float32; every operand cast to it) or raise. Both
+    dtypes take the same shapes."""
     if x.device.type == "cpu":
         return fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=heads,
                                         scale=scale, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_spatial_tail: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError("fused_spatial_tail: the kernel takes bfloat16")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused_spatial_tail: the kernel takes bfloat16 or float32, "
+                         f"not {x.dtype}")
     n, s, c = x.shape
     hd1, hd, t = o1.shape[-1], params["q2_w"].shape[0], ctx_k.shape[1]
     inner = params["ffi_w"].shape[0] // 2
@@ -176,9 +189,12 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     ops = [x, o1, ctx_k, ctx_v] + [params[k] for k in KEYS]
     if any(a.device != x.device for a in ops):
         raise ValueError("fused_spatial_tail: every operand must be on x's device")
-    ops = [a.to(torch.bfloat16).contiguous() for a in ops]
+    ops = [a.to(x.dtype).contiguous() for a in ops]
     if any(a.data_ptr() % 16 for a in ops):
         raise ValueError("fused_spatial_tail: operands must be 16-byte aligned")
+    scale = float(_scale(params, heads, scale))
+    if x.dtype == torch.float32:
+        return _launch_f32(ops, n, s, c, hd1, hd, t, heads, inner, scale, float(eps))
     x2, h = torch.empty_like(ops[0]), torch.empty_like(ops[0])
     ff_inner = torch.empty((n * s, inner), dtype=x2.dtype, device=x2.device)
     out = torch.empty_like(ops[0])
@@ -189,10 +205,32 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     rc = fn(*(_build.ptr(a) for a in ops + [x2, h, ff_inner, out]), n * s, s, c, hd1, hd,
-            t, heads, inner, 0 if pl is None else pl.stages,
-            float(_scale(params, heads, scale)), float(eps),
+            t, heads, inner, 0 if pl is None else pl.stages, scale, float(eps),
             _build.stream(x.device))
     _build.check(lib, rc, "fused_spatial_tail")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def _launch_f32(ops, n: int, s: int, c: int, hd1: int, hd: int, t: int, heads: int,
+                inner: int, scale: float, eps: float) -> torch.Tensor:
+    """The float32 kernel on contiguous float32 ``ops`` (x, o1, ctx_k, ctx_v
+    and the ``KEYS`` parameters)."""
+    x = ops[0]
+    rows = n * s
+    scratch = [torch.empty((rows, w), dtype=x.dtype, device=x.device)
+               for w in (c, c, hd, hd, c, inner)]  # x1, h, q, ao, x2, inner
+    out = torch.empty_like(x)
+    lib = _build.library("spatial_tail_f32")
+    fn = lib.dvdx_spatial_tail_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    rc = fn(*(_build.ptr(a) for a in ops + scratch + [out]), rows, s, c, hd1, hd, t, heads,
+            inner, scale, eps, _build.stream(x.device))
+    _build.check(lib, rc, "fused_spatial_tail (float32)")
+    global F32_LAUNCHES
+    F32_LAUNCHES += 1
     return out

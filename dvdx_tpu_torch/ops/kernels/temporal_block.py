@@ -18,6 +18,15 @@ the GEGLU feed-forward as the two wgmma products of
 tensor goes through a (rows, I) scratch. Bounded by tensor-core
 operations at the UNet's level 0; it takes C <= 384 (C % 64 == 0), head
 widths that are multiples of 8, F <= 64 and I % 128 == 0.
+
+Float32 inputs (a float32 model, as ``load_diffusers_checkpoint(dtype=
+"float32")`` builds) launch ``csrc/temporal_block_f32.cu`` instead, at the
+same shapes: the TPU kernel's math in float32 on the CUDA cores, fifteen
+simple launches (per attention sub-block LN, the q / k / v products, the
+frame-axis attention through the port's one float32 attention,
+``csrc/attention_f32.cuh``, and the out-projection with its residual; LN3
+and the one float32 GEGLU pair of ``csrc/f32_rows.cuh``), the operands kept
+in float32.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from .. import _build
 from .fused_math import dense, geglu_residual, layer_norm
 
 LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
+F32_LAUNCHES = 0  # calls that launched the float32 kernel (its fifteen launches)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_DIM = 384
 MAX_FRAMES = 64
 TILE_ROWS = 64      # rows of one chain tile (one wgmma m64)
@@ -120,24 +131,29 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
                          eps: float = 1e-5) -> torch.Tensor:
     """A whole _TemporalBlock on x (B, F, N, C) frame-major. params: the flat
     dict of ``KEYS`` with weights in nn.Linear's (out, in) layout. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (bf16 x;
-    parameters cast to bf16) or raise."""
+    take the plain version; CUDA tensors launch the kernel of x's dtype (bf16
+    or float32; every operand cast to it) or raise. Both dtypes take the
+    same shapes."""
     if x.device.type == "cpu":
         return fused_temporal_block_plain(x, params, heads=heads, scale=scale,
                                           eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_temporal_block: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError("fused_temporal_block: the kernel takes bfloat16")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused_temporal_block: the kernel takes bfloat16 or float32, "
+                         f"not {x.dtype}")
     b, f, n, c = x.shape
     inner = params["ffi_w"].shape[0] // 2
     pl = check_shape(tuple(x.shape), heads, inner, tuple(params["q1"].shape))
     ops = [x] + [params[k] for k in KEYS]
     if any(a.device != x.device for a in ops):
         raise ValueError("fused_temporal_block: every operand must be on x's device")
-    ops = [a.to(torch.bfloat16).contiguous() for a in ops]
+    ops = [a.to(x.dtype).contiguous() for a in ops]
     if any(a.data_ptr() % 16 for a in ops):
         raise ValueError("fused_temporal_block: operands must be 16-byte aligned")
+    scale = (c // heads) ** -0.5 if scale is None else scale
+    if x.dtype == torch.float32:
+        return _launch_f32(ops, b, f, n, c, heads, inner, float(scale), float(eps))
     x_mid, h = torch.empty_like(ops[0]), torch.empty_like(ops[0])
     ff_inner = torch.empty((b * f * n, inner), dtype=x_mid.dtype, device=x_mid.device)
     out = torch.empty_like(ops[0])
@@ -147,11 +163,33 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    scale = (c // heads) ** -0.5 if scale is None else scale
     rc = fn(*(_build.ptr(a) for a in ops + [x_mid, h, ff_inner, out]), b, f, n, c, heads,
             inner, pl.positions, pl.stages, float(scale), float(eps),
             _build.stream(x.device))
     _build.check(lib, rc, "fused_temporal_block")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def _launch_f32(ops, b: int, f: int, n: int, c: int, heads: int, inner: int, scale: float,
+                eps: float) -> torch.Tensor:
+    """The float32 kernel on contiguous float32 ``ops`` (x and the ``KEYS``
+    parameters)."""
+    x = ops[0]
+    rows = b * f * n
+    scratch = [torch.empty((rows, w), dtype=x.dtype, device=x.device)
+               for w in (c,) * 7 + (inner,)]  # h, q, k, v, attention, x1, x2, inner
+    out = torch.empty_like(x)
+    lib = _build.library("temporal_block_f32")
+    fn = lib.dvdx_temporal_block_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    rc = fn(*(_build.ptr(a) for a in ops + scratch + [out]), b, f, n, c, heads, inner,
+            scale, eps, _build.stream(x.device))
+    _build.check(lib, rc, "fused_temporal_block (float32)")
+    global F32_LAUNCHES
+    F32_LAUNCHES += 1
     return out

@@ -36,12 +36,18 @@ OUT = os.path.join("chiprun_out", "profile_step.json")
 # temporal_block_ff, ...>) land in their fused kernel's group beside its
 # chain (spatial_tail_chain, temporal_block_chain<C>), geglu_ff's own
 # (geglu_stage<geglu_ff_site, ...>) in geglu_ff's; GroupNorm is one kernel,
-# gn_fused (a bare "gn_" would also match ATen's sign_ and assign_ kernels)
+# gn_fused (a bare "gn_" would also match ATen's sign_ and assign_ kernels);
+# the float32 kernels carry their caller's name in their template arguments
+# (f32_gemm<spatial_tail_f32, ...>, attention_f32_rows<temporal_block_f32,
+# ...>, f32_gemm<geglu_ff_site, ...>), so the fused kernels' float32 forms
+# land in their own groups; float32 flash and frame-axis attention share
+# attention_f32_rows<attention_f32_site, ...>
 GROUPS = (
     ("fused_spatial_tail", ("spatial_tail_",)),
     ("fused_temporal_block", ("temporal_block_",)),
     ("flash_attention", ("flash_fwd",)),
     ("temporal_attention", ("temporal_attn",)),
+    ("attention_f32", ("attention_f32",)),
     ("geglu_ff", ("geglu_ff_", "geglu_stage")),
     ("group_norm_act", ("gn_fused",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),

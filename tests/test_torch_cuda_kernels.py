@@ -347,10 +347,10 @@ def test_group_norm_float32_kernel_matches_plain(cuda, n, l, c, act, with_bias):
     assert torch.equal(got, tgn.group_norm_act(x, gamma, beta, **kw))
 
 
-# zeroscope-tiny's FF (C = 32 and 64), ragged tiles, and bf16 at widths the
-# wgmma pair does not take
+# zeroscope-tiny's FF (C = 32 and 64), ragged tiles, a width that is no
+# multiple of 4, and bf16 at widths the wgmma pair does not take
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,c", [(64, 32), (128, 64), (77, 40), (300, 320)])
+@pytest.mark.parametrize("t,c", [(64, 32), (128, 64), (77, 40), (300, 320), (33, 30)])
 def test_geglu_cuda_core_kernels_match_plain(cuda, dtype, t, c):
     args = [a.to(dtype) for a in _geglu_args(t, c, cuda)]
     wgmma = tff.wgmma_takes(dtype, c, 4 * c)
@@ -379,7 +379,9 @@ def test_flash_float32_kernel_matches_plain(cuda, b, s, h, d):
 
 
 @pytest.mark.parametrize("layout", ["frame_major", "position_major"])
-@pytest.mark.parametrize("f,n,heads,d", [(4, 16, 2, 16), (16, 45, 5, 64), (128, 7, 1, 128)])
+# the last: B * N = 80,000 positions, past one grid axis's 65,535
+@pytest.mark.parametrize("f,n,heads,d", [(4, 16, 2, 16), (16, 45, 5, 64), (128, 7, 1, 128),
+                                         (4, 40000, 1, 16)])
 def test_temporal_float32_kernel_matches_plain(cuda, layout, f, n, heads, d):
     shape = (2, f, n, heads * d) if layout == "frame_major" else (2, n, f, heads * d)
     q, k, v = (_randn(shape, i, cuda) for i in range(3))
@@ -395,6 +397,65 @@ def test_temporal_float32_kernel_matches_plain(cuda, layout, f, n, heads, d):
     torch.cuda.synchronize()
     assert ttemp.F32_LAUNCHES == before + 1
     _check_f32(got, want)
+
+
+def _float32(args):
+    """bf16 test arguments (tensors, and dicts of them) as float32."""
+    tensors, params = args
+    return [t.float() for t in tensors], {k: v.float() for k, v in params.items()}
+
+
+# the fused kernels' float32 forms: the UNet's level 0 at a smaller batch, S
+# = 721 (a ragged last row tile), T = 300, C = 64 with T = 16, head width 40
+# and C = 640 (the shapes the bf16 wide chain takes)
+@pytest.mark.parametrize("n,s,c,heads,t", [
+    (4, 2880, 320, 5, 77), (3, 721, 320, 5, 77), (2, 300, 320, 5, 300), (3, 20, 64, 1, 16),
+    (2, 130, 320, 8, 77), (2, 720, 640, 10, 77)])
+def test_spatial_tail_float32_kernel_matches_plain(cuda, n, s, c, heads, t):
+    (x, o1, ctx_k, ctx_v), params = _float32(_spatial_tail_args(n, s, c, t, cuda))
+    before = ttail.F32_LAUNCHES, ttail.LAUNCHES
+    got = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=heads)
+    again = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=heads)
+    torch.cuda.synchronize()
+    assert (ttail.F32_LAUNCHES, ttail.LAUNCHES) == (before[0] + 2, before[1])
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _check_f32(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=heads))
+
+
+# the UNet's level 0 at one sample and transformer_in's 8 x 40 heads, a
+# ragged N, F = 24, F = 64 at C = 384, and one 384-wide head
+@pytest.mark.parametrize("b,f,n,c,heads", [
+    (1, 16, 2880, 320, 5), (1, 16, 2880, 320, 8), (2, 16, 101, 320, 5), (1, 24, 45, 320, 8),
+    (1, 64, 3, 384, 6), (1, 4, 70, 384, 1)])
+def test_temporal_block_float32_kernel_matches_plain(cuda, b, f, n, c, heads):
+    x, params = _temporal_block_args(b, f, n, c, cuda)
+    x, params = x.float(), {k: v.float() for k, v in params.items()}
+    before = tblock.F32_LAUNCHES, tblock.LAUNCHES
+    got = tblock.fused_temporal_block(x, params, heads=heads)
+    again = tblock.fused_temporal_block(x, params, heads=heads)
+    torch.cuda.synchronize()
+    assert (tblock.F32_LAUNCHES, tblock.LAUNCHES) == (before[0] + 2, before[1])
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _check_f32(got, tblock.fused_temporal_block_plain(x, params, heads=heads))
+
+
+def test_fused_kernels_take_float32_and_refuse_float16(cuda):
+    """float32 launches the float32 kernels (no error); float16, which no
+    kernel takes, still raises."""
+    (x, o1, ck, cv), tail_params = _spatial_tail_args(2, 70, 64, 16, cuda)
+    xb, block_params = _temporal_block_args(1, 4, 70, 64, cuda)
+    for dtype in (torch.float32, torch.float16):
+        tail = lambda: ttail.fused_spatial_tail(  # noqa: E731
+            x.to(dtype), o1.to(dtype), ck.to(dtype), cv.to(dtype),
+            {k: v.to(dtype) for k, v in tail_params.items()}, heads=1)
+        block = lambda: tblock.fused_temporal_block(  # noqa: E731
+            xb.to(dtype), {k: v.to(dtype) for k, v in block_params.items()}, heads=8)
+        for run in (tail, block):
+            if dtype == torch.float32:
+                assert run().dtype == torch.float32
+            else:
+                with pytest.raises(ValueError, match="bfloat16 or float32"):
+                    run()
 
 
 @pytest.mark.parametrize("model", ["zeroscope-tiny", "zeroscope-tiny-hf"])
