@@ -15,7 +15,7 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      the main path's full-width shapes, and the float32 kernels at phase 6's
      and at phase 13's full-width shapes (the fused tail's and block's
      float32 forms at level 0 and at a ragged S / N; float32 flash at S =
-     2880 and 720, frame-axis attention at levels 1-3, GEGLU's CUDA-core
+     2880 and 720, frame-axis attention at levels 1-3, GEGLU's float32
      pair at C = 640 / 1280, GroupNorm at the UNet's and the VAE's shapes)
      (and a few off it: the fused tail at
      C = 384, with tiles spanning two images, at T = 300, at C = 64 with T =
@@ -24,7 +24,10 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      layouts; flash_attention_mh, GEGLU's two launches on their own at level
      2, GroupNorm with a level-0 pre-bias and with ragged chunks, the fused
      block at a ragged N and at F = 24; GEGLU's CUDA-core pair in bf16 at C
-     = 40; flash and frame-axis attention in float32), and the shapes the
+     = 40; flash and frame-axis attention in float32; float32 flash at S =
+     777 with D = 40, at D = 128, on rows its tensor-core body cannot take,
+     and at the tail's cross-attention shape on each body; float32 GEGLU at
+     a ragged T and at C = 30), and the shapes the
      XL geometry adds (flash at 9216 tokens, held on two frames' batch-heads,
      and at level 2's 576; the fused tail and block over 24 x 9216; GroupNorm
      at the UNet's level 0 and the VAE's full 1024x576 frame), the
@@ -65,7 +68,7 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      float32) miners on the card, a validator on the CPU with the same
      weights; the honest miner must pass in the cross-platform regime (atol
      5e-2) and the lazy one be caught at ``reexecution``; GroupNorm's float32
-     kernel and GEGLU's CUDA-core pair must launch during the round;
+     kernel and GEGLU's float32 pair must launch during the round;
   7. zeroscope-v2-xl from a synthetic diffusers checkpoint at zeroscope's
      full architecture (seeded random values, written under ``build/`` and
      deleted after loading), loaded by ``resolve_pipeline``: the XL PoI
@@ -197,7 +200,9 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      steps re-executed bit for bit, the video bound, a tampered eps leaf
      refused; (f) the load seconds, s per request and per step, peak memory,
      one traced step's device ms by group (``utils.profile_step``), each
-     float32 kernel's ms over the call beside its bound at the float32 peak;
+     float32 kernel's ms over the call beside its bound (``KERNEL_PEAK``);
+     flash and the tail's cross-attention on the float32 attention's
+     tensor-core body;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, phase 12(c)'s two ranks for the two sharded
   GroupNorm entries, or phase 13's float32 request for the float32 kernels
@@ -233,6 +238,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores (NVIDIA data sheet)
 PEAK_F64_FLOPS = 34e12     # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 OUT_DIR = "chiprun_out"
@@ -274,6 +280,11 @@ def randn(shape, gen, scale=1.0, shift=0.0, dtype=torch.bfloat16):
 # once, bf16 activations and weights
 def flash_cost(b, s, h, d):
     return 4.0 * b * h * s * s * d, 4.0 * b * s * h * d * 2
+
+
+def cross_cost(b, sq, sk, h, d):
+    # attention of Sq queries over Sk keys: q and the output Sq rows, k and v Sk
+    return 4.0 * b * h * sq * sk * d, 2.0 * b * h * d * (sq + sk) * 2
 
 
 def temporal_cost(b, f, n, h, d):
@@ -628,7 +639,7 @@ def kernel_cases():
             "chain": bound_ms(*temporal_chain_cost(b * f * n, f, c))[0],
             "ff": bound_ms(*temporal_ff_cost(b * f * n, c))[0]}
 
-    # float32 (the CUDA-core kernels): phase 6's zeroscope-tiny path at 4
+    # float32: phase 6's zeroscope-tiny path at 4
     # frames of 32x32 (latent 16x16, CFG batch 2) hands GroupNorm and GEGLU
     # these shapes; GEGLU also in bf16 at a width the wgmma pair does not
     # take, flash at zeroscope-tiny's level 0 for 64x64 frames and
@@ -732,6 +743,34 @@ def kernel_cases():
         cases.append(("flash_attention_f32", label, mk, fa.flash_attention,
                       fa.flash_attention_plain, sdpa_bshd, f32_cost(flash_cost(b, s_, h, d)),
                       True))
+    # the float32 attention's two bodies off the flash path: a ragged S at D =
+    # 40 and D = 128 (tensor cores), and 66-float rows, which its 16-byte
+    # copies cannot take (the CUDA-core rows); the fused tail's
+    # cross-attention shape (2880 queries, 77 keys) on each body, the rows
+    # reached through 66-float context rows
+    from dvdx_tpu_torch.ops.kernels import attention_f32 as af
+
+    def sdpa_packed(q, k, v):  # SDPA's kernels refuse rows that are not 16-byte aligned
+        return sdpa_bshd(q.contiguous(), k.contiguous(), v.contiguous())
+
+    def att_f32(q, k, v):
+        b, s_, h, d = q.shape
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        af.launch(q, k, v, out, batch=b, n=1, heads=h, s_q=s_, s_k=k.shape[1], d=d,
+                  strides=fa.f32_strides(q, k, v, out), scale=d ** -0.5, what="phase 2")
+        return out
+    for label, (b, s_, sk, h, d, pad), kern in (
+            ("s777_d40", (2, 777, 777, 3, 40, 0), fa.flash_attention),
+            ("s130_d128", (1, 130, 130, 3, 128, 0), fa.flash_attention),
+            ("s600_rows66_cuda_cores", (2, 600, 600, 2, 64, 2), fa.flash_attention),
+            ("tail_cross_tensor_cores", (32, 2880, 77, 5, 64, 0), att_f32),
+            ("tail_cross_cuda_cores", (32, 2880, 77, 5, 64, 2), att_f32)):
+        def mk(gen, b=b, s_=s_, sk=sk, h=h, d=d, pad=pad):
+            q = randn((b, s_, h, d + pad), gen, dtype=f32)[..., :d]
+            return [q] + [randn((b, sk, h, d + pad), gen, dtype=f32)[..., :d] for _ in range(2)]
+        cases.append(("flash_attention_f32", label, mk, kern, fa.flash_attention_plain,
+                      sdpa_packed if pad else sdpa_bshd, f32_cost(cross_cost(b, s_, sk, h, d)),
+                      False))
     for label, (b, f, n, heads, d) in (("level1", (2, 16, 720, 10, 64)),
                                        ("level2", (2, 16, 180, 20, 64)),
                                        ("level3", (2, 16, 45, 20, 64))):
@@ -741,8 +780,10 @@ def kernel_cases():
                       lambda q, k, v, h=heads: ta.temporal_attention(q, k, v, heads=h),
                       lambda q, k, v, h=heads: ta.temporal_attention_plain(q, k, v, heads=h),
                       sdpa_fm(heads), f32_cost(temporal_cost(b, f, n, heads, d)), True))
-    for label, (t, c) in (("level1", (23040, 640)), ("level2", (5760, 1280)),
-                          ("level3", (1440, 1280))):
+    for label, (t, c), main in (("level1", (23040, 640), True), ("level2", (5760, 1280), True),
+                                ("level3", (1440, 1280), True),
+                                ("t1001_c640", (1001, 640), False),
+                                ("t33_c30_unaligned", (33, 30), False)):
         inner = 4 * c
 
         def mk(gen, t=t, c=c, inner=inner):
@@ -752,7 +793,7 @@ def kernel_cases():
                     randn((c, inner), gen, inner ** -0.5, dtype=f32),
                     randn((c,), gen, 0.1, dtype=f32)]
         cases.append(("geglu_ff_simt", label, mk, gf.geglu_ff, gf.geglu_ff_plain, None,
-                      f32_cost(geglu_cost(t, c, inner)), True))
+                      f32_cost(geglu_cost(t, c, inner)), main))
     for label, (n, l, c, act, bias, eps, scale, shift) in (
             ("resnet_l0", (32, 2880, 320, "silu", True, 1e-5, 2.0, 0.5)),
             ("temporal_l0", (2, 46080, 320, "none", False, 1e-6, 2.0, 0.5)),
@@ -810,8 +851,8 @@ KERNEL_META = {
                            "dvdx_tpu/ops/pallas/spatial_tail.py:304"),
     "fused_temporal_block": ("dvdx_tpu_torch/csrc/temporal_block.cu",
                              "dvdx_tpu/ops/pallas/temporal_block.py:146"),
-    # the float32 forms (float32 test models) and GEGLU at any width, on the
-    # CUDA cores
+    # the float32 forms (float32 models), and GEGLU's other pairs (float32, and
+    # bf16 at widths the wgmma pair does not take)
     "group_norm_act_f32": ("dvdx_tpu_torch/csrc/groupnorm.cu",
                            "dvdx_tpu/ops/groupnorm.py:179"),
     "geglu_ff_simt": ("dvdx_tpu_torch/csrc/geglu_ff.cu",
@@ -839,14 +880,27 @@ F32_NAME = {"flash_attention": "flash_attention_f32",
             "temporal_attention": "temporal_attention_f32", "geglu_ff": "geglu_ff_simt",
             "group_norm_act": "group_norm_act_f32", "fused_spatial_tail": "fused_spatial_tail_f32",
             "fused_temporal_block": "fused_temporal_block_f32"}
-# kernels whose operations run on the CUDA cores in f32 (their bound takes
-# the float32 peak): the float32 forms, which phase 13's model runs
-CUDA_CORE_KERNELS = tuple(F32_NAME.values())
+# the float32 forms, which phase 13's model runs
+F32_KERNELS = tuple(F32_NAME.values())
+# the float32 forms whose products run float32-accurate on the tensor cores
+# in three TF32 passes (csrc/tf32_mma.cuh): their bound takes a third of the
+# TF32 peak; the others run f32 operations on the CUDA cores
+TF32_KERNELS = ("flash_attention_f32", "geglu_ff_simt", "fused_spatial_tail_f32",
+                "fused_temporal_block_f32")
 # the peak rate each kernel's operations run at, where it is not the bf16
 # tensor cores'
-KERNEL_PEAK = {**{k: PEAK_F32_FLOPS for k in CUDA_CORE_KERNELS},
+KERNEL_PEAK = {**{k: PEAK_F32_FLOPS for k in F32_KERNELS},
+               **{k: PEAK_TF32_FLOPS / 3 for k in TF32_KERNELS},
                "group_norm_moments_out": PEAK_F64_FLOPS,
                "group_norm_moments_in": PEAK_F32_FLOPS}
+
+
+def kernel_peak(name: str, dtype) -> float:
+    """The peak rate of kernel ``name``'s operations on ``dtype`` inputs:
+    GEGLU's other pair takes bf16 at odd widths on the CUDA cores."""
+    if name == "geglu_ff_simt" and dtype == torch.bfloat16:
+        return PEAK_F32_FLOPS
+    return KERNEL_PEAK.get(name, PEAK_BF16_FLOPS)
 # the kernels the UNet / VAE path runs (flash_attention_mh is opt-in in the
 # JAX package and off the port's path: phase 2 alone holds it)
 MODEL_PATH = ("flash_attention", "temporal_attention", "geglu_ff", "group_norm_act",
@@ -907,7 +961,7 @@ def check_kernels(only=None):
         ms = cuda_ms(lambda: kern(*inputs), iters)
         plain_ms = cuda_ms(lambda: plain(*plain_inputs), 2)
         lib_ms = cuda_ms(lambda: lib(*inputs), iters) if lib is not None else None
-        peak = KERNEL_PEAK.get(name, PEAK_BF16_FLOPS)
+        peak = kernel_peak(name, inputs[0].dtype)
         bms, bby = bound_ms(flops, nbytes, peak)
         parts = BOUND_PARTS.get((name, label))
         row = dict(kernel=name, shape=label, max_abs_err=err, tol=tol,
@@ -1030,12 +1084,14 @@ def launch_bounds(module, run, f32: bool = False):
     chain_ff = [0.0, 0.0]  # the fused block's bound split: chain launch, FF launches
     tail_chain_ff = [0.0, 0.0]  # the fused tail's
 
-    def bound(cost):
-        return bound_ms(*f32_cost(cost), PEAK_F32_FLOPS)[0] if f32 else bound_ms(*cost)[0]
+    def bound(cost, kernel):
+        if not f32:
+            return bound_ms(*cost)[0]
+        return bound_ms(*f32_cost(cost), kernel_peak(F32_NAME[kernel], torch.float32))[0]
 
     def add(name, cost):
         acc[name][0] += 1
-        acc[name][1] += bound(cost)
+        acc[name][1] += bound(cost, name)
 
     def on_gn(mod, args, kwargs, out):
         x, c = args[0], args[0].shape[-1]
@@ -1071,16 +1127,17 @@ def launch_bounds(module, run, f32: bool = False):
         hd = mod.attn2.to_q.out_features
         add("fused_spatial_tail", spatial_tail_cost(n * s, c, a1.heads * a1.head_dim,
                                                     hd, ctx.shape[1], n))
-        tail_chain_ff[0] += bound(spatial_chain_cost(n * s, c, hd, ctx.shape[1], n))
-        tail_chain_ff[1] += bound(temporal_ff_cost(n * s, c))
+        tail_chain_ff[0] += bound(spatial_chain_cost(n * s, c, hd, ctx.shape[1], n),
+                                  "fused_spatial_tail")
+        tail_chain_ff[1] += bound(temporal_ff_cost(n * s, c), "fused_spatial_tail")
 
     def on_temporal_block(mod, args, kwargs, out):
         x = args[0]
         if mod.fused(x):
             rows, f, c = x[..., 0].numel(), x.shape[1], x.shape[-1]
             add("fused_temporal_block", temporal_block_cost(rows, f, c))
-            chain_ff[0] += bound(temporal_chain_cost(rows, f, c))
-            chain_ff[1] += bound(temporal_ff_cost(rows, c))
+            chain_ff[0] += bound(temporal_chain_cost(rows, f, c), "fused_temporal_block")
+            chain_ff[1] += bound(temporal_ff_cost(rows, c), "fused_temporal_block")
 
     hooks = ((layers.GroupNorm, on_gn), (layers.GEGLUFeedForward, on_ff),
              (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn),
@@ -1177,9 +1234,9 @@ def run_path(steps_a: int):
     missing = [k for k in MODEL_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"request A never launched: {missing}")
-    stray = [k for k in CUDA_CORE_KERNELS if launches[k]]
+    stray = [k for k in F32_KERNELS if launches[k]]
     if stray:
-        raise AssertionError(f"request A (bf16) launched CUDA-core kernels: {stray}")
+        raise AssertionError(f"request A (bf16) launched float32 kernels: {stray}")
 
     runs = []
     reset_counts()
@@ -1368,7 +1425,7 @@ def run_network_round(pipe):
 
 def run_cross_device_round():
     """Phase 6: zeroscope-tiny miners (the rotary style, float32: GroupNorm's
-    float32 kernel and GEGLU's CUDA-core pair on the card) on the card, and a
+    float32 kernel and GEGLU's float32 pair on the card) on the card, and a
     validator on the CPU with the same weights: the cross-platform regime."""
     from dvdx_tpu_torch.network.mock import build_mock_network
     from dvdx_tpu_torch.network.validator import ValidatorConfig
@@ -2556,8 +2613,8 @@ def run_xl(root: str, written: dict):
 # --- phase 13: float32 zeroscope-v2-576w from the full-architecture checkpoint --
 
 F32_PROMPT = "a red panda rides a bicycle through a snowy forest"  # Request A's
-# Request A's geometry; 3 of its 25 steps (a float32 UNet call runs on the
-# CUDA cores, about a second)
+# Request A's geometry; 3 of its 25 steps (a float32 CFG step takes about
+# 0.7 s)
 F32_REQUEST = dict(num_frames=16, height=320, width=576, num_steps=3, guidance_scale=7.5)
 F32_CHECKS = [1, 2]  # re-executed steps; 2 is T-1 (the video binding)
 # shifts of a tampered eps leaf the validator must refuse: a gross forgery,
@@ -2590,6 +2647,7 @@ def run_float32(root: str, smi: str) -> dict:
     by group, each float32 kernel's ms over the call beside its bound."""
     from torch.profiler import ProfilerActivity, profile
 
+    from dvdx_tpu_torch.ops.kernels import attention_f32
     from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
     from dvdx_tpu_torch.pipelines.text2video import cfg_denoise_step, encode_prompts
     from dvdx_tpu_torch.utils.convert import load_diffusers_checkpoint
@@ -2629,6 +2687,7 @@ def run_float32(root: str, smi: str) -> dict:
     runs = []
     for _ in range(2):
         reset_counts()
+        attention_f32.TENSOR_CORE_LAUNCHES = 0
         torch.cuda.reset_peak_memory_stats()
         timings = {}
         t0 = time.perf_counter()
@@ -2637,25 +2696,29 @@ def run_float32(root: str, smi: str) -> dict:
         runs.append(dict(video=video, zs=zs, epss=epss, ts=ts,
                          seconds=time.perf_counter() - t0, timings_s=timings,
                          launches=read_counts(), peak_bytes=torch.cuda.max_memory_allocated(),
+                         tensor_core_attention=attention_f32.TENSOR_CORE_LAUNCHES,
                          root=MerkleCommitment(ts, zs, epss).root.hex()))
     first, again = runs
     same = (torch.equal(_bits(first["zs"]), _bits(again["zs"]))
             and torch.equal(_bits(first["epss"]), _bits(again["epss"]))
             and np.array_equal(first["video"], again["video"]) and first["root"] == again["root"])
     launches = first["launches"]
-    per_call = {k: launches[k] / steps for k in CUDA_CORE_KERNELS}
+    per_call = {k: launches[k] / steps for k in F32_KERNELS}
     per_call["group_norm_act_f32"] = (launches["group_norm_act_f32"]
                                       - VAE_GN_PER_FRAME * frames) / steps
     stray = {k: launches[k] for k in MODEL_PATH if launches[k]}
     out["request"] = {k: first[k] for k in ("seconds", "timings_s", "launches", "peak_bytes",
                                             "root")}
+    tc_per_call = first["tensor_core_attention"] / steps
     out["request"].update(seconds_again=again["seconds"], bitwise=same,
-                          launches_per_unet_call=per_call)
+                          launches_per_unet_call=per_call,
+                          tensor_core_attention_per_unet_call=tc_per_call)
     log(f"float32 request ({smi}): video {first['video'].shape}, {steps} steps at "
         f"{frames} x {F32_REQUEST['width']}x{F32_REQUEST['height']}: {first['seconds']:.2f} s, "
         f"{again['seconds']:.2f} s again, peak memory {first['peak_bytes'] / 2**30:.2f} GiB; "
         f"merkle roots {first['root']} / {again['root']}, bit-identical={same}; launches per "
-        f"UNet call {json.dumps(per_call)}")
+        f"UNet call {json.dumps(per_call)}, of them float32 attentions on the tensor cores "
+        f"{tc_per_call}")
     video, zs, epss, ts = first["video"], first["zs"], first["epss"], first["ts"]
     _require(video.shape == (frames, F32_REQUEST["height"], F32_REQUEST["width"], 3)
              and video.dtype == np.uint8 and float(np.std(video)) > 0 and len(ts) == steps
@@ -2666,6 +2729,11 @@ def run_float32(root: str, smi: str) -> dict:
     _require(per_call == {k: float(n) for k, n in F32_EXPECTED_PER_UNET_CALL.items()}
              and not stray, "phase 13(b): launches per UNet call (float32 kernels only)",
              dict(per_call=per_call, bf16_kernels=stray))
+    # flash and the fused tail's cross-attention run the tensor-core body;
+    # the 16-frame attentions (frame-axis, the fused block's) the CUDA-core rows
+    _require(tc_per_call == EXPECTED_PER_UNET_CALL["flash_attention"]
+             + EXPECTED_PER_UNET_CALL["fused_spatial_tail"],
+             "phase 13(b): float32 attentions on the tensor-core body", tc_per_call)
 
     # (b)-(d) one CFG UNet call (the request's first step): launches and bound
     # by hooks, every kernel input recorded and held, the same bits again, and
@@ -2680,13 +2748,13 @@ def run_float32(root: str, smi: str) -> dict:
         out["bound_per_unet_call"] = launch_bounds(pipe.unet, lambda: one_call("kernels"),
                                                    f32=True)
     bounds = out["bound_per_unet_call"]
-    _require({k: bounds[k]["launches"] for k in CUDA_CORE_KERNELS}
+    _require({k: bounds[k]["launches"] for k in F32_KERNELS}
              == F32_EXPECTED_PER_UNET_CALL, "phase 13(b): one UNet call's launches", bounds)
     held, held_rows = hold_recorded(seen_unet, "unet call", tag="float32")
     out["held_per_unet_call"] = {F32_NAME[k]: v for k, v in held.items()}
     del seen_unet
     _require(all(out["held_per_unet_call"][k]["launches"] == bounds[k]["launches"]
-                 for k in CUDA_CORE_KERNELS),
+                 for k in F32_KERNELS),
              "phase 13(c): recorded launches differ from the hooks'", out["held_per_unet_call"])
     one_call("again")
     out["unet_call_bitwise"] = torch.equal(_bits(eps["kernels"]), _bits(eps.pop("again")))
@@ -2782,7 +2850,7 @@ def run_float32(root: str, smi: str) -> dict:
         k: dict(launches=bounds[k]["launches"], ms=out["held_per_unet_call"][k]["ms"],
                 bound_ms=bounds[k]["bound_ms"],
                 max_abs_err=out["held_per_unet_call"][k]["max_abs_err"])
-        for k in CUDA_CORE_KERNELS}
+        for k in F32_KERNELS}
     log(f"float32 step ({smi}): {wall:.3f} s (one batched CFG UNet call + DDIM), device busy "
         f"{out['step']['device_busy_ms']:.1f} ms, idle share {out['step']['idle_share']}, ms by "
         f"group {json.dumps(out['step']['group_ms'])}")
@@ -3681,7 +3749,8 @@ def main():
     # registers, spills and shared memory of the redesigned kernels
     for k, names in (("groupnorm", ("gn_fused",)), ("temporal_block", ("temporal_block_chain",)),
                      ("spatial_tail", ("spatial_tail_chain",)),
-                     ("temporal_attention", ("temporal_attn_tma",))):
+                     ("temporal_attention", ("temporal_attn_tma",)),
+                     ("attention_f32", ("attention_f32_mma",)), ("geglu_ff", ("f32_gemm",))):
         lines = build[k]["ptxas"].splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(n in line for n in names):
@@ -3785,9 +3854,9 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "path": ("request_a" if name in MODEL_PATH else "float32_request"
-                                 if name in CUDA_CORE_KERNELS else "phase12_gloo_ranks"
+                                 if name in F32_KERNELS else "phase12_gloo_ranks"
                                  if name in SHARDED_GN_PATH else None),
-                        "launches": f32["request"]["launches"][name] if name in CUDA_CORE_KERNELS
+                        "launches": f32["request"]["launches"][name] if name in F32_KERNELS
                         else sharded["launches"][name] if name in SHARDED_GN_PATH
                         else launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],

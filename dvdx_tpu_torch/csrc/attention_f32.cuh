@@ -1,31 +1,55 @@
-// Attention over float32 inputs: out = softmax(q k^T * scale) v per head, on
-// the CUDA cores in f32, with no tensor-core rounding of its operands (TF32
-// would round them to 10 mantissa bits). One kernel for every float32
-// attention of the port: flash and frame-axis attention (attention_f32.cu),
-// and the cross-attention and frame-axis attention inside the float32 forms
-// of the fused tail and block (spatial_tail_f32.cu, temporal_block_f32.cu).
+// Attention over float32 inputs: out = softmax(q k^T * scale) v per head,
+// float32-accurate. One kernel for every float32 attention of the port:
+// flash and frame-axis attention (attention_f32.cu), and the cross-attention
+// and frame-axis attention inside the float32 forms of the fused tail and
+// block (spatial_tail_f32.cu, temporal_block_f32.cu). Two bodies; the caller
+// picks one by shape (ops/kernels/attention_f32.py: takes_tensor_cores,
+// which reads shapes and strides only and is tested on the CPU):
+//
+// attention_f32_mma, the tensor-core body (Sq >= 64 query rows, D <= 128,
+// D and every row stride a multiple of 4 floats, 16-byte aligned bases):
+// both products in three TF32 passes (tf32_mma.cuh: the split, its error
+// budget and its 165 TFLOP/s peak). A block of 4 warps takes 64 query rows
+// of one (b, n, h), each warp 16 rows. Keys come in tiles of 64, K and V
+// copied raw by cp.async into a double-buffered ring in shared memory (rows
+// padded to D + 4 floats, so each fragment load hits 32 banks; rows past Sk
+// and lanes past D are zero-filled). Q's fragments are split once and kept
+// in registers (D <= 64) or re-read from shared memory (D <= 128). S = Q K^T
+// on mma.sync.m16n8k8 with K split in registers, one chain of 3 D / 8
+// steps a tile; the online softmax in f32 on the accumulators (ex2.approx,
+// a few ulp, of logits times scale * log2(e), the running max
+// and the per-thread partial sums rescaled as they move, keys past Sk
+// masked); P split in registers and fed back as the A fragment of P.V: the
+// accumulator of key columns (2t, 2t + 1) is the A fragment of the keys
+// taken in the order 2t <-> t, 2t + 1 <-> t + 4, so V's rows 8j + 2t and 8j
+// + 2t + 1 are read as b0 and b1 (no shuffle); V split in registers. Each
+// tile's P.V is one chain of 24 steps into a tile accumulator, and O =
+// alpha O + tile in f32 (the tensor core truncates its sums: tf32_mma.cuh;
+// one chain over all 2880 keys missed 1e-5). Two blocks an SM, up to 255
+// registers a thread. The output is divided by the row sum at the end. Bound on the H100 by
+// operations at the UNet's spatial shapes: 4 Sq Sk D flops a head, three
+// TF32 passes, at 495 TFLOP/s: 3 * 4 Sq Sk D / 495e12 s.
+//
+// attention_f32_rows, the CUDA-core body (every other shape: the frame-axis
+// sites' 16 frames, odd strides, D up to 384): a block of 8 warps takes 8
+// query rows; keys in tiles of 32 staged in shared memory (K rows padded to
+// MAX_D + 1 floats), lane j takes key j of the tile: its logit is one f32
+// dot product over d in order; the tile's max and the denominator's
+// increment are fixed butterflies across the warp; the probabilities go
+// through shared memory and each lane adds P.V for its own d = lane, lane +
+// 32, ... over the tile's keys in order. Two instantiations: MAX_D = 128
+// (37.1 KB of shared memory) and MAX_D = 384 (109.1 KB; the fused block's
+// one-head widths). Bound on the H100 by f32 operations at long sequences
+// (4 S T D flops at 67 TFLOP/s), else by bytes.
 //
 // Layout: an element (b, n, s, h, d) of q, k, v or out lies at
 // b * sb + n * sn + s * ss + h * sh + d, strides per tensor, so one kernel
 // takes flash's (B, S, H, D) (N = 1), frame-axis attention's frame-major
 // (B, F, N, H*D) and position-major (B, N, F, H*D) layouts, and the tail's
-// token rows against its (N, T, H*D) context.
-//
-// Design: a block of 8 warps takes 8 query rows of one (b, n, h); each
-// warp holds its row in shared memory. Keys come in tiles of 32, K and V
-// staged in shared memory by the whole block (K rows padded to MAX_D + 1
-// floats, so the 32 lanes reading 32 keys' d-th values hit 32 banks). Lane
-// j takes key j of the tile: its logit is one f32 dot product over d in
-// order; the tile's max and the denominator's increment are fixed
-// butterflies across the warp; the probabilities go through shared memory
-// and each lane adds P.V for its own d = lane, lane + 32, ... over the
-// tile's keys in order. Every sum has a fixed order, so a rerun is
-// bit-identical. Two instantiations: MAX_D = 128 (37.1 KB of shared memory)
-// and MAX_D = 384 (109.1 KB; the fused block's one-head widths). One grid
-// axis holds every block, the row tiles of one (b, n, h) adjacent, then the
-// heads, then (b, n), so the blocks that read one head's K and V run
-// together. Bound on the H100 by f32 operations at long sequences (4 S T D
-// flops), else by bytes.
+// token rows against its (N, T, H*D) context. Both bodies run one grid axis,
+// the row tiles of one (b, n, h) adjacent, then the heads, then (b, n), so
+// the blocks that read one head's K and V run together. Every sum has a
+// fixed order and there are no atomics, so a rerun is bit-identical.
 //
 // ``Site`` only names the kernel for profilers (its demangled name carries
 // the calling kernel's name).
@@ -35,6 +59,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace dvdx {
 namespace f32 {
@@ -132,15 +157,248 @@ int attention_f32_run(unsigned blocks, const float* q, const float* k, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the tensor-core body ---------------------------------------------------
+
+// 2^x on the special-function unit (a few ulp); results below 2^-126 flush
+// to zero, probabilities that add nothing to an f32 row sum
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows per block
+constexpr int MMA_BK = 64;              // keys per tile
+constexpr int MMA_MAX_D = 128;
+
+template <int DK>  // head width padded to 32, 64 or 128 lanes
+struct MmaCfg {
+  static constexpr int LD = DK + 4;                // padded shared row, floats
+  static constexpr int TILE = MMA_BK * LD;         // floats of one K or V tile
+  static constexpr bool Q_REGS = DK <= 64;         // Q's split fragments in registers
+  static constexpr size_t SMEM =
+      sizeof(float) * (4 * TILE + (Q_REGS ? 0 : MMA_BQ * LD));  // 2 stages of K and V
+};
+
+template <class Site, int DK>
+__global__ void __launch_bounds__(MMA_WARPS * 32, DK <= 64 ? 2 : 1)
+attention_f32_mma(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, int N, int H, int Sq,
+                  int Sk, int D, Strides qs, Strides ks, Strides vs, Strides os,
+                  float scale_log2) {
+  using Cf = MmaCfg<DK>;
+  constexpr int LD = Cf::LD, KD = DK / 8;  // KD: k-steps over d, and 8-lane column tiles
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);  // [2][MMA_BK][LD]
+  float* v_s = k_s + 2 * Cf::TILE;               // [2][MMA_BK][LD]
+  float* q_s = v_s + 2 * Cf::TILE;               // [MMA_BQ][LD] where !Q_REGS
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (Sq + MMA_BQ - 1) / MMA_BQ;
+  const int bnh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - bnh * tiles) * MMA_BQ;
+  const int h = bnh % H, b = bnh / H / N, n = bnh / H % N;
+  const float* qp = q + b * qs.b + n * qs.n + h * qs.h;
+  const float* kp = k + b * ks.b + n * ks.n + h * ks.h;
+  const float* vp = v + b * vs.b + n * vs.n + h * vs.h;
+  const int n_tiles = (Sk + MMA_BK - 1) / MMA_BK;
+
+  // rows r0 .. r0 + rows - 1 of a (len, D) matrix with row stride rs into
+  // dst [rows][LD]: 16-byte copies, zero past len and past D
+  auto load_rows = [&](float* dst, const float* src, long long rs, int r0, int rows,
+                       int len) {
+    constexpr int CH = DK / 4;
+    for (int c = tid; c < rows * CH; c += MMA_WARPS * 32) {
+      const int r = c / CH, d = (c - r * CH) * 4;
+      const bool in = r0 + r < len && d < D;
+      cp_async16(dst + r * LD + d, in ? src + (long long)(r0 + r) * rs + d : src, in ? 16 : 0);
+    }
+  };
+
+  uint32_t qb[Cf::Q_REGS ? KD : 1][4], ql[Cf::Q_REGS ? KD : 1][4];  // Q's big / small parts
+  if constexpr (Cf::Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + warp * 16 + g + (i & 1) * 8, d = kk * 8 + t + (i >> 1) * 4;
+        tf32_split(r < Sq && d < D ? __ldg(qp + (long long)r * qs.s + d) : 0.f, qb[kk][i],
+                   ql[kk][i]);
+      }
+  } else {
+    load_rows(q_s, qp, qs.s, q0, MMA_BQ, Sq);
+  }
+  load_rows(k_s, kp, ks.s, 0, MMA_BK, Sk);
+  load_rows(v_s, vp, vs.s, 0, MMA_BK, Sk);
+  cp_async_commit();
+
+  float o[KD][4];
+#pragma unroll
+  for (int i = 0; i < KD; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {  // the other stage was consumed before the last barrier
+      load_rows(k_s + (st ^ 1) * Cf::TILE, kp, ks.s, (j + 1) * MMA_BK, MMA_BK, Sk);
+      load_rows(v_s + (st ^ 1) * Cf::TILE, vp, vs.s, (j + 1) * MMA_BK, MMA_BK, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* kt = k_s + st * Cf::TILE;
+    const float* vt = v_s + st * Cf::TILE;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, s[nj] the keys 8 nj .. 8 nj + 7
+    float s[8][4];
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) s[nj][0] = s[nj][1] = s[nj][2] = s[nj][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ab[4], al[4];
+      if constexpr (Cf::Q_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ab[i] = qb[kk][i], al[i] = ql[kk][i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tf32_split(q_s[(warp * 16 + g + (i & 1) * 8) * LD + kk * 8 + t + (i >> 1) * 4], ab[i],
+                     al[i]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        uint32_t b0, b1, b0l, b1l;
+        b_frag(kt + (nj * 8 + g) * LD + kk * 8 + t, 4, b0, b1, b0l, b1l);
+        mma_3xtf32(s[nj], ab, al, b0, b1, b0l, b1l);
+      }
+    }
+    if ((j + 1) * MMA_BK > Sk) {  // the ragged key tail adds nothing
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (j * MMA_BK + nj * 8 + 2 * t + (c & 1) >= Sk) s[nj][c] = -INFINITY;
+    }
+
+    // the online softmax of rows g (c = 0, 1) and g + 8 (c = 2, 3)
+    float alpha[2], ms[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) mx = fmaxf(mx, fmaxf(s[nj][2 * r], s[nj][2 * r + 1]));
+      mx = quad_max(mx);
+      alpha[r] = fast_exp2((m_run[r] - mx) * scale_log2);
+      m_run[r] = mx;
+      ms[r] = mx * scale_log2;
+    }
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[nj][c] = fast_exp2(fmaf(s[nj][c], scale_log2, -ms[c >> 1]));
+        rowsum[c >> 1] += s[nj][c];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], alpha[r], rowsum[r]);
+    float ot[KD][4];  // this tile's P.V
+#pragma unroll
+    for (int i = 0; i < KD; ++i) ot[i][0] = ot[i][1] = ot[i][2] = ot[i][3] = 0.f;
+
+    // O += P V over the keys 8 kj .. 8 kj + 7, taken in the order of P's
+    // accumulator columns (A column t <-> key 2t, t + 4 <-> key 2t + 1)
+#pragma unroll
+    for (int kj = 0; kj < 8; ++kj) {
+      uint32_t pb[4], pl[4];
+      tf32_split(s[kj][0], pb[0], pl[0]);
+      tf32_split(s[kj][2], pb[1], pl[1]);
+      tf32_split(s[kj][1], pb[2], pl[2]);
+      tf32_split(s[kj][3], pb[3], pl[3]);
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        uint32_t b0, b1, b0l, b1l;
+        b_frag(vt + (kj * 8 + 2 * t) * LD + dn * 8 + g, LD, b0, b1, b0l, b1l);
+        mma_3xtf32(ot[dn], pb, pl, b0, b1, b0l, b1l);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KD; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][c] = fmaf(o[i][c], alpha[c >> 1], ot[i][c]);
+    __syncthreads();  // stage st is refilled by the next iteration's copies
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l_run[r]);
+  const int row = q0 + warp * 16 + g;
+  float* ob = out + b * os.b + n * os.n + h * os.h;
+#pragma unroll
+  for (int dn = 0; dn < KD; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    if (col >= D) continue;  // D % 4 == 0: a column pair is in or out
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < Sq)
+        *reinterpret_cast<float2*>(ob + (long long)(row + 8 * r) * os.s + col) =
+            make_float2(o[dn][2 * r] * inv[r], o[dn][2 * r + 1] * inv[r]);
+  }
+}
+
+template <class Site, int DK>
+int attention_mma_run(unsigned blocks, const float* q, const float* k, const float* v,
+                      float* out, int N, int H, int Sq, int Sk, int D, Strides qs, Strides ks,
+                      Strides vs, Strides os, float scale, cudaStream_t stream) {
+  constexpr size_t smem = MmaCfg<DK>::SMEM;
+  auto kernel = attention_f32_mma<Site, DK>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<blocks, MMA_WARPS * 32, smem, stream>>>(q, k, v, out, N, H, Sq, Sk, D, qs, ks, vs,
+                                                   os, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+inline bool rows_of_16_bytes(const Strides& s) {
+  return s.b % 4 == 0 && s.n % 4 == 0 && s.s % 4 == 0 && s.h % 4 == 0;
+}
+
 // q, out: Sq rows, k, v: Sk rows, of B x N x H heads of width D, float32,
 // unit stride along d; each tensor's b / n / s / h strides in elements.
-// D <= 384, ceil(Sq / 8) * H * B * N < 2^31.
+// tensor_cores: the tensor-core body, which takes Sq >= 64, D <= 128, D and
+// every stride a multiple of 4 and 16-byte aligned bases, and
+// ceil(Sq / 64) * H * B * N < 2^31; else the CUDA-core rows, D <= 384,
+// ceil(Sq / 8) * H * B * N < 2^31. A body asked for a shape it does not
+// take returns cudaErrorInvalidValue.
 template <class Site>
 int attention_f32_launch(const float* q, const float* k, const float* v, float* out, int B,
                          int N, int H, int Sq, int Sk, int D, Strides qs, Strides ks,
-                         Strides vs, Strides os, float scale, cudaStream_t stream) {
+                         Strides vs, Strides os, float scale, bool tensor_cores,
+                         cudaStream_t stream) {
   if (B < 1 || N < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > ATT_MAX_D)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tensor_cores) {
+    const long long blocks = (long long)((Sq + MMA_BQ - 1) / MMA_BQ) * H * B * N;
+    if (Sq < MMA_BQ || D > MMA_MAX_D || D % 4 || blocks > 0x7fffffffLL ||
+        !rows_of_16_bytes(qs) || !rows_of_16_bytes(ks) || !rows_of_16_bytes(vs) ||
+        !rows_of_16_bytes(os) || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+        !aligned16(out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned nb = static_cast<unsigned>(blocks);
+    if (D <= 32)
+      return attention_mma_run<Site, 32>(nb, q, k, v, out, N, H, Sq, Sk, D, qs, ks, vs, os,
+                                         scale, stream);
+    if (D <= 64)
+      return attention_mma_run<Site, 64>(nb, q, k, v, out, N, H, Sq, Sk, D, qs, ks, vs, os,
+                                         scale, stream);
+    return attention_mma_run<Site, 128>(nb, q, k, v, out, N, H, Sq, Sk, D, qs, ks, vs, os,
+                                        scale, stream);
+  }
   const long long blocks = (long long)((Sq + ATT_WARPS - 1) / ATT_WARPS) * H * B * N;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned nb = static_cast<unsigned>(blocks);

@@ -11,11 +11,12 @@
 // UNet's token counts (>= 1440 tokens) the operations dominate, so the work
 // is bounded by tensor-core operations.
 //
-// The wgmma products take bf16 with C % 64 == 0 and I % 128 == 0. Every other
-// input the Pallas kernel takes runs on the CUDA cores, bound there by f32
-// operations: float32 (the float32 models) through the port's one float32
-// GEGLU, f32_rows.cuh's two tiled products (dvdx_geglu_f32); bf16 at any
-// other width (zeroscope-tiny's C = 32) through a second pair below
+// The wgmma products take bf16 with C % 64 == 0 and I % 128 == 0. Float32
+// (the float32 models) runs through the port's one float32 GEGLU,
+// f32_rows.cuh's two products (dvdx_geglu_f32) in three TF32 passes on the
+// tensor cores, float32-accurate, bound by operations at 495 / 3 TFLOP/s
+// (tf32_mma.cuh). bf16 at any other width runs on the CUDA cores, bound
+// there by f32 operations (zeroscope-tiny's C = 32), through a second pair below
 // (geglu_ff_simt_in / _out), 64 x 64 output tiles of 256 threads, 4 x 4
 // outputs a thread, K in slices of 16 through shared memory, f32
 // accumulation in K order, the wgmma pair's epilogues and bf16 rounding
@@ -172,8 +173,8 @@ extern "C" int dvdx_geglu_simt(const void* x, const void* w_in, const void* b_in
 }
 
 // The float32 route: the same operands in float32 through f32_rows.cuh's
-// GEGLU (two tiled products, the bias epilogue on the second). Any T, C, I
-// >= 1 with I / 64 <= 65535.
+// GEGLU (two 3xTF32 products on the tensor cores, the bias epilogue on the
+// second). Any T, C, I >= 1 with I / 64 <= 65535.
 extern "C" int dvdx_geglu_f32(const void* x, const void* w_in, const void* b_in, void* h,
                               const void* w_out, const void* b_out, void* out, int T, int C,
                               int I, void* stream) {

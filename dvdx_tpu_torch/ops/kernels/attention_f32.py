@@ -2,12 +2,16 @@
 flash and frame-axis wrappers.
 
 The Pallas flash and frame-axis kernels take float32 as they take bf16; the
-port's bf16 kernels run on the tensor cores, and float32 inputs (the float32
-test models) launch this kernel instead: a warp per query row over tiles of
-32 keys staged in shared memory, one key a lane, an f32 online softmax, on
-the CUDA cores (``csrc/attention_f32.cuh``, which the float32 forms of the
-fused tail and block launch too). Its callers count
-its launches (``F32_LAUNCHES`` in their modules).
+port's bf16 kernels run on the tensor cores in bf16, and float32 inputs (the
+float32 models) launch this kernel instead, float32-accurate, in one of two
+bodies (``csrc/attention_f32.cuh``, which the float32 forms of the fused
+tail and block launch too): both products in three TF32 passes on the
+tensor cores (x = big + small, each part rounded to TF32; what the split
+drops is near float32's own rounding, within 1e-5 of the largest output;
+bound 3 * 4 Sq Sk D flops at 495 TFLOP/s), or a warp per query row on the
+CUDA cores. ``takes_tensor_cores`` picks the body from shapes and strides
+alone. Its callers count its launches (``F32_LAUNCHES`` in their modules);
+``TENSOR_CORE_LAUNCHES`` counts the launches of the tensor-core body.
 """
 
 from __future__ import annotations
@@ -20,6 +24,21 @@ import torch
 from .. import _build
 
 MAX_HEAD_DIM = 128
+MMA_ROWS = 64  # query rows of one tensor-core block (MMA_BQ)
+TENSOR_CORE_LAUNCHES = 0  # launches of the tensor-core body since the last reset
+
+
+def takes_tensor_cores(s_q: int, d: int, strides: Sequence[Sequence[int]],
+                       offsets: Sequence[int] = ()) -> bool:
+    """Whether the tensor-core body runs an attention of ``s_q`` query rows
+    of width ``d`` with these element ``strides`` and storage ``offsets``:
+    it takes at least one full 64-row query tile, d <= 128 and a multiple of
+    4, and every stride and offset a multiple of 4 floats (16-byte rows and
+    bases for its 16-byte copies). Every other shape runs the CUDA-core rows.
+    Reads shapes and strides only, so every device takes the same body."""
+    return (s_q >= MMA_ROWS and d <= MAX_HEAD_DIM and d % 4 == 0
+            and all(st % 4 == 0 for sts in strides for st in sts)
+            and all(o % 4 == 0 for o in offsets))
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
@@ -27,8 +46,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
            strides: Sequence[Sequence[int]], scale: float, what: str) -> None:
     """out = softmax(q k^T * scale) v over float32 CUDA tensors, addressed
     as b * sb + n * sn + s * ss + h * sh + d with ``strides`` ((sb, sn, ss,
-    sh) of q, k, v and out, in elements). Raises on what the kernel does not
-    take."""
+    sh) of q, k, v and out, in elements), on the body ``takes_tensor_cores``
+    picks. Raises on what the kernel does not take."""
     if any(t.dtype != torch.float32 for t in (q, k, v, out)):
         raise ValueError(f"{what}: the float32 kernel takes float32")
     if not 1 <= d <= MAX_HEAD_DIM or -(-s_q // 8) * heads * batch * n >= 2 ** 31:
@@ -40,9 +59,18 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     fn = lib.dvdx_attention_f32
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 16
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     flat = [int(x) for st in strides for x in st]
+    tc = takes_tensor_cores(s_q, d, strides, [t.storage_offset() for t in (q, k, v, out)])
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), batch, n, heads,
-            s_q, s_k, d, *flat, float(scale), _build.stream(q.device))
+            s_q, s_k, d, *flat, float(scale), int(tc), _build.stream(q.device))
     _build.check(lib, rc, what)
+    note_launch(tc)
+
+
+def note_launch(tensor_cores: bool) -> None:
+    """Count a launch of the tensor-core body (by this module or a fused
+    kernel that runs the attention inside)."""
+    global TENSOR_CORE_LAUNCHES
+    TENSOR_CORE_LAUNCHES += int(tensor_cores)

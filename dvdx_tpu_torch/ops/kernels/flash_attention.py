@@ -50,6 +50,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def f32_strides(*tensors):
+    """(sb, sn, ss, sh) of each (B, S, H, D) tensor as the float32 kernel
+    addresses it (N = 1)."""
+    return [(t.stride(0), 0, t.stride(1), t.stride(2)) for t in tensors]
+
+
 def _check_operands(name, q, k, v):
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must share one device")
@@ -99,9 +105,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.float32 and k.device == q.device and v.device == q.device:
         b, s, h, d = q.shape
         attention_f32.launch(q, k, v, out, batch=b, n=1, heads=h, s_q=s, s_k=s, d=d,
-                             strides=[(t.stride(0), 0, t.stride(1), t.stride(2))
-                                      for t in (q, k, v, out)],
-                             scale=scale, what="flash_attention")
+                             strides=f32_strides(q, k, v, out), scale=scale,
+                             what="flash_attention")
         F32_LAUNCHES += 1
         return out
     _check_operands("flash_attention", q, k, v)

@@ -20,12 +20,13 @@ workaround for a missing primitive). Bounded by tensor-core operations at
 the UNet's token counts.
 
 The wgmma pair takes bf16 at C % 64 == 0 and I % 128 == 0. ``geglu_ff``
-launches every other input the Pallas kernel takes on the CUDA cores, with
-the same rounding points: float32 through the port's one float32 GEGLU
-(``dvdx_geglu_f32``, ``csrc/f32_rows.cuh``'s products, which the float32
-fused tail and block run too), bf16 at any other width (such as
-zeroscope-tiny's C = 32) through the bf16 CUDA-core pair of the same source
-(``dvdx_geglu_simt``).
+launches every other input the Pallas kernel takes with the same rounding
+points: float32 through the port's one float32 GEGLU (``dvdx_geglu_f32``,
+``csrc/f32_rows.cuh``'s f32_gemm, which the float32 fused tail and block
+run too: three TF32 passes on the tensor cores, x = big + small, within
+float32's rounding, any width and alignment; bound 3 * 6 T C I flops at 495
+TFLOP/s), bf16 at any other width (such as zeroscope-tiny's C = 32) through
+the bf16 CUDA-core pair of the same source (``dvdx_geglu_simt``).
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ import torch
 from .. import _build
 
 LAUNCHES = 0        # geglu_ff calls that launched the wgmma pair since the last reset
-SIMT_LAUNCHES = 0   # geglu_ff calls that launched a CUDA-core pair (float32, or bf16
-                    # at another width)
+SIMT_LAUNCHES = 0   # geglu_ff calls that launched another pair: float32 (three TF32
+                    # passes), or bf16 at another width (the CUDA cores)
 STAGE_LAUNCHES = 0  # geglu_in / geglu_out calls on their own (phase-3 rows)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -108,8 +109,8 @@ def _launch_out(h, w_out, b_out, resid) -> torch.Tensor:
 
 
 def wgmma_takes(dtype: torch.dtype, c: int, inner: int) -> bool:
-    """True where ``geglu_ff`` launches the wgmma pair (else the CUDA-core
-    pair)."""
+    """True where ``geglu_ff`` launches the wgmma pair (else the float32
+    pair or the bf16 CUDA-core pair)."""
     return dtype == torch.bfloat16 and c % 64 == 0 and inner % 128 == 0
 
 
@@ -125,7 +126,7 @@ def _launch_simt(x2d, w_in, b_in, w_out, b_out) -> torch.Tensor:
         fn.restype = ctypes.c_int
     rc = fn(*(_build.ptr(a) for a in (x2d, w_in, b_in, h, w_out, b_out, out)), t, c, inner,
             _build.stream(x2d.device))
-    _build.check(lib, rc, "geglu_ff (CUDA-core pair)")
+    _build.check(lib, rc, "geglu_ff (float32 or CUDA-core pair)")
     return out
 
 
@@ -194,7 +195,8 @@ def geglu_ff(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
              w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
     """GEGLU MLP over the last axis of x (..., C). CPU tensors take the plain
     version; CUDA tensors launch the wgmma pair (bf16, C % 64 == 0, I % 128
-    == 0) or else a CUDA-core pair (float32, or bf16 at any width), or raise.
+    == 0) or else the float32 pair (three TF32 passes on the tensor cores) or
+    the bf16 CUDA-core pair at any width, or raise.
     Weights are cast to x's dtype, as nn.Dense(dtype=...) does."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, w_in, b_in, w_out, b_out)

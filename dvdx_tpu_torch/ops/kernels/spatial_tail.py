@@ -21,12 +21,14 @@ tensor-core operations at the UNet's level 0; I % 128 == 0.
 
 Float32 inputs (a float32 model, as ``load_diffusers_checkpoint(dtype=
 "float32")`` builds) launch ``csrc/spatial_tail_f32.cu`` instead, at the
-same shapes: the TPU kernel's math in float32 on the CUDA cores, eight
-simple launches (the three C x C products, LN2 / LN3, the cross-attention
-through the port's one float32 attention, ``csrc/attention_f32.cuh``, and
-the one float32 GEGLU pair, each product a tiled f32 kernel of
-``csrc/f32_rows.cuh`` with the residual in its epilogue), the operands kept
-in float32.
+same shapes: the TPU kernel's math in float32, eight launches (the three C
+x C products, LN2 / LN3 on the CUDA cores, the cross-attention through the
+port's one float32 attention, ``csrc/attention_f32.cuh``, on the body
+``attention_f32.takes_tensor_cores`` picks, and the one float32 GEGLU pair,
+each product ``csrc/f32_rows.cuh``'s f32_gemm with the residual in its
+epilogue), the operands kept in float32. The products and the tensor-core
+attention run in three TF32 passes (x = big + small), within float32's
+rounding; bound by operations at 495 / 3 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from . import attention_f32
 from .fused_math import dense, geglu_residual, layer_norm
 
 LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
@@ -213,6 +216,14 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     return out
 
 
+def f32_attention_takes_tensor_cores(s: int, hd: int, heads: int, t: int) -> bool:
+    """Whether the float32 kernel's cross-attention runs the tensor-core body
+    of ``csrc/attention_f32.cuh``: its q / ao rows (N, S, heads, D) and
+    context (N, T, heads, D), contiguous, through the shape gate."""
+    d = hd // heads
+    return attention_f32.takes_tensor_cores(s, d, [(s * hd, 0, hd, d), (t * hd, 0, hd, d)])
+
+
 def _launch_f32(ops, n: int, s: int, c: int, hd1: int, hd: int, t: int, heads: int,
                 inner: int, scale: float, eps: float) -> torch.Tensor:
     """The float32 kernel on contiguous float32 ``ops`` (x, o1, ctx_k, ctx_v
@@ -226,11 +237,13 @@ def _launch_f32(ops, n: int, s: int, c: int, hd1: int, hd: int, t: int, heads: i
     fn = lib.dvdx_spatial_tail_f32
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    tc = f32_attention_takes_tensor_cores(s, hd, heads, t)
     rc = fn(*(_build.ptr(a) for a in ops + scratch + [out]), rows, s, c, hd1, hd, t, heads,
-            inner, scale, eps, _build.stream(x.device))
+            inner, scale, eps, int(tc), _build.stream(x.device))
     _build.check(lib, rc, "fused_spatial_tail (float32)")
+    attention_f32.note_launch(tc)
     global F32_LAUNCHES
     F32_LAUNCHES += 1
     return out

@@ -95,6 +95,13 @@ def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype).reshape(b, f, n, hd)
 
 
+def f32_strides(frame_axis: int, d: int, *tensors):
+    """(sb, sn, ss, sh) of each (B, F, N, H*D) (frame_axis 1) or (B, N, F,
+    H*D) (frame_axis 2) tensor as the float32 kernel addresses it: position
+    n, frame s, head h at h * d."""
+    return [(t.stride(0), t.stride(3 - frame_axis), t.stride(frame_axis), d) for t in tensors]
+
+
 def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
     b = q.shape[0]
     f = q.shape[frame_axis]
@@ -112,11 +119,9 @@ def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
     global LAUNCHES, F32_LAUNCHES
     if q.dtype == torch.float32:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        n_axis = 3 - frame_axis
         attention_f32.launch(q, k, v, out, batch=b, n=n, heads=heads, s_q=f, s_k=f, d=d,
-                             strides=[(t.stride(0), t.stride(n_axis), t.stride(frame_axis), d)
-                                      for t in (q, k, v, out)],
-                             scale=scale, what="temporal_attention")
+                             strides=f32_strides(frame_axis, d, q, k, v, out), scale=scale,
+                             what="temporal_attention")
         F32_LAUNCHES += 1
         return out
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):

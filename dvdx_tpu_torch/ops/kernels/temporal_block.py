@@ -21,12 +21,14 @@ widths that are multiples of 8, F <= 64 and I % 128 == 0.
 
 Float32 inputs (a float32 model, as ``load_diffusers_checkpoint(dtype=
 "float32")`` builds) launch ``csrc/temporal_block_f32.cu`` instead, at the
-same shapes: the TPU kernel's math in float32 on the CUDA cores, fifteen
-simple launches (per attention sub-block LN, the q / k / v products, the
+same shapes: the TPU kernel's math in float32, fifteen launches (per
+attention sub-block LN on the CUDA cores, the q / k / v products, the
 frame-axis attention through the port's one float32 attention,
-``csrc/attention_f32.cuh``, and the out-projection with its residual; LN3
-and the one float32 GEGLU pair of ``csrc/f32_rows.cuh``), the operands kept
-in float32.
+``csrc/attention_f32.cuh``, on the body ``attention_f32.takes_tensor_cores``
+picks: the CUDA-core rows at 16 frames, and the out-projection with its
+residual; LN3 and the one float32 GEGLU pair), each product
+``csrc/f32_rows.cuh``'s f32_gemm in three TF32 passes on the tensor cores
+(x = big + small, within float32's rounding), the operands kept in float32.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .. import _build
+from . import attention_f32
 from .fused_math import dense, geglu_residual, layer_norm
 
 LAUNCHES = 0  # calls that launched the kernel (its three launches) since the last reset
@@ -172,6 +175,15 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     return out
 
 
+def f32_attention_takes_tensor_cores(f: int, n: int, c: int, heads: int) -> bool:
+    """Whether the float32 kernel's two frame-axis attentions run the
+    tensor-core body of ``csrc/attention_f32.cuh``: q, k, v (B, F, N, heads,
+    D), contiguous, frame f of position n a query / key row, through the
+    shape gate."""
+    d = c // heads
+    return attention_f32.takes_tensor_cores(f, d, [(f * n * c, c, n * c, d)])
+
+
 def _launch_f32(ops, b: int, f: int, n: int, c: int, heads: int, inner: int, scale: float,
                 eps: float) -> torch.Tensor:
     """The float32 kernel on contiguous float32 ``ops`` (x and the ``KEYS``
@@ -185,11 +197,14 @@ def _launch_f32(ops, b: int, f: int, n: int, c: int, heads: int, inner: int, sca
     fn = lib.dvdx_temporal_block_f32
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    tc = f32_attention_takes_tensor_cores(f, n, c, heads)
     rc = fn(*(_build.ptr(a) for a in ops + scratch + [out]), b, f, n, c, heads, inner,
-            scale, eps, _build.stream(x.device))
+            scale, eps, int(tc), _build.stream(x.device))
     _build.check(lib, rc, "fused_temporal_block (float32)")
+    for _ in range(2):  # its two attention sub-blocks
+        attention_f32.note_launch(tc)
     global F32_LAUNCHES
     F32_LAUNCHES += 1
     return out

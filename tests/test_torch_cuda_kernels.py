@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from dvdx_tpu_torch.ops import groupnorm as tgn
+from dvdx_tpu_torch.ops.kernels import attention_f32 as tatt32
 from dvdx_tpu_torch.ops.kernels import flash_attention as tflash
 from dvdx_tpu_torch.ops.kernels import geglu_ff as tff
 from dvdx_tpu_torch.ops.kernels import spatial_tail as ttail
@@ -378,6 +379,37 @@ def test_flash_float32_kernel_matches_plain(cuda, b, s, h, d):
     assert torch.equal(got, tflash.flash_attention(q, k, v))
 
 
+# the tensor-core body at the float32 UNet's flash shapes (levels 0 and 1 at
+# batch 2), a ragged S at D = 40, and 66-float rows, which its 16-byte copies
+# cannot take (the shape gate sends them to the CUDA-core rows); the same
+# bits again
+@pytest.mark.parametrize("b,s,h,d,pad", [(2, 2880, 5, 64, 0), (2, 720, 10, 64, 0),
+                                         (2, 777, 3, 40, 0), (1, 600, 2, 64, 2)])
+def test_flash_float32_tensor_core_body_matches_plain(cuda, b, s, h, d, pad):
+    q, k, v = (_randn((b, s, h, d + pad), 10 + i, cuda)[..., :d] for i in range(3))
+    before = tflash.F32_LAUNCHES, tatt32.TENSOR_CORE_LAUNCHES
+    got = tflash.flash_attention(q, k, v)
+    again = tflash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tflash.F32_LAUNCHES == before[0] + 2
+    assert tatt32.TENSOR_CORE_LAUNCHES == before[1] + 2 * (pad == 0)
+    _check_f32(got, tflash.flash_attention_plain(q, k, v))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+# float32 GEGLU at level 1's and level 2's widths with ragged row tiles
+@pytest.mark.parametrize("t,c", [(1001, 640), (333, 1280)])
+def test_geglu_float32_wide_kernel_matches_plain(cuda, t, c):
+    args = [a.float() for a in _geglu_args(t, c, cuda)]
+    before = tff.SIMT_LAUNCHES
+    got = tff.geglu_ff(*args)
+    again = tff.geglu_ff(*args)
+    torch.cuda.synchronize()
+    assert tff.SIMT_LAUNCHES == before + 2
+    _check_f32(got, tff.geglu_ff_plain(*args))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.parametrize("layout", ["frame_major", "position_major"])
 # the last: B * N = 80,000 positions, past one grid axis's 65,535
 @pytest.mark.parametrize("f,n,heads,d", [(4, 16, 2, 16), (16, 45, 5, 64), (128, 7, 1, 128),
@@ -420,6 +452,28 @@ def test_spatial_tail_float32_kernel_matches_plain(cuda, n, s, c, heads, t):
     assert (ttail.F32_LAUNCHES, ttail.LAUNCHES) == (before[0] + 2, before[1])
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     _check_f32(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=heads))
+
+
+# the fused kernels' float32 forms at the float32 UNet's level-0 widths (C
+# = 320, 5 heads of 64, 77 context tokens, 16 frames), both at batch 2 as
+# the CFG pair runs them: the products and the tail's cross-attention on
+# the tensor cores, the same bits again
+def test_fused_float32_kernels_at_level0_widths_repeat_bitwise(cuda):
+    (x, o1, ctx_k, ctx_v), params = _float32(_spatial_tail_args(2, 2880, 320, 77, cuda))
+    before = tatt32.TENSOR_CORE_LAUNCHES
+    got = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=5)
+    again = ttail.fused_spatial_tail(x, o1, ctx_k, ctx_v, params, heads=5)
+    torch.cuda.synchronize()
+    assert tatt32.TENSOR_CORE_LAUNCHES == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _check_f32(got, ttail.fused_spatial_tail_plain(x, o1, ctx_k, ctx_v, params, heads=5))
+    xb, pb = _temporal_block_args(2, 16, 2880, 320, cuda)
+    xb, pb = xb.float(), {k: v.float() for k, v in pb.items()}
+    got = tblock.fused_temporal_block(xb, pb, heads=5)
+    again = tblock.fused_temporal_block(xb, pb, heads=5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _check_f32(got, tblock.fused_temporal_block_plain(xb, pb, heads=5))
 
 
 # the UNet's level 0 at one sample and transformer_in's 8 x 40 heads, a
