@@ -15,7 +15,8 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      the main path's full-width shapes, and the float32 kernels at phase 6's
      and at phase 13's full-width shapes (the fused tail's and block's
      float32 forms at level 0 and at a ragged S / N; float32 flash at S =
-     2880 and 720, frame-axis attention at levels 1-3, GEGLU's float32
+     2880 and 720, frame-axis attention at levels 1-3 (and at the fused
+     block's level-0 shape and XL's 24 frames), GEGLU's float32
      pair at C = 640 / 1280, GroupNorm at the UNet's and the VAE's shapes)
      (and a few off it: the fused tail at
      C = 384, with tiles spanning two images, at T = 300, at C = 64 with T =
@@ -202,7 +203,8 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      one traced step's device ms by group (``utils.profile_step``), each
      float32 kernel's ms over the call beside its bound (``KERNEL_PEAK``);
      flash and the tail's cross-attention on the float32 attention's
-     tensor-core body;
+     64-row tensor-core body, the frame-axis attentions (22 standalone, two
+     in each of the 6 fused blocks) on its short-sequence body;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, phase 12(c)'s two ranks for the two sharded
   GroupNorm entries, or phase 13's float32 request for the float32 kernels
@@ -771,15 +773,31 @@ def kernel_cases():
         cases.append(("flash_attention_f32", label, mk, kern, fa.flash_attention_plain,
                       sdpa_packed if pad else sdpa_bshd, f32_cost(cross_cost(b, s_, sk, h, d)),
                       False))
-    for label, (b, f, n, heads, d) in (("level1", (2, 16, 720, 10, 64)),
-                                       ("level2", (2, 16, 180, 20, 64)),
-                                       ("level3", (2, 16, 45, 20, 64))):
+    # frame-axis attention at levels 1-3 (the short-sequence body), then off
+    # the standalone path: the fused block's level-0 shape (its two
+    # attentions run this body inside the block) and XL's 24 frames at level 1
+    for label, (b, f, n, heads, d), main in (("level1", (2, 16, 720, 10, 64), True),
+                                             ("level2", (2, 16, 180, 20, 64), True),
+                                             ("level3", (2, 16, 45, 20, 64), True),
+                                             ("block_level0", (2, 16, 2880, 5, 64), False),
+                                             ("xl_level1_f24", (1, 24, 2304, 10, 64), False)):
         def mk(gen, shape=(b, f, n, heads * d)):
             return [randn(shape, gen, dtype=f32) for _ in range(3)]
         cases.append(("temporal_attention_f32", label, mk,
                       lambda q, k, v, h=heads: ta.temporal_attention(q, k, v, heads=h),
                       lambda q, k, v, h=heads: ta.temporal_attention_plain(q, k, v, heads=h),
-                      sdpa_fm(heads), f32_cost(temporal_cost(b, f, n, heads, d)), True))
+                      sdpa_fm(heads), f32_cost(temporal_cost(b, f, n, heads, d)), main))
+    # the fused block's two level-0 shapes on the CUDA-core rows, which take
+    # positions 2 floats apart beyond their H*D (no 16-byte rows): what its
+    # attentions cost on the rows, the same bytes read
+    for label, (b, f, n, heads, d) in (("block_level0_rows", (2, 16, 2880, 5, 64)),
+                                       ("block_transformer_in_rows", (2, 16, 2880, 8, 40))):
+        def mk(gen, b=b, f=f, n=n, hd=heads * d):
+            return [randn((b, f, n, hd + 2), gen, dtype=f32)[..., :hd] for _ in range(3)]
+        cases.append(("temporal_attention_f32", label, mk,
+                      lambda q, k, v, h=heads: ta.temporal_attention(q, k, v, heads=h),
+                      lambda q, k, v, h=heads: ta.temporal_attention_plain(q, k, v, heads=h),
+                      None, f32_cost(temporal_cost(b, f, n, heads, d)), False))
     for label, (t, c), main in (("level1", (23040, 640), True), ("level2", (5760, 1280), True),
                                 ("level3", (1440, 1280), True),
                                 ("t1001_c640", (1001, 640), False),
@@ -2687,7 +2705,7 @@ def run_float32(root: str, smi: str) -> dict:
     runs = []
     for _ in range(2):
         reset_counts()
-        attention_f32.TENSOR_CORE_LAUNCHES = 0
+        attention_f32.TENSOR_CORE_LAUNCHES = attention_f32.FRAMES_LAUNCHES = 0
         torch.cuda.reset_peak_memory_stats()
         timings = {}
         t0 = time.perf_counter()
@@ -2697,6 +2715,7 @@ def run_float32(root: str, smi: str) -> dict:
                          seconds=time.perf_counter() - t0, timings_s=timings,
                          launches=read_counts(), peak_bytes=torch.cuda.max_memory_allocated(),
                          tensor_core_attention=attention_f32.TENSOR_CORE_LAUNCHES,
+                         frames_attention=attention_f32.FRAMES_LAUNCHES,
                          root=MerkleCommitment(ts, zs, epss).root.hex()))
     first, again = runs
     same = (torch.equal(_bits(first["zs"]), _bits(again["zs"]))
@@ -2710,15 +2729,17 @@ def run_float32(root: str, smi: str) -> dict:
     out["request"] = {k: first[k] for k in ("seconds", "timings_s", "launches", "peak_bytes",
                                             "root")}
     tc_per_call = first["tensor_core_attention"] / steps
+    frames_per_call = first["frames_attention"] / steps
     out["request"].update(seconds_again=again["seconds"], bitwise=same,
                           launches_per_unet_call=per_call,
-                          tensor_core_attention_per_unet_call=tc_per_call)
+                          tensor_core_attention_per_unet_call=tc_per_call,
+                          frames_attention_per_unet_call=frames_per_call)
     log(f"float32 request ({smi}): video {first['video'].shape}, {steps} steps at "
         f"{frames} x {F32_REQUEST['width']}x{F32_REQUEST['height']}: {first['seconds']:.2f} s, "
         f"{again['seconds']:.2f} s again, peak memory {first['peak_bytes'] / 2**30:.2f} GiB; "
         f"merkle roots {first['root']} / {again['root']}, bit-identical={same}; launches per "
-        f"UNet call {json.dumps(per_call)}, of them float32 attentions on the tensor cores "
-        f"{tc_per_call}")
+        f"UNet call {json.dumps(per_call)}, float32 attentions on the 64-row tensor-core body "
+        f"{tc_per_call} and on the short-sequence body {frames_per_call}")
     video, zs, epss, ts = first["video"], first["zs"], first["epss"], first["ts"]
     _require(video.shape == (frames, F32_REQUEST["height"], F32_REQUEST["width"], 3)
              and video.dtype == np.uint8 and float(np.std(video)) > 0 and len(ts) == steps
@@ -2729,11 +2750,15 @@ def run_float32(root: str, smi: str) -> dict:
     _require(per_call == {k: float(n) for k, n in F32_EXPECTED_PER_UNET_CALL.items()}
              and not stray, "phase 13(b): launches per UNet call (float32 kernels only)",
              dict(per_call=per_call, bf16_kernels=stray))
-    # flash and the fused tail's cross-attention run the tensor-core body;
-    # the 16-frame attentions (frame-axis, the fused block's) the CUDA-core rows
+    # flash and the fused tail's cross-attention run the 64-row tensor-core
+    # body; the 16-frame attentions (frame-axis, and the fused block's two a
+    # launch) the short-sequence body
     _require(tc_per_call == EXPECTED_PER_UNET_CALL["flash_attention"]
              + EXPECTED_PER_UNET_CALL["fused_spatial_tail"],
              "phase 13(b): float32 attentions on the tensor-core body", tc_per_call)
+    _require(frames_per_call == EXPECTED_PER_UNET_CALL["temporal_attention"]
+             + 2 * EXPECTED_PER_UNET_CALL["fused_temporal_block"],
+             "phase 13(b): float32 attentions on the short-sequence body", frames_per_call)
 
     # (b)-(d) one CFG UNet call (the request's first step): launches and bound
     # by hooks, every kernel input recorded and held, the same bits again, and
@@ -3747,10 +3772,12 @@ def main():
         for k, v in build.items():
             f.write(f"==== {k}\n{v['ptxas']}\n")
     # registers, spills and shared memory of the redesigned kernels
-    for k, names in (("groupnorm", ("gn_fused",)), ("temporal_block", ("temporal_block_chain",)),
+    for k, names in (("groupnorm", ("gn_fused", "gn_moments", "gn_apply")),
+                     ("temporal_block", ("temporal_block_chain",)),
                      ("spatial_tail", ("spatial_tail_chain",)),
                      ("temporal_attention", ("temporal_attn_tma",)),
-                     ("attention_f32", ("attention_f32_mma",)), ("geglu_ff", ("f32_gemm",))):
+                     ("attention_f32", ("attention_f32_mma", "attention_f32_frames")),
+                     ("geglu_ff", ("f32_gemm",))):
         lines = build[k]["ptxas"].splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(n in line for n in names):

@@ -39,23 +39,41 @@
 //
 // Frame-sharded GroupNorm (ops/groupnorm.py group_norm_act_sharded: each rank
 // holds some frames, the statistics span all of them) splits the launch at
-// its first barrier into two entries, with an all-reduce between them:
-//   moments-out (dvdx_group_norm_moments): phase 1 in float64, two plain
-//     launches. Per (sample, chunk) block, each thread sums its octet's
-//     rows in order (x and x^2, a float32 value and its square exact in
-//     float64), the block its row lanes per channel in order, then one
-//     thread per group its channels in order -> part (N, nchunks, G, 2);
-//     a second launch sums the chunks per (sample, group) strided then by a
-//     fixed halving tree -> sums (2, N, G) float64. A float64 sum of these
-//     values rounds to one float32 mean in any order, so the split across
-//     ranks gives the one-device moments (the JAX package gets the same
-//     moments from GSPMD's all-reduce of its float32 sums).
-//   moments-in (dvdx_group_norm_apply): phase 3 alone, one plain launch, from
-//     float32 (mean, E[x^2]) per (sample, group): the variance clamped at 0,
-//     1 / sqrt(var + eps), gamma / beta and SiLU, each float32 operation
-//     rounded as the plain version rounds it (no contraction).
-// Both are bounded by bytes: moments-out reads x once, moments-in reads x and
-// writes y once.
+// its first barrier into two entries, with an all-reduce between them. Both
+// are bounded by bytes (moments-out reads x once, moments-in reads x and
+// writes y once), and at the UNet's frame-sharded norms (4-18 us of bytes)
+// a launch's ramp and tail are a large share, so each entry is one plain
+// launch that keeps many 16-byte loads in flight:
+//   moments-out (dvdx_group_norm_moments): phase 1 in float64. A block a
+//     (sample, chunk), the chunks of the wrapper's moments_plan (about 384
+//     blocks in all, one wave of 3 an SM on the H100, a function of the
+//     shape only): each thread sums its octet's rows in order, as gn_fused's
+//     phase 1 loads them (Octet<T>::unroll rows in flight), in float64 (x
+//     and x^2, a float32 value and its square exact in float64); the block
+//     adds its row lanes per channel in lane order through a shared-memory
+//     stage sized to the shape (lanes x C doubles, at most 40 KB at C =
+//     2560), then a warp per group its channels, strided over the lanes in
+//     order and a fixed butterfly -> part (N, G, nchunks, 2). The last
+//     block of a sample to finish (its writers' __threadfence and a ticket a
+//     sample, g_moment_tickets, the only atomic: no sum goes through it)
+//     sums the sample's chunk partials, a warp per group, strided over the
+//     lanes in chunk order and a fixed butterfly -> sums (2, N, G) float64,
+//     and sets the ticket back to 0 for the next launch. A float64 sum of
+//     these values rounds to one float32 mean in any order, so the split
+//     across ranks gives the one-device moments (the JAX package gets the
+//     same moments from GSPMD's all-reduce of its float32 sums).
+//   moments-in (dvdx_group_norm_apply): phase 3 alone, from float32 (mean,
+//     E[x^2]) per (sample, group). One launch of the co-resident blocks,
+//     with chunks sized so that each takes about one (sample, chunk) item
+//     (an element's result does not depend on the chunking); a block
+//     computes its sample's per-channel scale and shift once into shared
+//     memory (the variance clamped at 0, 1 / sqrt(var + eps), gamma / beta;
+//     each float32 operation rounded as the plain version rounds it, no
+//     contraction), then each thread streams its octet's rows,
+//     Octet<T>::unroll in flight, with SiLU as gn_fused's.
+// Both bound by bytes. A float32 (mean, E[x^2]) pair is passed as two
+// arrays, and the wrapper allocates the outputs without the fill that
+// torch.empty makes while deterministic algorithms are on.
 #include "common.cuh"
 
 using namespace dvdx;
@@ -367,182 +385,272 @@ int group_norm_launch(const void* x, const void* bias, const void* gamma, const 
 
 namespace {
 
-// moments-out, launch 1: float64 sums of x and x^2 per (sample, chunk,
-// group), every sum in a fixed order. 40 KB of static shared memory.
+// Per-sample tickets of moments-out: a sample's blocks count themselves in,
+// and the last one sets the ticket back to 0, so a launch leaves them all at
+// 0. The port launches GroupNorm on one stream, so two launches never share
+// them at once.
+constexpr int MAX_MOMENT_SAMPLES = 4096;
+__device__ unsigned int g_moment_tickets[MAX_MOMENT_SAMPLES];
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// row lanes R of a block: (row lane, octet) pairs cover the block once
+__host__ __device__ __forceinline__ int row_lanes(int C) {
+  return C / 8 >= THREADS ? 1 : THREADS / (C / 8);
+}
+
+// The rows l0 + rl, + lanes, ... < l1 of the octet column at xp (row l0 +
+// rl), step = lanes * C elements apart: fn(octet, offset of its row) in row
+// order, Octet<T>::unroll loads in flight before the first of them
+template <typename T, class Fn>
+__device__ __forceinline__ void walk_rows(const T* xp, long long step, int l, int l1, int lanes,
+                                          Fn&& fn) {
+  constexpr int UNROLL = Octet<T>::unroll;
+  long long off = 0;
+  for (; l + (UNROLL - 1) * lanes < l1; l += UNROLL * lanes, off += UNROLL * step) {
+    Octet<T> v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) v[u] = Octet<T>::load(xp + off + u * step);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) fn(v[u], off + u * step);
+  }
+  for (; l < l1; l += lanes, off += step) fn(Octet<T>::load(xp + off), off);
+}
+
+// moments-out: float64 sums of x and x^2 per (sample, chunk, group) into
+// part, then, in the last block of each sample, per (sample, group) into
+// sums. Every sum in a fixed order.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gn_moments_part(const T* __restrict__ x, double* __restrict__ part, int L, int C, int G,
-                int chunk_rows, int nchunks) {
-  __shared__ double csum[MAXC];
-  __shared__ double csq[MAXC];
-  const int cpg = C / G, octets = C / 8;
-  const int lanes = octets >= THREADS ? 1 : THREADS / octets;
+__global__ void __launch_bounds__(THREADS, 3)
+gn_moments(const T* __restrict__ x, double* part, double* __restrict__ sums, int N, int L, int C,
+           int G, int chunk_rows, int nchunks) {
+  extern __shared__ double stage[];  // [2][lanes * C]: per (row lane, channel) sums
+  __shared__ bool last;
+  const int cpg = C / G, octets = C / 8, lanes = row_lanes(C);
   const int pairs = lanes * octets;
-  const int n = blockIdx.x / nchunks, chunk = blockIdx.x % nchunks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x / nchunks, chunk = blockIdx.x - n * nchunks;
   const int l0 = chunk * chunk_rows, l1 = min(L, l0 + chunk_rows);
+  double* ssum = stage;
+  double* ssq = stage + pairs * 8;
   for (int j = threadIdx.x; j < pairs; j += THREADS) {
-    const int rl = j / octets, c0 = (j % octets) * 8;
+    const int rl = j / octets, c0 = (j - rl * octets) * 8;
     double s[8], q[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) s[e] = q[e] = 0.0;
-    const long long step = (long long)lanes * C;
-    const T* xp = x + ((long long)n * L + l0 + rl) * C + c0;
-#pragma unroll 4
-    for (int l = l0 + rl; l < l1; l += lanes, xp += step) {
-      float f[8];
-      Octet<T>::load(xp).unpack(f);
+    walk_rows(x + ((long long)n * L + l0 + rl) * C + c0, (long long)lanes * C, l0 + rl, l1,
+              lanes, [&](const Octet<T>& o, long long) {
+                float f[8];
+                o.unpack(f);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const double v = f[e];
-        s[e] += v;
-        q[e] = fma(v, v, q[e]);
-      }
-    }
+                for (int e = 0; e < 8; ++e) {
+                  const double v = f[e];
+                  s[e] += v;
+                  q[e] = fma(v, v, q[e]);
+                }
+              });
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      csum[rl * C + c0 + e] = s[e];
-      csq[rl * C + c0 + e] = q[e];
+      ssum[rl * C + c0 + e] = s[e];
+      ssq[rl * C + c0 + e] = q[e];
     }
   }
   __syncthreads();
   // channel totals over the row lanes, in lane order, into lane 0's slots
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    double s = 0.0, q = 0.0;
-    for (int rl = 0; rl < lanes; ++rl) {
-      s += csum[rl * C + c];
-      q += csq[rl * C + c];
-    }
-    csum[c] = s;
-    csq[c] = q;
-  }
-  __syncthreads();
-  for (int gi = threadIdx.x; gi < G; gi += THREADS) {
-    double s = 0.0, q = 0.0;
-    for (int c = gi * cpg; c < (gi + 1) * cpg; ++c) {
-      s += csum[c];
-      q += csq[c];
-    }
-    double* p = part + (((long long)n * nchunks + chunk) * G + gi) * 2;
-    p[0] = s;
-    p[1] = q;
-  }
-}
-
-// moments-out, launch 2: per (sample, group) block, the chunk partials
-// strided over the threads in order, then a fixed halving tree.
-__global__ void __launch_bounds__(THREADS)
-gn_moments_reduce(const double* __restrict__ part, double* __restrict__ sums, int N, int G,
-                  int nchunks) {
-  __shared__ double tree[2][THREADS];
-  const int n = blockIdx.x / G, gi = blockIdx.x % G;
-  double s = 0.0, q = 0.0;
-  for (int ch = threadIdx.x; ch < nchunks; ch += THREADS) {
-    const double* p = part + (((long long)n * nchunks + ch) * G + gi) * 2;
-    s += p[0];
-    q += p[1];
-  }
-  tree[0][threadIdx.x] = s;
-  tree[1][threadIdx.x] = q;
-  __syncthreads();
-  for (int h = THREADS / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) {
-      tree[0][threadIdx.x] += tree[0][threadIdx.x + h];
-      tree[1][threadIdx.x] += tree[1][threadIdx.x + h];
+  if (lanes > 1) {
+    for (int c = threadIdx.x; c < C; c += THREADS) {
+      double s = ssum[c], q = ssq[c];
+      for (int rl = 1; rl < lanes; ++rl) {
+        s += ssum[rl * C + c];
+        q += ssq[rl * C + c];
+      }
+      ssum[c] = s;
+      ssq[c] = q;
     }
     __syncthreads();
   }
+  // group totals: a warp per group, lanes over its channels in order, a
+  // fixed butterfly across the lanes
+  for (int gi = warp; gi < G; gi += THREADS / 32) {
+    double s = 0.0, q = 0.0;
+    for (int c = gi * cpg + lane; c < (gi + 1) * cpg; c += 32) {
+      s += ssum[c];
+      q += ssq[c];
+    }
+    s = warp_sum_f64(s);
+    q = warp_sum_f64(q);
+    if (lane == 0) {
+      *reinterpret_cast<double2*>(part + (((long long)n * G + gi) * nchunks + chunk) * 2) =
+          make_double2(s, q);
+      __threadfence();  // the partial is visible before the block counts itself in
+    }
+  }
+
+  // the last block of sample n to finish sums its chunk partials: a warp per
+  // group, lanes strided over the chunks in order (8 loads in flight), then
+  // a fixed butterfly
+  __syncthreads();
   if (threadIdx.x == 0) {
-    sums[blockIdx.x] = tree[0][0];
-    sums[(long long)N * G + blockIdx.x] = tree[1][0];
+    last = atomicAdd(&g_moment_tickets[n], 1u) == unsigned(nchunks - 1);
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int gi = warp; gi < G; gi += THREADS / 32) {
+    const double2* p =
+        reinterpret_cast<const double2*>(part + ((long long)n * G + gi) * nchunks * 2);
+    double s = 0.0, q = 0.0;
+    for (int c0 = lane; c0 < nchunks; c0 += 32 * 8) {
+      double2 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (c0 + 32 * u < nchunks) v[u] = __ldcg(p + c0 + 32 * u);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (c0 + 32 * u < nchunks) {
+          s += v[u].x;
+          q += v[u].y;
+        }
+    }
+    s = warp_sum_f64(s);
+    q = warp_sum_f64(q);
+    if (lane == 0) {
+      sums[n * G + gi] = s;
+      sums[(long long)N * G + n * G + gi] = q;
+    }
+  }
+  if (threadIdx.x == 0) g_moment_tickets[n] = 0;
+}
+
+// moments-in: normalise, affine, SiLU from the given float32 mean and
+// E[x^2], each (N, G), the (sample, chunk) items walked blockIdx.x,
+// +gridDim.x, ...
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 3)
+gn_apply(const T* __restrict__ x, const float* __restrict__ mean_in,
+         const float* __restrict__ sq_in, const float* __restrict__ gamma,
+         const float* __restrict__ beta, T* __restrict__ y, int N, int L, int C, int G,
+         int chunk_rows, int nchunks, float eps, int silu) {
+  extern __shared__ float affine[];  // [2][C]: scale and shift of the block's sample
+  const int cpg = C / G, octets = C / 8, lanes = row_lanes(C);
+  const int pairs = lanes * octets;
+  int cur = -1;  // the sample whose scale and shift affine holds
+  for (int it = blockIdx.x; it < N * nchunks; it += gridDim.x) {
+    const int n = it / nchunks, chunk = it - n * nchunks;
+    if (n != cur) {  // the same for the whole block
+      __syncthreads();  // the last item is done with affine
+      for (int c = threadIdx.x; c < C; c += THREADS) {
+        const int gi = c / cpg;
+        const float mean = mean_in[n * G + gi];
+        const float var = fmaxf(__fsub_rn(sq_in[n * G + gi], __fmul_rn(mean, mean)), 0.f);
+        const float rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+        const float sc = __fmul_rn(rstd, gamma[c]);
+        affine[c] = sc;
+        affine[C + c] = __fsub_rn(beta[c], __fmul_rn(mean, sc));
+      }
+      __syncthreads();
+      cur = n;
+    }
+    const int l0 = chunk * chunk_rows, l1 = min(L, l0 + chunk_rows);
+    for (int j = threadIdx.x; j < pairs; j += THREADS) {
+      const int rl = j / octets, c0 = (j - rl * octets) * 8;
+      float sc[8], sh[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sc[e] = affine[c0 + e];
+        sh[e] = affine[C + c0 + e];
+      }
+      const long long off0 = ((long long)n * L + l0 + rl) * C + c0;
+      T* yp = y + off0;
+      walk_rows(x + off0, (long long)lanes * C, l0 + rl, l1, lanes,
+                [&](const Octet<T>& v, long long off) {
+                  float f[8];
+                  v.unpack(f);
+#pragma unroll
+                  for (int e = 0; e < 8; ++e) {
+                    f[e] = __fadd_rn(__fmul_rn(f[e], sc[e]), sh[e]);
+                    if (silu) f[e] = f[e] * (1.f / (1.f + expf(-f[e])));
+                  }
+                  Octet<T>::store(yp + off, f);
+                });
+    }
   }
 }
 
-// moments-in: normalise, affine, SiLU of one (sample, chunk) per block, from
-// the given float32 moments (2, N, G).
+// co-resident blocks of gn_apply<T> on the card at its largest shared memory
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gn_apply(const T* __restrict__ x, const float* __restrict__ moments,
-         const float* __restrict__ gamma, const float* __restrict__ beta, T* __restrict__ y,
-         int N, int L, int C, int G, int chunk_rows, int nchunks, float eps, int silu) {
-  const int cpg = C / G, octets = C / 8;
-  const int lanes = octets >= THREADS ? 1 : THREADS / octets;
-  const int pairs = lanes * octets;
-  const int n = blockIdx.x / nchunks, chunk = blockIdx.x % nchunks;
-  const int l0 = chunk * chunk_rows, l1 = min(L, l0 + chunk_rows);
-  for (int j = threadIdx.x; j < pairs; j += THREADS) {
-    const int rl = j / octets, c0 = (j % octets) * 8;
-    float sc[8], sh[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int gi = (c0 + e) / cpg;
-      const float mean = moments[n * G + gi];
-      const float sq = moments[N * G + n * G + gi];
-      const float var = fmaxf(__fsub_rn(sq, __fmul_rn(mean, mean)), 0.f);
-      const float rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
-      sc[e] = __fmul_rn(rstd, gamma[c0 + e]);
-      sh[e] = __fsub_rn(beta[c0 + e], __fmul_rn(mean, sc[e]));
-    }
-    const long long off0 = ((long long)n * L + l0 + rl) * C + c0;
-    const long long step = (long long)lanes * C;
-    const T* xp = x + off0;
-    T* yp = y + off0;
-#pragma unroll 4
-    for (int l = l0 + rl; l < l1; l += lanes, xp += step, yp += step) {
-      float f[8];
-      Octet<T>::load(xp).unpack(f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        f[e] = __fadd_rn(__fmul_rn(f[e], sc[e]), sh[e]);
-        if (silu) f[e] = f[e] * (1.f / (1.f + expf(-f[e])));
-      }
-      Octet<T>::store(yp, f);
-    }
-  }
+int apply_capacity(int& capacity) {
+  if (capacity > 0) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_apply<T>, THREADS,
+                                                      2 * MAXC * sizeof(float));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  capacity = sms * per_sm;
+  return capacity < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
 }
 
 }  // namespace
 
 // moments-out. x: (N, L, C) contiguous, bf16 (f32 == 0) or float32 (f32 ==
-// 1), 16-byte aligned; part: (N, nchunks, G, 2) float64 scratch; sums: (2, N,
-// G) float64, the sums of x and of x^2 per (sample, group). Shape limits
-// and the chunking as dvdx_group_norm's.
+// 1), 16-byte aligned; part: (N, G, nchunks, 2) float64 scratch; sums: (2, N,
+// G) float64, the sums of x and of x^2 per (sample, group). N <= 4096; other
+// shape limits as dvdx_group_norm's; chunk_rows and nchunks from the
+// wrapper's moments_plan (a block a chunk). One launch.
 extern "C" int dvdx_group_norm_moments(const void* x, void* part, void* sums, int N, int L,
                                        int C, int G, int chunk_rows, int nchunks, int f32,
                                        void* stream) {
-  if (bad_shape(N, L, C, G, chunk_rows, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(N, L, C, G, chunk_rows, nchunks) || N > MAX_MOMENT_SAMPLES)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* p = static_cast<double*>(part);
+  double* out = static_cast<double*>(sums);
+  const size_t smem = 2 * sizeof(double) * row_lanes(C) * C;
   if (f32)
-    gn_moments_part<float><<<N * nchunks, THREADS, 0, s>>>(static_cast<const float*>(x), p, L,
-                                                           C, G, chunk_rows, nchunks);
+    gn_moments<float><<<N * nchunks, THREADS, smem, s>>>(static_cast<const float*>(x), p, out,
+                                                         N, L, C, G, chunk_rows, nchunks);
   else
-    gn_moments_part<bf16><<<N * nchunks, THREADS, 0, s>>>(static_cast<const bf16*>(x), p, L, C,
-                                                          G, chunk_rows, nchunks);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  gn_moments_reduce<<<N * G, THREADS, 0, s>>>(p, static_cast<double*>(sums), N, G, nchunks);
+    gn_moments<bf16><<<N * nchunks, THREADS, smem, s>>>(static_cast<const bf16*>(x), p, out, N,
+                                                        L, C, G, chunk_rows, nchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-// moments-in. x, y: as dvdx_group_norm's; moments: (2, N, G) float32, the
-// mean and E[x^2] per (sample, group); gamma, beta: (C) f32.
-extern "C" int dvdx_group_norm_apply(const void* x, const void* moments, const void* gamma,
-                                     const void* beta, void* y, int N, int L, int C, int G,
-                                     int chunk_rows, int nchunks, float eps, int silu, int f32,
-                                     void* stream) {
-  if (bad_shape(N, L, C, G, chunk_rows, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
+// moments-in. x, y: as dvdx_group_norm's; mean, sq: (N, G) float32, the
+// mean and E[x^2] per (sample, group); gamma, beta: (C) f32. One launch of
+// the co-resident blocks, about one (sample, chunk) item each (every
+// element's result is the same whatever the chunking).
+extern "C" int dvdx_group_norm_apply(const void* x, const void* mean, const void* sq,
+                                     const void* gamma, const void* beta, void* y, int N, int L,
+                                     int C, int G, float eps, int silu, int f32, void* stream) {
+  if (bad_shape(N, L, C, G, L, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  static int capacity[2] = {0, 0};  // co-resident blocks: bf16, float32
+  const int rc = f32 ? apply_capacity<float>(capacity[1]) : apply_capacity<bf16>(capacity[0]);
+  if (rc) return rc;
+  const int cap = capacity[f32 ? 1 : 0];
+  const long long rows = ((long long)N * L + cap - 1) / cap;
+  const int chunk_rows = rows < L ? static_cast<int>(rows) : L;
+  const int nchunks = (L + chunk_rows - 1) / chunk_rows;
+  const int items = N * nchunks, grid = items < cap ? items : cap;
+  const size_t smem = 2 * sizeof(float) * C;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(moments);
+  const float* mu = static_cast<const float*>(mean);
+  const float* sq2 = static_cast<const float*>(sq);
   const float* ga = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   if (f32)
-    gn_apply<float><<<N * nchunks, THREADS, 0, s>>>(static_cast<const float*>(x), m, ga, be,
-                                                    static_cast<float*>(y), N, L, C, G,
-                                                    chunk_rows, nchunks, eps, silu);
+    gn_apply<float><<<grid, THREADS, smem, s>>>(static_cast<const float*>(x), mu, sq2, ga, be,
+                                                static_cast<float*>(y), N, L, C, G, chunk_rows,
+                                                nchunks, eps, silu);
   else
-    gn_apply<bf16><<<N * nchunks, THREADS, 0, s>>>(static_cast<const bf16*>(x), m, ga, be,
-                                                   static_cast<bf16*>(y), N, L, C, G,
-                                                   chunk_rows, nchunks, eps, silu);
+    gn_apply<bf16><<<grid, THREADS, smem, s>>>(static_cast<const bf16*>(x), mu, sq2, ga, be,
+                                               static_cast<bf16*>(y), N, L, C, G, chunk_rows,
+                                               nchunks, eps, silu);
   return static_cast<int>(cudaGetLastError());
 }
 

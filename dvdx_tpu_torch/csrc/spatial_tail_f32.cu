@@ -16,8 +16,9 @@
 // Eight launches: the o1 product with its residual, LN2, the q product
 // (f32_rows.cuh's f32_gemm: three TF32 passes on the tensor cores), the
 // cross-attention (attention_f32.cuh, the port's one float32 attention, over
-// the image's T context rows: its tensor-core body where the caller's shape
-// gate picks it, S >= 64 tokens, else the CUDA-core rows), the o2 product
+// the image's T context rows: on the body the caller's shape gate picks, the
+// tensor-core body at S >= 64 tokens, the CUDA-core rows at odd widths), the
+// o2 product
 // with its residual, LN3 (on the CUDA cores), and the GEGLU pair (the second
 // with the residual epilogue). The intermediate rows go through device
 // memory. The attention divides by the softmax's sum after P.V where the TPU
@@ -42,15 +43,17 @@ constexpr int MAX_T = 512;
 // (C, HD), ffi_w (2I, C) value rows first, ffo_w (C, I); vectors o1_b, ln2_*,
 // o2_b, ln3_*, ffo_b (C), ffi_b (2I). Scratch: x1, h, x2 (rows, C), q, ao
 // (rows, HD), inner (rows, I); out (rows, C). All float32, contiguous;
-// HD / heads <= 384, T <= 512. att_tc != 0: the cross-attention on its
-// tensor-core body (S >= 64, HD / heads <= 128 and a multiple of 4).
+// HD / heads <= 384, T <= 512. att_body: the body of the cross-attention
+// (attention_f32.cuh's Body: 1 the tensor-core body at S >= 64, 2 the
+// short-sequence body at S = T < 64, both for HD / heads <= 128 and a
+// multiple of 4; 0 the CUDA-core rows).
 extern "C" int dvdx_spatial_tail_f32(
     const void* x, const void* o1, const void* ctx_k, const void* ctx_v, const void* o1_w,
     const void* o1_b, const void* ln2_s, const void* ln2_b, const void* q2_w,
     const void* o2_w, const void* o2_b, const void* ln3_s, const void* ln3_b,
     const void* ffi_w, const void* ffi_b, const void* ffo_w, const void* ffo_b, void* x1,
     void* h, void* q, void* ao, void* x2, void* inner, void* out, int rows, int S, int C,
-    int HD1, int HD, int T, int heads, int I, float scale, float eps, int att_tc,
+    int HD1, int HD, int T, int heads, int I, float scale, float eps, int att_body,
     void* stream) {
   if (rows < 1 || S < 1 || rows % S || C < 1 || HD1 < 1 || I < 1 || heads < 1 ||
       HD % heads || HD / heads < 1 || HD / heads > ATT_MAX_D || T < 1 || T > MAX_T)
@@ -69,7 +72,7 @@ extern "C" int dvdx_spatial_tail_f32(
   const Strides qs{(long long)S * HD, 0, HD, D}, cs{(long long)T * HD, 0, HD, D};
   if (!rc) rc = attention_f32_launch<spatial_tail_f32>(f(q), f(ctx_k), f(ctx_v), w(ao),
                                                        rows / S, 1, heads, S, T, D, qs, cs,
-                                                       cs, qs, scale, att_tc != 0, st);
+                                                       cs, qs, scale, att_body, st);
   if (!rc) rc = gemm_launch<spatial_tail_f32, EPI_RESID_BIAS>(
       Gemm{f(ao), HD, f(o2_w), HD, f(o2_b), f(x1), C, w(x2), C, rows, C, HD}, st);
   if (!rc) rc = layer_norm_launch<spatial_tail_f32>(f(x2), f(ln3_s), f(ln3_b), w(h), rows, C,

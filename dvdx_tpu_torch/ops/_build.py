@@ -115,6 +115,21 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}: {msg}")
 
 
+def unfilled(shape, dtype, device):
+    """A new tensor for a kernel to write in full. ``torch.empty`` fills new
+    memory with NaN while deterministic algorithms are on (``enable_
+    determinism``): a pass over the whole output on the card that the
+    kernel's own writes make useless. A storage of the same size is not
+    filled."""
+    import math
+
+    import torch
+
+    n = math.prod(shape) * dtype.itemsize
+    storage = torch.UntypedStorage(n, device=device)
+    return torch.empty(0, dtype=dtype, device=device).set_(storage, 0, tuple(shape))
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

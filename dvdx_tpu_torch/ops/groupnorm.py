@@ -20,8 +20,10 @@ dtype first (tests state how far that moves the result).
 A GroupNorm whose frames are sharded over ranks (``group_norm_act_sharded``)
 runs the kernel's first and last phases as two entries of the same source,
 with an all-reduce between them: ``group_norm_moments`` (moments-out, float64
-sums per (sample, group)) and ``group_norm_apply`` (moments-in, the
-normalisation from given float32 moments). Each has its own launch counter.
+sums per (sample, group); one launch, whose last block of each sample sums
+its chunks) and ``group_norm_apply`` (moments-in, the normalisation from
+given float32 moments; one launch of co-resident blocks). Each has its own
+launch counter.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ MOMENTS_OUT_LAUNCHES = 0  # group_norm_moments calls on the card (either dtype)
 MOMENTS_IN_LAUNCHES = 0   # group_norm_apply calls on the card (either dtype)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_CHANNELS = 2560
+MAX_MOMENT_SAMPLES = 4096  # samples of one moments-out launch (its per-sample tickets)
+MOMENT_BLOCKS = 384        # moments-out's blocks: one wave of 3 an SM on the H100
 CHUNK_ELEMS = 16384        # elements of one work item (32 KB of bf16) ...
 LARGE_CHUNK_ELEMS = 32768  # ... and of one in a call of LARGE_CALL elements or more,
 LARGE_CALL = 1 << 24       # where fewer, longer items read faster (utils/kernel_probe)
@@ -61,6 +65,15 @@ def plan(n: int, length: int, c: int, chunk_elems: Optional[int] = None) -> Grou
     chunk_rows = max(1, min(length, chunk_elems // c))
     nchunks = -(-length // chunk_rows)
     return GroupNormPlan(chunk_rows, nchunks, n * nchunks)
+
+
+def moments_plan(n: int, length: int, c: int) -> GroupNormPlan:
+    """Moments-out's chunking of (N, L, C): about MOMENT_BLOCKS chunks in all
+    (a block each), none shorter than ``plan``'s. A function of the shape
+    only, so the kernel's sums run in one order."""
+    rows = min(length, max(plan(n, length, c).chunk_rows, -(-n * length // MOMENT_BLOCKS)))
+    nchunks = -(-length // rows)
+    return GroupNormPlan(rows, nchunks, n * nchunks)
 
 
 def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -181,9 +194,11 @@ def group_norm_moments(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, floa
         return _moment_sums(x.reshape(x.shape[0], -1, x.shape[-1]).float(), groups)
     x3 = _checked_rows(x, groups, "group_norm_moments")
     n, length, c = x3.shape
-    pl = plan(n, length, c)
-    part = torch.empty((n, pl.nchunks, groups, 2), dtype=torch.float64, device=x.device)
-    sums = torch.empty((2, n, groups), dtype=torch.float64, device=x.device)
+    if n > MAX_MOMENT_SAMPLES:
+        raise ValueError(f"group_norm_moments: at most {MAX_MOMENT_SAMPLES} samples (N={n})")
+    pl = moments_plan(n, length, c)
+    part = _build.unfilled((n, groups, pl.nchunks, 2), torch.float64, x.device)
+    sums = _build.unfilled((2, n, groups), torch.float64, x.device)
     lib = _build.library("groupnorm")
     fn = lib.dvdx_group_norm_moments
     if fn.argtypes is None:
@@ -211,22 +226,21 @@ def group_norm_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                     moments=moments)
     x3 = _checked_rows(x, groups, "group_norm_apply")
     n, length, c = x3.shape
-    m = torch.stack([t.to(x.device, torch.float32).reshape(n, groups) for t in moments])
+    mean, sq = (t.to(x.device, torch.float32).reshape(n, groups).contiguous() for t in moments)
     if gamma.numel() != c or beta.numel() != c or any(
             t.device != x.device for t in (gamma, beta)):
         raise ValueError("group_norm_apply: gamma and beta must be (C,) on x's device")
     g32 = gamma.to(torch.float32).contiguous()
     b32 = beta.to(torch.float32).contiguous()
-    y = torch.empty_like(x3)
-    pl = plan(n, length, c)
+    y = _build.unfilled(x3.shape, x3.dtype, x.device)
     lib = _build.library("groupnorm")
     fn = lib.dvdx_group_norm_apply
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    rc = fn(_build.ptr(x3), _build.ptr(m), _build.ptr(g32), _build.ptr(b32), _build.ptr(y),
-            n, length, c, groups, pl.chunk_rows, pl.nchunks, float(eps), int(act == "silu"),
+    rc = fn(_build.ptr(x3), _build.ptr(mean), _build.ptr(sq), _build.ptr(g32), _build.ptr(b32),
+            _build.ptr(y), n, length, c, groups, float(eps), int(act == "silu"),
             int(x.dtype == torch.float32), _build.stream(x.device))
     _build.check(lib, rc, "group_norm_apply")
     global MOMENTS_IN_LAUNCHES

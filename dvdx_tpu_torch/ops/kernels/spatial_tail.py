@@ -24,7 +24,7 @@ Float32 inputs (a float32 model, as ``load_diffusers_checkpoint(dtype=
 same shapes: the TPU kernel's math in float32, eight launches (the three C
 x C products, LN2 / LN3 on the CUDA cores, the cross-attention through the
 port's one float32 attention, ``csrc/attention_f32.cuh``, on the body
-``attention_f32.takes_tensor_cores`` picks, and the one float32 GEGLU pair,
+``attention_f32.body`` picks, and the one float32 GEGLU pair,
 each product ``csrc/f32_rows.cuh``'s f32_gemm with the residual in its
 epilogue), the operands kept in float32. The products and the tensor-core
 attention run in three TF32 passes (x = big + small), within float32's
@@ -216,12 +216,12 @@ def fused_spatial_tail(x: torch.Tensor, o1: torch.Tensor, ctx_k: torch.Tensor,
     return out
 
 
-def f32_attention_takes_tensor_cores(s: int, hd: int, heads: int, t: int) -> bool:
-    """Whether the float32 kernel's cross-attention runs the tensor-core body
-    of ``csrc/attention_f32.cuh``: its q / ao rows (N, S, heads, D) and
-    context (N, T, heads, D), contiguous, through the shape gate."""
+def f32_attention_body(s: int, hd: int, heads: int, t: int) -> str:
+    """The body of ``csrc/attention_f32.cuh`` that runs the float32 kernel's
+    cross-attention: its q / ao rows (N, S, heads, D) and context (N, T,
+    heads, D), contiguous, through the shape gate."""
     d = hd // heads
-    return attention_f32.takes_tensor_cores(s, d, [(s * hd, 0, hd, d), (t * hd, 0, hd, d)])
+    return attention_f32.body(s, t, d, [(s * hd, 0, hd, d), (t * hd, 0, hd, d)])
 
 
 def _launch_f32(ops, n: int, s: int, c: int, hd1: int, hd: int, t: int, heads: int,
@@ -239,11 +239,11 @@ def _launch_f32(ops, n: int, s: int, c: int, hd1: int, hd: int, t: int, heads: i
         fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    tc = f32_attention_takes_tensor_cores(s, hd, heads, t)
+    chosen = f32_attention_body(s, hd, heads, t)
     rc = fn(*(_build.ptr(a) for a in ops + scratch + [out]), rows, s, c, hd1, hd, t, heads,
-            inner, scale, eps, int(tc), _build.stream(x.device))
+            inner, scale, eps, attention_f32.BODY_CODE[chosen], _build.stream(x.device))
     _build.check(lib, rc, "fused_spatial_tail (float32)")
-    attention_f32.note_launch(tc)
+    attention_f32.note_launch(chosen)
     global F32_LAUNCHES
     F32_LAUNCHES += 1
     return out

@@ -11,7 +11,9 @@ Persistent CTAs walk over tiles of P positions x one head x all F frames
 cores; F <= 128 frames and head dims that are multiples of 8 up to 128 (the
 JAX fm kernel's limit). Bounded by bytes (about F/2 flops per byte moved).
 Float32 inputs launch ``csrc/attention_f32.cu`` (``ops/kernels/
-attention_f32``) instead, as the Pallas kernels take float32 too.
+attention_f32``) instead, as the Pallas kernels take float32 too: below 64
+frames its short-sequence body, which streams q, k and v once through a
+shared-memory ring and runs both products on the tensor cores.
 """
 
 from __future__ import annotations
@@ -118,7 +120,7 @@ def _launch(q, k, v, heads: int, scale: Optional[float], frame_axis: int):
     pl = check_shape(b, f, n, heads, d, "fm" if frame_axis == 1 else "pm")
     global LAUNCHES, F32_LAUNCHES
     if q.dtype == torch.float32:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        out = _build.unfilled(q.shape, q.dtype, q.device)
         attention_f32.launch(q, k, v, out, batch=b, n=n, heads=heads, s_q=f, s_k=f, d=d,
                              strides=f32_strides(frame_axis, d, q, k, v, out), scale=scale,
                              what="temporal_attention")

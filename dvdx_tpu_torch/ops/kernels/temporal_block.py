@@ -24,9 +24,9 @@ Float32 inputs (a float32 model, as ``load_diffusers_checkpoint(dtype=
 same shapes: the TPU kernel's math in float32, fifteen launches (per
 attention sub-block LN on the CUDA cores, the q / k / v products, the
 frame-axis attention through the port's one float32 attention,
-``csrc/attention_f32.cuh``, on the body ``attention_f32.takes_tensor_cores``
-picks: the CUDA-core rows at 16 frames, and the out-projection with its
-residual; LN3 and the one float32 GEGLU pair), each product
+``csrc/attention_f32.cuh``, on the body ``attention_f32.body`` picks: the
+short-sequence tensor-core body at 16 or 24 frames, and the out-projection
+with its residual; LN3 and the one float32 GEGLU pair), each product
 ``csrc/f32_rows.cuh``'s f32_gemm in three TF32 passes on the tensor cores
 (x = big + small, within float32's rounding), the operands kept in float32.
 """
@@ -175,13 +175,12 @@ def fused_temporal_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     return out
 
 
-def f32_attention_takes_tensor_cores(f: int, n: int, c: int, heads: int) -> bool:
-    """Whether the float32 kernel's two frame-axis attentions run the
-    tensor-core body of ``csrc/attention_f32.cuh``: q, k, v (B, F, N, heads,
-    D), contiguous, frame f of position n a query / key row, through the
-    shape gate."""
+def f32_attention_body(f: int, n: int, c: int, heads: int) -> str:
+    """The body of ``csrc/attention_f32.cuh`` that runs the float32 kernel's
+    two frame-axis attentions: q, k, v (B, F, N, heads, D), contiguous,
+    frame f of position n a query / key row, through the shape gate."""
     d = c // heads
-    return attention_f32.takes_tensor_cores(f, d, [(f * n * c, c, n * c, d)])
+    return attention_f32.body(f, f, d, [(f * n * c, c, n * c, d)])
 
 
 def _launch_f32(ops, b: int, f: int, n: int, c: int, heads: int, inner: int, scale: float,
@@ -199,12 +198,12 @@ def _launch_f32(ops, b: int, f: int, n: int, c: int, heads: int, inner: int, sca
         fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    tc = f32_attention_takes_tensor_cores(f, n, c, heads)
+    chosen = f32_attention_body(f, n, c, heads)
     rc = fn(*(_build.ptr(a) for a in ops + scratch + [out]), b, f, n, c, heads, inner,
-            scale, eps, int(tc), _build.stream(x.device))
+            scale, eps, attention_f32.BODY_CODE[chosen], _build.stream(x.device))
     _build.check(lib, rc, "fused_temporal_block (float32)")
     for _ in range(2):  # its two attention sub-blocks
-        attention_f32.note_launch(tc)
+        attention_f32.note_launch(chosen)
     global F32_LAUNCHES
     F32_LAUNCHES += 1
     return out

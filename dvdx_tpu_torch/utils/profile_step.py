@@ -38,10 +38,11 @@ OUT = os.path.join("chiprun_out", "profile_step.json")
 # (geglu_stage<geglu_ff_site, ...>) in geglu_ff's; GroupNorm is one kernel,
 # gn_fused (a bare "gn_" would also match ATen's sign_ and assign_ kernels);
 # the float32 kernels carry their caller's name in their template arguments
-# (f32_gemm<spatial_tail_f32, ...>, attention_f32_rows<temporal_block_f32,
+# (f32_gemm<spatial_tail_f32, ...>, attention_f32_frames<temporal_block_f32,
 # ...>, f32_gemm<geglu_ff_site, ...>), so the fused kernels' float32 forms
 # land in their own groups; float32 flash and frame-axis attention share
-# attention_f32_rows<attention_f32_site, ...>
+# attention_f32's three bodies (attention_f32_mma / _frames / _rows
+# <attention_f32_site, ...>)
 GROUPS = (
     ("fused_spatial_tail", ("spatial_tail_",)),
     ("fused_temporal_block", ("temporal_block_",)),

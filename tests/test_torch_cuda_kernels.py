@@ -431,6 +431,43 @@ def test_temporal_float32_kernel_matches_plain(cuda, layout, f, n, heads, d):
     _check_f32(got, want)
 
 
+# the short-sequence body of the float32 attention: 1 to 63 frames (the
+# UNet's 16, XL's 24, one m16 tile ragged and four), head widths 16 to 128
+# (40: lanes past D zero), N = 37 positions leaving a ragged last run, in
+# both layouts; within 1e-5, the same bits again
+@pytest.mark.parametrize("layout", ["frame_major", "position_major"])
+@pytest.mark.parametrize("d", [16, 40, 64, 128])
+@pytest.mark.parametrize("f", [1, 4, 16, 24, 63])
+def test_temporal_float32_frames_body_matches_plain(cuda, layout, f, d):
+    _frames_case(cuda, layout, 2, f, 37, 3, d)
+
+
+# B * N = 80,000 positions: the persistent grid walks them, no grid axis
+# holds them
+@pytest.mark.parametrize("layout", ["frame_major", "position_major"])
+def test_temporal_float32_frames_body_past_65535_positions(cuda, layout):
+    _frames_case(cuda, layout, 2, 16, 40000, 1, 16)
+
+
+def _frames_case(cuda, layout, b, f, n, heads, d):
+    shape = (b, f, n, heads * d) if layout == "frame_major" else (b, n, f, heads * d)
+    q, k, v = (_randn(shape, 20 + i, cuda) for i in range(3))
+    if layout == "frame_major":
+        run = lambda: ttemp.temporal_attention(q, k, v, heads=heads)  # noqa: E731
+        want = ttemp.temporal_attention_plain(q, k, v, heads=heads)
+    else:
+        run = lambda: ttemp.temporal_attention_posmajor(q, k, v, heads=heads)  # noqa: E731
+        want = ttemp.temporal_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            heads=heads).transpose(1, 2)
+    before = ttemp.F32_LAUNCHES, tatt32.FRAMES_LAUNCHES
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert (ttemp.F32_LAUNCHES, tatt32.FRAMES_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    _check_f32(got, want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 def _float32(args):
     """bf16 test arguments (tensors, and dicts of them) as float32."""
     tensors, params = args
@@ -476,19 +513,23 @@ def test_fused_float32_kernels_at_level0_widths_repeat_bitwise(cuda):
     _check_f32(got, tblock.fused_temporal_block_plain(xb, pb, heads=5))
 
 
-# the UNet's level 0 at one sample and transformer_in's 8 x 40 heads, a
-# ragged N, F = 24, F = 64 at C = 384, and one 384-wide head
+# the UNet's level 0 at one sample and at the CFG batch's two, and
+# transformer_in's 8 x 40 heads, a ragged N, F = 24, F = 64 at C = 384, and
+# one 384-wide head
 @pytest.mark.parametrize("b,f,n,c,heads", [
-    (1, 16, 2880, 320, 5), (1, 16, 2880, 320, 8), (2, 16, 101, 320, 5), (1, 24, 45, 320, 8),
-    (1, 64, 3, 384, 6), (1, 4, 70, 384, 1)])
+    (1, 16, 2880, 320, 5), (2, 16, 2880, 320, 5), (1, 16, 2880, 320, 8), (2, 16, 101, 320, 5),
+    (1, 24, 45, 320, 8), (1, 64, 3, 384, 6), (1, 4, 70, 384, 1)])
 def test_temporal_block_float32_kernel_matches_plain(cuda, b, f, n, c, heads):
     x, params = _temporal_block_args(b, f, n, c, cuda)
     x, params = x.float(), {k: v.float() for k, v in params.items()}
-    before = tblock.F32_LAUNCHES, tblock.LAUNCHES
+    before = tblock.F32_LAUNCHES, tblock.LAUNCHES, tatt32.FRAMES_LAUNCHES
     got = tblock.fused_temporal_block(x, params, heads=heads)
     again = tblock.fused_temporal_block(x, params, heads=heads)
     torch.cuda.synchronize()
     assert (tblock.F32_LAUNCHES, tblock.LAUNCHES) == (before[0] + 2, before[1])
+    # two attentions a launch on the short-sequence body below 64 frames
+    frames = tblock.f32_attention_body(f, n, c, heads) == "frames"
+    assert tatt32.FRAMES_LAUNCHES == before[2] + 4 * frames
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     _check_f32(got, tblock.fused_temporal_block_plain(x, params, heads=heads))
 
@@ -688,12 +729,15 @@ def test_frame_sharded_groupnorm_on_the_card(cuda):
 
 
 # the UNet's level-0 temporal norm (frames and 2880 positions), a resnet's
-# level 2, the 2560-channel concat, a ragged last chunk, and float32
+# level 2, the 2560-channel concat, a ragged last chunk, and float32 (also
+# ragged, and at level 2's frame-sharded temporal conv norm)
 GN_SHARDED_SHAPES = [((2, 16, 2880, 320), 32, torch.bfloat16),
                      ((32, 180, 1280), 32, torch.bfloat16),
                      ((4, 45, 2560), 32, torch.bfloat16),
                      ((3, 1000, 320), 32, torch.bfloat16),
-                     ((2, 4, 256, 32), 8, torch.float32)]
+                     ((2, 4, 256, 32), 8, torch.float32),
+                     ((3, 1000, 320), 32, torch.float32),
+                     ((2, 16, 180, 1280), 32, torch.float32)]
 
 
 @pytest.mark.parametrize("shape,groups,dtype", GN_SHARDED_SHAPES)
@@ -710,6 +754,19 @@ def test_group_norm_moments_out_kernel(cuda, shape, groups, dtype):
     assert sums.shape == (2, shape[0], groups) and count == ref_count
     assert torch.equal((sums / count).float(), (ref / ref_count).float())
     assert torch.equal(sums, tgn.group_norm_moments(x, groups)[0])
+
+
+def test_group_norm_moments_out_leaves_its_tickets_clean(cuda):
+    """Moments-out's last block of each sample sets its ticket back to 0:
+    launches back to back on one stream, with no synchronisation between
+    them, at two shapes (192 and 20 chunks a sample), give the first
+    launch's bits again."""
+    x = _randn((2, 16, 2880, 320), 11, cuda, 2.0, 0.5).bfloat16()
+    y = _randn((3, 1000, 320), 12, cuda, 2.0, 0.5).bfloat16()
+    runs = [tgn.group_norm_moments(t, 32)[0] for t in (x, x, y, x, y)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[3])
+    assert torch.equal(runs[2], runs[4])
 
 
 @pytest.mark.parametrize("act", ["none", "silu"])

@@ -18,20 +18,30 @@ shape gate, on the CPU.
   chains the three passes over a 32-deep K slice into an accumulator of its
   own and adds it to the running sum in f32, and the attention chains each
   64-key tile's logits and its P.V, O = alpha O + tile in f32.
-* The gate (``ops.kernels.attention_f32.takes_tensor_cores``): at every
-  float32 attention site of one zeroscope-v2-576w UNet call at 16 x
-  576x320 (CFG batch 2), collected on the meta device with the kernels
-  stubbed, flash (levels 0-1) and the fused tail's cross-attention take the
-  tensor-core body, the frame-axis sites (16 frames: frame-axis attention
-  and the fused block's two) the CUDA-core rows; strides or offsets that
-  are no multiple of 16 bytes, odd head widths and short query runs go to
-  the rows.
+* The short-sequence body (``attention_f32_frames``): the frame axis's 16
+  frames are one m16 tile of mma.sync; keys in chunks of 16, S = Q K^T one
+  chain of 3 D / 8 truncated steps a chunk, P.V chained into O after O =
+  alpha O (at most 24 steps at 63 frames), keys past F masked. Emulated so,
+  at F in {4, 16, 24} and D in {40, 64, 128}, it is held against the JAX
+  package's ``temporal_attention_fm`` (the Pallas interpreter, float32)
+  within 1e-5 of max|ref|.
+* The gate (``ops.kernels.attention_f32.body``): at every float32
+  attention site of one zeroscope-v2-576w UNet call at 16 x 576x320 (CFG
+  batch 2), collected on the meta device with the kernels stubbed, flash
+  (levels 0-1) and the fused tail's cross-attention take the 64-row
+  tensor-core body ("mma"), the frame-axis sites (16 frames: frame-axis
+  attention and the fused block's two) the short-sequence body
+  ("frames"); strides or offsets that are no multiple of 16 bytes, odd or
+  wide head widths and short runs of queries over other keys go to the
+  CUDA-core rows.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dvdx_tpu.ops.pallas import temporal_attention as jtemp
 from dvdx_tpu_torch.models import layers, unet3d
 from dvdx_tpu_torch.models.zoo import get_model_spec
 from dvdx_tpu_torch.ops import attention as tops_attention
@@ -205,37 +215,100 @@ def test_flash_chains_p_v_a_tile_at_a_time_over_2880_keys():
     assert chained > TOL, chained
 
 
+# --- the short-sequence body -------------------------------------------------
+
+def _chain_batched(c, a, b):
+    """_chain over batched (..., M, K) a and (..., K, N) b."""
+    for k in range(0, a.shape[-1], 8):
+        (ab, al), (bb, bl) = split(a[..., k:k + 8]), split(b[..., k:k + 8, :])
+        c = _mma(_mma(_mma(c, al, bb), ab, bl), ab, bb)
+    return c
+
+
+def _frames_body(q, k, v):
+    """attention_f32_frames' arithmetic on (P, F, D) rows of P (b, n, h):
+    rows padded to a multiple of 16 and lanes to one of 8 with zeros, one
+    16-row m-tile at a time; per 16-key chunk the logits one chain over d
+    from zero, keys past F masked, the online softmax in f32, O = alpha O
+    and the chunk's P.V chained into it."""
+    p_, f, d = q.shape
+    fp, dp = -(-f // 16) * 16, -(-d // 8) * 8
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, dp - d, 0, fp - f))
+    q, k, v = pad(q), pad(k), pad(v)
+    c = torch.tensor(d ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    out = torch.empty(p_, fp, dp)
+    for m0 in range(0, fp, 16):
+        qt = q[:, m0:m0 + 16]
+        m = torch.full((p_, 16), -float("inf"))
+        l = torch.zeros(p_, 16)
+        o = torch.zeros(p_, 16, dp)
+        for kc in range(0, f, 16):
+            s = _chain_batched(torch.zeros(p_, 16, 16), qt, k[:, kc:kc + 16].transpose(1, 2))
+            s[..., torch.arange(kc, kc + 16) >= f] = -float("inf")
+            mx = torch.maximum(m, s.max(-1).values)
+            alpha = torch.exp2((m - mx) * c)
+            p = torch.exp2(s * c - (mx * c)[..., None])
+            l, m = l * alpha + p.sum(-1), mx
+            o = _chain_batched(o * alpha[..., None], p, v[:, kc:kc + 16])
+        out[:, m0:m0 + 16] = o / l[..., None]
+    return out[:, :f, :d]
+
+
+@pytest.mark.parametrize("f", [4, 16, 24])
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_frames_body_holds_the_pallas_frame_axis_attention(f, d):
+    """The short-sequence body's emulated arithmetic on frame-major (B, F,
+    N, H*D) against ``temporal_attention_fm`` in the Pallas interpreter, in
+    float32, within 1e-5 of max|ref|."""
+    b, n, heads = 2, 3, 2
+    rng = np.random.default_rng(100 * f + d)
+    xs = [rng.normal(size=(b, f, n, heads * d)).astype(np.float32) for _ in range(3)]
+    ref = np.asarray(jtemp.temporal_attention_fm(*(jnp.asarray(x) for x in xs), heads=heads,
+                                                 interpret=True))
+
+    def rows(x):  # (B, F, N, H*D) -> (B*N*H, F, D), the body's items
+        return torch.from_numpy(x).reshape(b, f, n, heads, d).permute(0, 2, 3, 1, 4) \
+            .reshape(-1, f, d)
+    got = _frames_body(*(rows(x) for x in xs))
+    got = got.reshape(b, n, heads, f, d).permute(0, 3, 1, 2, 4).reshape(b, f, n, heads * d)
+    err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+    print(f"frames body F={f} D={d}: {err:.3g} of max|ref|")  # shown by pytest -rP
+    assert err <= TOL, err
+
+
 # --- the shape gate ---------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def float32_sites():
-    """{site: [body takes tensor cores, ...]} for one float32 zeroscope-v2-576w
+    """{site: [the body that runs it, ...]} for one float32 zeroscope-v2-576w
     UNet call at 16 x 576x320, CFG batch 2, on the meta device."""
     seen = {"flash": [], "tail": [], "frame": [], "block": []}
 
     def flash(q, k, v, scale=None):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        seen["flash"].append(tatt32.takes_tensor_cores(
-            q.shape[1], q.shape[3], tflash.f32_strides(q, k, v, out),
+        seen["flash"].append(tatt32.body(
+            q.shape[1], k.shape[1], q.shape[3], tflash.f32_strides(q, k, v, out),
             [t.storage_offset() for t in (q, k, v, out)]))
         return out
 
     def tail(x, o1, ctx_k, ctx_v, params, *, heads, **kw):
-        seen["tail"].append(ttail.f32_attention_takes_tensor_cores(
+        seen["tail"].append(ttail.f32_attention_body(
             x.shape[1], params["q2_w"].shape[0], heads, ctx_k.shape[1]))
         return torch.empty_like(x)
 
     def frame(q, k, v, *, heads, **kw):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         d = q.shape[3] // heads
-        seen["frame"].append(tatt32.takes_tensor_cores(
-            q.shape[1], d, tattn.f32_strides(1, d, q, k, v, out),
+        seen["frame"].append(tatt32.body(
+            q.shape[1], k.shape[1], d, tattn.f32_strides(1, d, q, k, v, out),
             [t.storage_offset() for t in (q, k, v, out)]))
         return out
 
     def block(x, params, *, heads, **kw):
         b, f, n, c = x.shape
-        seen["block"].append(tblock.f32_attention_takes_tensor_cores(f, n, c, heads))
+        seen["block"].append(tblock.f32_attention_body(f, n, c, heads))
         return torch.empty_like(x)
 
     def same(x, *args, **kwargs):
@@ -257,13 +330,13 @@ def float32_sites():
 
 
 def test_float32_sites_take_the_chosen_bodies(float32_sites):
-    """Per UNet call: flash 10 and the fused tail 5 on the tensor cores;
-    frame-axis attention 22 and the fused block 6 (16 frames a position) on
-    the CUDA-core rows."""
+    """Per UNet call: flash 10 and the fused tail 5 on the 64-row
+    tensor-core body; frame-axis attention 22 and the fused block 6 (16
+    frames a position) on the short-sequence body."""
     counts = {k: len(v) for k, v in float32_sites.items()}
     assert counts == {"flash": 10, "tail": 5, "frame": 22, "block": 6}
-    assert all(float32_sites["flash"]) and all(float32_sites["tail"])
-    assert not any(float32_sites["frame"]) and not any(float32_sites["block"])
+    assert set(float32_sites["flash"]) == set(float32_sites["tail"]) == {"mma"}
+    assert set(float32_sites["frame"]) == set(float32_sites["block"]) == {"frames"}
 
 
 def test_gate_sends_what_16_byte_copies_cannot_take_to_the_rows():
@@ -280,5 +353,29 @@ def test_gate_sends_what_16_byte_copies_cannot_take_to_the_rows():
     assert not tatt32.takes_tensor_cores(600, 136, [(600 * 136, 0, 136, 136)], [0])
     # the fused block's frame-axis attention at 64 frames and the tail at 20
     # tokens an image
-    assert tblock.f32_attention_takes_tensor_cores(64, 3, 384, 6)
-    assert not ttail.f32_attention_takes_tensor_cores(20, 64, 1, 16)
+    assert tblock.f32_attention_body(64, 3, 384, 6) == "mma"
+    assert ttail.f32_attention_body(20, 64, 1, 16) == "rows"
+
+
+def test_gate_sends_short_self_attention_to_the_frames_body():
+    """1 <= Sq = Sk < 64 rows with 16-byte rows, bases and D <= 128 take the
+    short-sequence body; odd strides, offsets, odd or wide heads and Sq !=
+    Sk go to the CUDA-core rows; 64 rows and more to the mma body."""
+    def fm(f, n, heads, d, row=None):  # frame-major (B, F, N, H*D) strides
+        row = heads * d if row is None else row
+        return [(f * n * row, row, n * row, d)]
+    assert tatt32.body(16, 16, 64, fm(16, 720, 10, 64), [0]) == "frames"
+    assert tatt32.body(1, 1, 64, fm(1, 7, 1, 64), [0]) == "frames"
+    assert tatt32.body(63, 63, 128, fm(63, 7, 3, 128), [0]) == "frames"
+    assert tatt32.body(24, 24, 40, fm(24, 2304, 8, 40), [0]) == "frames"
+    assert tatt32.body(64, 64, 64, fm(64, 7, 2, 64), [0]) == "mma"
+    assert tatt32.body(16, 16, 64, fm(16, 720, 10, 64, row=642), [0]) == "rows"  # odd rows
+    assert tatt32.body(16, 16, 64, fm(16, 720, 10, 64), [0, 2]) == "rows"        # an offset
+    assert tatt32.body(16, 16, 42, fm(16, 720, 10, 42), [0]) == "rows"          # odd D
+    assert tatt32.body(16, 16, 136, fm(16, 720, 2, 136), [0]) == "rows"         # D > 128
+    assert tatt32.body(16, 77, 64, fm(16, 720, 10, 64), [0]) == "rows"          # Sq != Sk
+    # the fused block: 16 and 24 frames, 64 frames, a 384-wide head
+    assert tblock.f32_attention_body(16, 2880, 320, 5) == "frames"
+    assert tblock.f32_attention_body(24, 9216, 320, 8) == "frames"
+    assert tblock.f32_attention_body(64, 3, 384, 6) == "mma"
+    assert tblock.f32_attention_body(4, 70, 384, 1) == "rows"
