@@ -49,14 +49,20 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      perturbed so every layer carries signal), their digest held to the
      JAX-derived constant first (phase 11(a)). Request A: 16 frames at
      576x320, 25 DDIM steps, CFG 7.5, PoI recording, Merkle root (held to
-     the recorded ``REQUEST_A_ROOT``); every
+     the recorded ``REQUEST_A_ROOT``), committed through the native hasher
+     (``utils.native``, the default) and through the plain hashlib loop,
+     which must give the same leaves and root (both timed); every
      kernel of the model path must have launched, as often per UNet call as
      the layers' routing says. Request B: another prompt and seed, 3 steps,
      run twice; leaves and roots must be bit-identical. The validator's
      re-execution (``verify.spotcheck.StepEngine``) of 3 revealed steps of
      Request A must reproduce them bit for bit, bind the video, and refuse a
      tampered eps leaf. Then each kernel's bound summed over one UNet call
-     and one frame's VAE decode, from the shapes its layers hand it;
+     and one frame's VAE decode, from the shapes its layers hand it; and one
+     bf16 UNet call under ``utils.profiling.trace`` and
+     ``annotate("unet_call")``, whose Chrome trace must hold the annotation
+     and each model-path kernel's device events (at least its launches in
+     the call), with ``device_memory()`` beside ``max_memory_allocated``;
   5. a network round at full width on the same pipeline
      (``network.mock.build_mock_network``): an honest, a lazy and a
      wrong-video miner generate 16 frames at 576x320, 25 steps, at once in
@@ -76,7 +82,8 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      request (24 frames at 1024x576, 50 steps, CFG 7.5, cfg_split, segments
      of 10) through ``StepEngine.generate_recorded`` with the checkpoint's
      BPE tokenizer, launches per UNet call as the routing says (flash also
-     at level 2); every distinct input one cfg_split UNet call and one
+     at level 2), its record committed natively and through hashlib (the
+     same leaves and root, both timed); every distinct input one cfg_split UNet call and one
      frame's decode hand a kernel, recorded where the layers call it and
      held against the plain version (2 bf16 ulps, the same bits on a second
      call), on those inputs and on random ones of the same shapes and
@@ -1206,7 +1213,78 @@ def check_weights(pipe, init_s: float, perturb_s: float) -> dict:
     return out
 
 
-def run_path(steps_a: int):
+def compare_commits(ts, zs, epss, what: str, smi: str) -> dict:
+    """The miner's commitment over one recorded request through the native
+    hasher (``utils.native``, the default) and through the plain hashlib
+    loop (``use_native=False``): the same leaves and root, each timed on the
+    host (the library is built before the clock starts)."""
+    from dvdx_tpu_torch.utils import native
+    from dvdx_tpu_torch.verify.merkle import MerkleCommitment
+
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = MerkleCommitment(ts, zs, epss)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = MerkleCommitment(ts, zs, epss, use_native=False)
+    hashlib_s = time.perf_counter() - t0
+    nbytes = 2 * len(ts) + native.host_array(zs).nbytes + native.host_array(epss).nbytes
+    out = {"leaves": len(ts), "bytes_hashed": nbytes, "native_s": native_s,
+           "hashlib_s": hashlib_s, "build_or_load_s": build_s, "root": fast.root.hex(),
+           "hashlib_root": plain.root.hex(), "device": smi}
+    log(f"{what} commit ({smi}): native {native_s:.4f} s, hashlib {hashlib_s:.4f} s over "
+        f"{nbytes} bytes in {len(ts)} leaves (library built or loaded in {build_s:.2f} s); "
+        f"roots {out['root']} / {out['hashlib_root']}")
+    _require(fast.leaves == plain.leaves and fast.root == plain.root,
+             f"{what}: the native commitment against the hashlib one", out)
+    return out
+
+
+def trace_unet_call(call, smi: str) -> dict:
+    """One bf16 UNet call of Request A under ``utils.profiling.trace`` and
+    ``annotate("unet_call")``: the Chrome trace file must exist, hold the
+    annotation, and hold at least as many device events of each model-path
+    kernel (grouped by ``utils.profile_step.group_of``) as its launch counter
+    counted in the call, which must be ``EXPECTED_PER_UNET_CALL``'s;
+    ``device_memory()`` beside ``torch.cuda.max_memory_allocated()``."""
+    from dvdx_tpu_torch.utils.profile_step import group_of
+    from dvdx_tpu_torch.utils.profiling import annotate, device_memory, trace
+
+    log_dir = os.path.join(REPO_DIR, "build", "unet_call_trace")
+    reset_counts()
+    with trace(log_dir) as path:
+        with annotate("unet_call"):
+            call()
+    counts = read_counts()
+    events = json.load(open(path))["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            g = group_of(e.get("name", ""))
+            kernels[g] = kernels.get(g, 0) + 1
+    marks = [e.get("cat") for e in events if e.get("name") == "unet_call"]
+    mem = device_memory()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"trace_bytes": os.path.getsize(path), "annotation": marks,
+           "launches": {k: counts[k] for k in MODEL_PATH},
+           "device_events": kernels, "device_memory": mem,
+           "max_memory_allocated_mb": peak / 2**20}
+    log(f"traced UNet call ({smi}): {path} ({out['trace_bytes']} bytes), annotation "
+        f"{marks}; launches {json.dumps(out['launches'])}; device events by group "
+        f"{json.dumps(kernels)}; device_memory {json.dumps(mem)}, "
+        f"max_memory_allocated {peak / 2**20:.1f} MB")
+    missing = [k for k in MODEL_PATH
+               if counts[k] != EXPECTED_PER_UNET_CALL[k] or kernels.get(k, 0) < counts[k]]
+    _require("user_annotation" in marks and not missing,
+             f"traced UNet call: the annotation and each kernel's device events {missing}", out)
+    _require(mem["peak_mb"] == peak / 2**20 and 0 < mem["in_use_mb"] <= mem["peak_mb"]
+             < mem["limit_mb"], "traced UNet call: device_memory", out)
+    return out
+
+
+def run_path(steps_a: int, smi: str):
     from dvdx_tpu_torch.ops import rng
     from dvdx_tpu_torch.ops.scheduler import make_ddim_schedule
     from dvdx_tpu_torch.pipelines.text2video import (build_pipeline, encode_prompts,
@@ -1240,6 +1318,7 @@ def run_path(steps_a: int):
     log(f"request A: video {tuple(video.shape)} {video.dtype}, {steps_a} steps, "
         f"{sec_a:.2f} s/request, peak memory {peak / 2**30:.2f} GiB, "
         f"merkle root {root_a} over {len(ts)} leaves")
+    commit = compare_commits(ts, zs, epss, "request A", smi)
     log(f"request A launches: {json.dumps(launches)}")
     if video.shape != (16, 320, 576, 3) or video.dtype != np.uint8:
         raise AssertionError(f"request A: bad video {video.shape} {video.dtype}")
@@ -1303,6 +1382,7 @@ def run_path(steps_a: int):
     vae_bounds = launch_bounds(pipe.vae_decoder, decode_one_frame)
     log(f"path: bound per UNet call {json.dumps(unet_bounds)}")
     log(f"path: bound per frame's VAE decode {json.dumps(vae_bounds)}")
+    traced = trace_unet_call(lambda: unet_pair_call(pipe.unet, z, hidden, t), smi)
     return pipe, launches, dict(seconds_per_request=sec_a, steps=steps_a,
                           peak_bytes=peak, root=root_a,
                           video_sha256=hashlib.sha256(video.tobytes()).hexdigest(),
@@ -1310,7 +1390,8 @@ def run_path(steps_a: int):
                           launches_request_b=launches_b,
                           launches_per_unet_call=per_step, reexecution=reexec,
                           bound_per_unet_call=unet_bounds,
-                          bound_per_vae_frame=vae_bounds, weights=weights)
+                          bound_per_vae_frame=vae_bounds, weights=weights,
+                          commit=commit, traced_unet_call=traced)
 
 
 def check_reexecution(pipe, prompt, seed, video, zs, epss, ts, root_hex):
@@ -2420,7 +2501,7 @@ def write_full_checkpoint(root: str) -> dict:
     return {"checkpoint_bytes": nbytes, "checkpoint_write_s": time.perf_counter() - t0}
 
 
-def run_xl(root: str, written: dict):
+def run_xl(root: str, written: dict, smi: str):
     """Phase 7: zeroscope-v2-xl from the full-scale synthetic checkpoint at
     ``root`` (``written``: its bytes and write seconds), deleted once loaded:
     the XL PoI request, the CLI's segmented runner on the same inputs (the
@@ -2467,6 +2548,7 @@ def run_xl(root: str, written: dict):
     sec = time.perf_counter() - t0
     launches = read_counts()
     root_hex = MerkleCommitment(ts, zs, epss).root.hex()
+    out["commit"] = compare_commits(ts, zs, epss, "xl", smi)
     calls = 2 * XL["num_steps"]
     per_call = {k: launches[k] / calls for k in MODEL_PATH}
     per_call["group_norm_act"] = (launches["group_norm_act"]
@@ -3785,6 +3867,7 @@ def main():
                                                for x in lines[i:i + 4]))
 
     summary, rows = check_kernels(only)
+    marks = [("start", t_start), ("1-2 build, kernel checks", time.perf_counter())]
     if only is not None:
         log(f"chip_smoke --kernels: {len(rows)} cases passed in "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -3795,28 +3878,37 @@ def main():
     t0 = time.perf_counter()
     check_against_cpu()
     log(f"reference check: {time.perf_counter() - t0:.1f} s")
-    pipe, launches, path = run_path(steps_a=25)
+    marks.append(("3 reference check", time.perf_counter()))
+    pipe, launches, path = run_path(steps_a=25, smi=smi)
+    marks.append(("4 path", time.perf_counter()))
     log(f"request A: root {path['root']} (the recorded {REQUEST_A_ROOT}...: "
         f"{'same' if path['root'].startswith(REQUEST_A_ROOT) else 'MOVED'})")
     _require(path["root"].startswith(REQUEST_A_ROOT), "request A's Merkle root",
              {"root": path["root"], "recorded": REQUEST_A_ROOT})
     try:  # the cache file (3.35 GB) goes whatever fails once it is written
         path["sharded_and_cache"] = run_sharded_and_cache(pipe, smi)
+        marks.append(("12 sharded GroupNorm, cache", time.perf_counter()))
         path["network_round"] = run_network_round(pipe)
+        marks.append(("5 network round", time.perf_counter()))
         torch.cuda.empty_cache()
         path["services"] = run_services(pipe, smi, CACHE_DIR)
+        marks.append(("8 services", time.perf_counter()))
     finally:
         import shutil
 
         shutil.rmtree(CACHE_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     path["strategies"] = run_strategies(pipe, path["video_sha256"])
+    marks.append(("10 strategies", time.perf_counter()))
     path["params_ckpt"] = run_params_ckpt(smi)
+    marks.append(("11(c) params ckpt", time.perf_counter()))
     del pipe
     torch.cuda.empty_cache()
     path["cross_device_round"] = run_cross_device_round()
+    marks.append(("6 cross-device round", time.perf_counter()))
     # phases 13 and 7 load one checkpoint; phase 7 deletes it once loaded
     written = write_full_checkpoint(FULL_CKPT)
+    marks.append(("7 checkpoint write", time.perf_counter()))
     try:
         path["float32"] = run_float32(FULL_CKPT, smi)
     except BaseException:
@@ -3824,8 +3916,13 @@ def main():
 
         shutil.rmtree(FULL_CKPT, ignore_errors=True)
         raise
-    path["xl"] = run_xl(FULL_CKPT, written)
+    marks.append(("13 float32", time.perf_counter()))
+    path["xl"] = run_xl(FULL_CKPT, written, smi)
+    marks.append(("7 xl", time.perf_counter()))
     path["families"] = run_families(smi)
+    marks.append(("9 families", time.perf_counter()))
+    path["phase_seconds"] = {name: round(t - marks[i][1], 1)
+                             for i, (name, t) in enumerate(marks[1:])}
     with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
         json.dump({"device": smi, "launches": launches, **path}, f, indent=1, default=str)
 
@@ -3912,6 +4009,7 @@ def main():
         f"{json.dumps(path['services']['startup_s'])}; (c) two gloo ranks: launches "
         f"{json.dumps(p12['gloo_ranks']['launches_per_rank'])}, bitwise with (a) "
         f"{p12['gloo_ranks']['bitwise_vs_in_process_split']}")
+    log(f"chip_smoke: seconds per phase {json.dumps(path['phase_seconds'])}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # again near the end: the start of a long output may be cut off
     log(json.dumps({"kernels": kernels}))

@@ -35,8 +35,9 @@ OUT = os.path.join("chiprun_out", "profile_step.json")
 # the fused kernels (geglu_stage<spatial_tail_ff, ...>, geglu_stage<
 # temporal_block_ff, ...>) land in their fused kernel's group beside its
 # chain (spatial_tail_chain, temporal_block_chain<C>), geglu_ff's own
-# (geglu_stage<geglu_ff_site, ...>) in geglu_ff's; GroupNorm is one kernel,
-# gn_fused (a bare "gn_" would also match ATen's sign_ and assign_ kernels);
+# (geglu_stage<geglu_ff_site, ...>) in geglu_ff's; GroupNorm is gn_fused on
+# one device and the frame-sharded entries' gn_moments / gn_apply (a bare
+# "gn_" would also match ATen's sign_ and assign_ kernels);
 # the float32 kernels carry their caller's name in their template arguments
 # (f32_gemm<spatial_tail_f32, ...>, attention_f32_frames<temporal_block_f32,
 # ...>, f32_gemm<geglu_ff_site, ...>), so the fused kernels' float32 forms
@@ -50,7 +51,7 @@ GROUPS = (
     ("temporal_attention", ("temporal_attn",)),
     ("attention_f32", ("attention_f32",)),
     ("geglu_ff", ("geglu_ff_", "geglu_stage")),
-    ("group_norm_act", ("gn_fused",)),
+    ("group_norm_act", ("gn_fused", "gn_moments", "gn_apply")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )

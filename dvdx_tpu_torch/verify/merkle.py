@@ -6,6 +6,11 @@ parents hash the sorted pair, odd nodes are duplicated. z and eps are
 hashed as little-endian bfloat16 in channel-last (1, F, h, w, C) order, the
 bytes the reference hashes, so a validator holding either implementation
 recomputes the same root.
+
+A commitment hashes its leaves with the native SHA-256
+(``utils/native.py``, ``csrc/merkle.cpp``) unless ``use_native=False``
+asks for the hashlib loop of ``leaf_hash``, the plain version it is held
+against; the tree levels are built here, since the proofs need them.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import hashlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
-import torch
+
+from ..utils.native import host_array, sha256_leaves
 
 HASH_BYTES = 32
 
@@ -22,12 +28,7 @@ HASH_BYTES = 32
 def array_bytes(x) -> bytes:
     """Raw little-endian bytes of a torch tensor or numpy array, in its
     logical (row-major) order; bfloat16 tensors by their 16-bit patterns."""
-    if isinstance(x, torch.Tensor):
-        t = x.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        return t.numpy().tobytes()
-    return np.ascontiguousarray(x).tobytes()
+    return host_array(x).tobytes()
 
 
 def leaf_bytes(timestep: int, z, eps) -> bytes:
@@ -82,16 +83,21 @@ def verify_merkle_proof(leaf: bytes, path: Sequence[Tuple[bytes, bool]],
 
 class MerkleCommitment:
     """Commitment over a recorded denoise trace: timesteps (N,), zs and epss
-    (N, ...) as ``pipelines.text2video.generate(record=True)`` returns them."""
+    (N, ...) as ``pipelines.text2video.generate(record=True)`` returns them.
+    Leaves from the native hasher, or with ``use_native=False`` from the
+    hashlib loop (the same bytes)."""
 
-    def __init__(self, timesteps, zs, epss):
+    def __init__(self, timesteps, zs, epss, use_native: bool = True):
         if not len(timesteps) == len(zs) == len(epss):
             raise ValueError("timesteps, zs and epss differ in length")
         self.timesteps = np.asarray(timesteps)
         self.zs = zs
         self.epss = epss
-        self.leaves = [leaf_hash(int(t), zs[i], epss[i])
-                       for i, t in enumerate(self.timesteps)]
+        if use_native:
+            self.leaves = sha256_leaves(self.timesteps, zs, epss)
+        else:
+            self.leaves = [leaf_hash(int(t), zs[i], epss[i])
+                           for i, t in enumerate(self.timesteps)]
         self.levels = build_merkle_tree(self.leaves)
 
     @property

@@ -94,7 +94,8 @@ def test_kernel_sources_ship(source):
     "parallel.latent_chunking", "parallel.mesh", "parallel.sharding",
     "parallel.strategies", "parallel.runner", "parallel.coordinator",
     "parallel.worker", "ops.ring_attention", "ops.attention", "ops.groupnorm",
-    "scoring.temporal", "verify.spotcheck"])
+    "scoring.temporal", "verify.spotcheck", "utils.native", "utils.profiling",
+    "utils.config", "utils.logging", "utils.plots", "verify.merkle"])
 def test_network_and_scoring_modules_import_without_jax(module):
     proc = _run("import sys\n"
                 "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'dvdx_tpu'):\n"

@@ -2,8 +2,10 @@
 (``dvdx_tpu_torch.utils.profile_step.group_of``), on kernel names as the
 profiler reports them on the card: each of the port's kernels lands in its
 own group, the GEGLU products of the fused kernels in their fused kernel's
-group beside its chain, the one GroupNorm kernel in GroupNorm's (and no ATen
-kernel whose name merely contains "gn_"), and library kernels in theirs."""
+group beside its chain, GroupNorm's kernels (the one-device kernel and the
+frame-sharded entries' moments-out and moments-in) in GroupNorm's (and no
+ATen kernel whose name merely contains "gn_"), and library kernels in
+theirs."""
 
 import pytest
 
@@ -28,6 +30,13 @@ from dvdx_tpu_torch.utils.profile_step import group_of
     ("void (anonymous namespace)::flash_fwd_tma<64>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, __nv_bfloat16*, int, int, int, int)", "flash_attention"),
     ("(anonymous namespace)::gn_fused((anonymous namespace)::GnArgs)", "group_norm_act"),
+    ("void (anonymous namespace)::gn_moments<__nv_bfloat16>(__nv_bfloat16 const*, double*, "
+     "double*, int, int, int, int, int, int)", "group_norm_act"),
+    ("void (anonymous namespace)::gn_apply<float>(float const*, float const*, float const*, "
+     "float const*, float const*, float*, int, int, int, int, int, int, float, int)",
+     "group_norm_act"),
+    ("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float, float>"
+     "(long, float, float const*, float*, float*)", "other"),
     ("void (anonymous namespace)::temporal_block_chain<320>((anonymous namespace)::ChainMaps, "
      "(anonymous namespace)::ChainVecs, __nv_bfloat16 const*, __nv_bfloat16*, __nv_bfloat16*, "
      "(anonymous namespace)::ChainShape)", "fused_temporal_block"),
