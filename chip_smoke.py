@@ -60,7 +60,7 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      tampered eps leaf. Then each kernel's bound summed over one UNet call
      and one frame's VAE decode, from the shapes its layers hand it; and one
      bf16 UNet call under ``utils.profiling.trace`` and
-     ``annotate("unet_call")``, whose Chrome trace must hold the annotation
+     ``span("unet_call")``, whose Chrome trace must hold the annotation
      and each model-path kernel's device events (at least its launches in
      the call), with ``device_memory()`` beside ``max_memory_allocated``;
   5. a network round at full width on the same pipeline
@@ -1244,18 +1244,18 @@ def compare_commits(ts, zs, epss, what: str, smi: str) -> dict:
 
 def trace_unet_call(call, smi: str) -> dict:
     """One bf16 UNet call of Request A under ``utils.profiling.trace`` and
-    ``annotate("unet_call")``: the Chrome trace file must exist, hold the
+    ``span("unet_call")``: the Chrome trace file must exist, hold the
     annotation, and hold at least as many device events of each model-path
     kernel (grouped by ``utils.profile_step.group_of``) as its launch counter
     counted in the call, which must be ``EXPECTED_PER_UNET_CALL``'s;
     ``device_memory()`` beside ``torch.cuda.max_memory_allocated()``."""
     from dvdx_tpu_torch.utils.profile_step import group_of
-    from dvdx_tpu_torch.utils.profiling import annotate, device_memory, trace
+    from dvdx_tpu_torch.utils.profiling import device_memory, span, trace
 
     log_dir = os.path.join(REPO_DIR, "build", "unet_call_trace")
     reset_counts()
     with trace(log_dir) as path:
-        with annotate("unet_call"):
+        with span("unet_call"):
             call()
     counts = read_counts()
     events = json.load(open(path))["traceEvents"]

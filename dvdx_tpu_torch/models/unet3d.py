@@ -24,6 +24,7 @@ from .layers import (Conv, Downsample2D, GroupNorm, ResnetBlock2D,
                      SpatialTransformer, TemporalAttention, TemporalConvBlock,
                      TimeEmbedding, TransformerTemporal, Upsample2D,
                      timestep_embedding)
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +152,8 @@ class UNet3D(nn.Module):
                 self.add_module(f"up_{level}_upsample", Upsample2D(cur))
         self.conv_norm_out = GroupNorm(ch0, cfg.norm_groups, cfg.norm_eps,
                                        act="silu")
+        self._down_spans = tuple(f"unet.down{level}" for level in range(levels))
+        self._up_spans = tuple(f"unet.up{level}" for level in range(levels))
         self.conv_out_zero = Conv(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
@@ -168,23 +171,26 @@ class UNet3D(nn.Module):
         x = self.transformer_in(x, frame_positions)
         skips = [x]
         for level in range(levels):
-            for blk in range(cfg.layers_per_block):
-                x = getattr(self, f"down_{level}_{blk}")(x, temb_pf, context_pf,
-                                                         frame_positions)
-                skips.append(x)
-            if level < levels - 1:
-                x = getattr(self, f"down_{level}_downsample")(
-                    x.flatten(0, 1)).unflatten(0, (b, f))
-                skips.append(x)
-        x = self.mid_0(x, temb_pf, context_pf, frame_positions)
-        x = self.mid_1(x, temb_pf, context_pf, frame_positions)
+            with span(self._down_spans[level]):
+                for blk in range(cfg.layers_per_block):
+                    x = getattr(self, f"down_{level}_{blk}")(x, temb_pf, context_pf,
+                                                             frame_positions)
+                    skips.append(x)
+                if level < levels - 1:
+                    x = getattr(self, f"down_{level}_downsample")(
+                        x.flatten(0, 1)).unflatten(0, (b, f))
+                    skips.append(x)
+        with span("unet.mid"):
+            x = self.mid_0(x, temb_pf, context_pf, frame_positions)
+            x = self.mid_1(x, temb_pf, context_pf, frame_positions)
         for level in reversed(range(levels)):
-            for blk in range(cfg.layers_per_block + 1):
-                x = torch.cat([x, skips.pop()], dim=-1)
-                x = getattr(self, f"up_{level}_{blk}")(x, temb_pf, context_pf,
-                                                       frame_positions)
-            if level > 0:
-                x = getattr(self, f"up_{level}_upsample")(
-                    x.flatten(0, 1)).unflatten(0, (b, f))
+            with span(self._up_spans[level]):
+                for blk in range(cfg.layers_per_block + 1):
+                    x = torch.cat([x, skips.pop()], dim=-1)
+                    x = getattr(self, f"up_{level}_{blk}")(x, temb_pf, context_pf,
+                                                           frame_positions)
+                if level > 0:
+                    x = getattr(self, f"up_{level}_upsample")(
+                        x.flatten(0, 1)).unflatten(0, (b, f))
         xs = self.conv_out_zero(self.conv_norm_out(x.flatten(0, 1)))
         return xs.unflatten(0, (b, f)).to(latents.dtype)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..pipelines.text2video import Pipeline
+from ..utils.profiling import span
 from ..utils.video_io import encode_mp4
 from ..verify.merkle import MerkleCommitment
 from ..verify.proof import Keypair, sign_proof, verify_signature
@@ -118,26 +119,26 @@ class Miner(Neuron):
 
     def handle_inference(self, req: P.InferenceRequest) -> P.InferenceResponse:
         self.metrics["requests"] += 1
-        rejected = self._caller_rejected(req)
-        if rejected:
-            self.metrics["errors"] += 1
-            return P.InferenceResponse(request_id=req.request_id, status="error",
-                                       error=rejected)
-        if req.request_id in self._served_ids:
-            self.metrics["errors"] += 1
-            return P.InferenceResponse(request_id=req.request_id, status="error",
-                                       error="replayed request_id")
-        self._served_ids[req.request_id] = True
-        while len(self._served_ids) > 4096:
-            self._served_ids.popitem(last=False)
-        try:
-            return self._generate_with_proof(req)
-        except Exception as e:  # an error reply, not a dead miner
-            self.metrics["errors"] += 1
-            return P.InferenceResponse(request_id=req.request_id, status="error",
-                                       error=f"{type(e).__name__}: {e}",
-                                       miner_pubkey=self.pubkey,
-                                       challenge=req.challenge, seed=req.seed)
+        with span("miner.request"):
+            with span("miner.verify_request"):
+                rejected = self._caller_rejected(req)
+                if not rejected and req.request_id in self._served_ids:
+                    rejected = "replayed request_id"
+            if rejected:
+                self.metrics["errors"] += 1
+                return P.InferenceResponse(request_id=req.request_id, status="error",
+                                           error=rejected)
+            self._served_ids[req.request_id] = True
+            while len(self._served_ids) > 4096:
+                self._served_ids.popitem(last=False)
+            try:
+                return self._generate_with_proof(req)
+            except Exception as e:  # an error reply, not a dead miner
+                self.metrics["errors"] += 1
+                return P.InferenceResponse(request_id=req.request_id, status="error",
+                                           error=f"{type(e).__name__}: {e}",
+                                           miner_pubkey=self.pubkey,
+                                           challenge=req.challenge, seed=req.seed)
 
     def _generate_with_proof(self, req: P.InferenceRequest) -> P.InferenceResponse:
         cfg = self.config
@@ -145,25 +146,26 @@ class Miner(Neuron):
                 or req.height > cfg.max_height or req.width > cfg.max_width):
             raise ValueError("request exceeds miner limits")
 
-        t0 = time.time()
+        timings: dict = {}
         gen_phases: dict = {}
-        video, zs, epss, timesteps = self.engine.generate_recorded(
-            req.prompt, negative_prompt=req.negative_prompt, seed=req.seed,
-            num_frames=req.num_frames, height=req.height, width=req.width,
-            num_steps=req.num_steps, guidance_scale=req.guidance_scale,
-            cfg_split=req.cfg_split, timings=gen_phases)
-        gen_s = time.time() - t0
-        self.metrics["total_gen_s"] += gen_s
+        with span("generate", timings) as gen:
+            video, zs, epss, timesteps = self.engine.generate_recorded(
+                req.prompt, negative_prompt=req.negative_prompt, seed=req.seed,
+                num_frames=req.num_frames, height=req.height, width=req.width,
+                num_steps=req.num_steps, guidance_scale=req.guidance_scale,
+                cfg_split=req.cfg_split, timings=gen_phases)
+        self.metrics["total_gen_s"] += gen.seconds
+        timings.update({f"gen_{k}": v for k, v in gen_phases.items()})
 
-        t1 = time.perf_counter()
-        commitment = MerkleCommitment(timesteps, zs, epss)
-        self._store_proof(req.request_id, commitment)
-        commit_s = time.perf_counter() - t1
+        with span("merkle_commit", timings):
+            commitment = MerkleCommitment(timesteps, zs, epss)
+            self._store_proof(req.request_id, commitment)
 
-        t1 = time.perf_counter()
-        mp4 = encode_mp4(video, fps=req.fps or cfg.fps_default)
-        encode_s = time.perf_counter() - t1
-        signature = sign_proof(self.keypair, req.challenge, req.seed, mp4, commitment.root)
+        with span("encode_mp4", timings):
+            mp4 = encode_mp4(video, fps=req.fps or cfg.fps_default)
+        with span("sign_proof"):
+            signature = sign_proof(self.keypair, req.challenge, req.seed, mp4,
+                                   commitment.root)
 
         return P.InferenceResponse(
             request_id=req.request_id, video=mp4,
@@ -175,11 +177,7 @@ class Miner(Neuron):
             latent_dtype=str(zs.dtype).removeprefix("torch."),
             num_chunks=(self.engine.chunk_plan(req.num_frames).num_chunks
                         if self.engine.chunked else 0),
-            platform=self.platform_tag, gen_time_s=gen_s,
-            timings={"generate": round(gen_s, 4),
-                     **{f"gen_{k}": v for k, v in gen_phases.items()},
-                     "merkle_commit": round(commit_s, 4),
-                     "encode_mp4": round(encode_s, 4)})
+            platform=self.platform_tag, gen_time_s=gen.seconds, timings=timings)
 
     # -- the proof store --
 
@@ -195,11 +193,12 @@ class Miner(Neuron):
             self._proofs.popitem(last=False)
         path = self._spool_path(request_id)
         if path:
-            os.makedirs(self.config.spool_dir, exist_ok=True)
-            np.savez(path, timesteps=commitment.timesteps,
-                     zs=_u16(commitment.zs), epss=_u16(commitment.epss),
-                     dtype="bfloat16")
-            self._prune_spool()
+            with span("proof_spool"):
+                os.makedirs(self.config.spool_dir, exist_ok=True)
+                np.savez(path, timesteps=commitment.timesteps,
+                         zs=_u16(commitment.zs), epss=_u16(commitment.epss),
+                         dtype="bfloat16")
+                self._prune_spool()
 
     def _prune_spool(self):
         files = sorted(glob.glob(os.path.join(self.config.spool_dir, "trace_*.npz")),
@@ -225,30 +224,33 @@ class Miner(Neuron):
 
     def handle_reveal(self, req: P.RevealRequest) -> P.RevealResponse:
         self.metrics["reveals"] += 1
-        rejected = self._caller_rejected(req)
-        if rejected:
-            self.metrics["errors"] += 1
-            return P.RevealResponse(request_id=req.request_id, status="error",
-                                    error=rejected)
-        com = self._load_proof(req.request_id)
-        if com is None:
-            return P.RevealResponse(request_id=req.request_id, status="error",
-                                    error="unknown request")
-        if com.root != req.merkle_root:
-            return P.RevealResponse(request_id=req.request_id, status="error",
-                                    error="root mismatch")
-        indices = sorted({int(i) for i in req.leaf_indices})
-        if len(indices) > self.config.max_reveal_indices:
-            return P.RevealResponse(request_id=req.request_id, status="error",
-                                    error="too many indices")
-        leaves = []
-        for idx in indices:
-            if not 0 <= idx < len(com.leaves):
+        with span("miner.reveal"):
+            rejected = self._caller_rejected(req)
+            if rejected:
+                self.metrics["errors"] += 1
                 return P.RevealResponse(request_id=req.request_id, status="error",
-                                        error=f"bad index {idx}")
-            t, zb, eb, path = com.open(idx)
-            leaves.append((idx, t, zb, eb, [(h, bool(r)) for h, r in path]))
-        return P.RevealResponse(request_id=req.request_id, leaves=leaves)
+                                        error=rejected)
+            with span("proof_load"):
+                com = self._load_proof(req.request_id)
+            if com is None:
+                return P.RevealResponse(request_id=req.request_id, status="error",
+                                        error="unknown request")
+            if com.root != req.merkle_root:
+                return P.RevealResponse(request_id=req.request_id, status="error",
+                                        error="root mismatch")
+            indices = sorted({int(i) for i in req.leaf_indices})
+            if len(indices) > self.config.max_reveal_indices:
+                return P.RevealResponse(request_id=req.request_id, status="error",
+                                        error="too many indices")
+            leaves = []
+            with span("merkle_paths"):
+                for idx in indices:
+                    if not 0 <= idx < len(com.leaves):
+                        return P.RevealResponse(request_id=req.request_id, status="error",
+                                                error=f"bad index {idx}")
+                    t, zb, eb, path = com.open(idx)
+                    leaves.append((idx, t, zb, eb, [(h, bool(r)) for h, r in path]))
+            return P.RevealResponse(request_id=req.request_id, leaves=leaves)
 
 
 def _u16(t: torch.Tensor) -> np.ndarray:

@@ -47,6 +47,7 @@ from ..ops.scheduler import make_ddim_schedule
 from ..pipelines.text2video import Pipeline
 from ..scoring.clip_score import CLIPScorer
 from ..scoring.mdvqs import MDVQS, verify_video_authenticity
+from ..utils.profiling import span
 from ..utils.video_io import decode_video
 from ..verify.merkle import leaf_hash, verify_merkle_proof
 from ..verify.proof import (Keypair, derive_seed, sample_spotcheck_indices,
@@ -366,113 +367,121 @@ class Validator(Neuron):
     def _account(self, info) -> str:
         return f"miner-{info.uid}" if info else "miner-?"
 
-    @staticmethod
-    def _mark(d: dict, name: str, t0: float) -> float:
-        """Add the seconds since t0 to d['timings_s'][name]; a fresh t0."""
-        d["timings_s"][name] = round(
-            d["timings_s"].get(name, 0.0) + (time.perf_counter() - t0), 4)
-        return time.perf_counter()
-
     # -- response verification --
 
     async def verify_response(self, uid: int, req: P.InferenceRequest,
                               resp: P.InferenceResponse) -> dict:
-        cfg = self.config
-        d: dict = {"score": 0.0, "checks": {}, "timings_s": {}}
-        if resp.status == "ok":
+        async with span("validator.verify"):
+            cfg = self.config
+            d: dict = {"score": 0.0, "checks": {}, "timings_s": {}}
+            if resp.status == "ok":
+                d["gen_time_s"] = resp.gen_time_s
+                d["video_bytes"] = len(resp.video) if resp.video else 0
+
+            def fail(name, cheat=False, **extra):
+                d["checks"][name] = False
+                d["failed_check"] = name
+                d["cheat"] = cheat
+                d.update(extra)
+                self.metrics["failures"] += 1
+                return d
+
+            if resp.status != "ok":
+                return fail("status", error=resp.error)
+
+            # 1. echo integrity
+            if resp.challenge != req.challenge or int(resp.seed) != int(req.seed):
+                return fail("echo", cheat=True)
+            if int(resp.num_steps) != int(req.num_steps):
+                return fail("num_steps", cheat=True)
+            d["checks"]["echo"] = True
+
+            # 2. the miner's identity is its registry entry's
+            info = self.registry.get(uid)
+            if info is None or resp.miner_pubkey != info.pubkey:
+                return fail("identity", cheat=True)
+            d["checks"]["identity"] = True
+
+            # 3. the committed timesteps are the canonical schedule
+            expected_ts = make_ddim_schedule(req.num_steps).timesteps
+            if list(map(int, resp.timesteps)) != [int(t) for t in expected_ts]:
+                return fail("timesteps", cheat=True)
+            d["checks"]["timesteps"] = True
+
+            # 4. video digest and the proof signature
+            if hashlib.sha256(resp.video).digest() != resp.video_sha256:
+                return fail("video_digest", cheat=True)
+            if not verify_proof_signature(resp.miner_pubkey, req.challenge, req.seed,
+                                          resp.video, resp.merkle_root, resp.signature):
+                return fail("signature", cheat=True)
+            d["checks"]["signature"] = True
+            d["merkle_root"] = resp.merkle_root.hex()
+            d["signature"] = resp.signature.hex()
+
+            # 5. decode and authenticity; the decoded frames go to the device
+            # once, for the authenticity reductions and MD-VQS alike
+            timings = d["timings_s"]
+            try:
+                with span("video_decode", timings, accumulate=True):
+                    frames = decode_video(resp.video)
+            except Exception as e:
+                return fail("video_decode", error=str(e))
+            with span("authenticity", timings, accumulate=True):
+                with span("wait.frames_upload"):
+                    frames_dev = torch.from_numpy(frames).to(self.pipeline.device)
+                auth = verify_video_authenticity(frames_dev, min_entropy=cfg.auth_min_entropy,
+                                                 min_diff=cfg.auth_min_frame_diff,
+                                                 host_frames=frames)
+            d["authenticity"] = auth
+            if not auth["authentic"]:
+                return fail("authenticity", cheat=True)
+            d["checks"]["authenticity"] = True
+
+            # 6. commit-then-reveal spot check with re-execution
+            do_audit, draw = self._audit_decision()
+            d["audited"] = do_audit
+            d["audit_draw"] = draw
+            if do_audit and not await self._spot_check(uid, req, resp, d, frames):
+                return d  # _spot_check recorded the failure
+
+            # 7. quality score
+            with span("mdvqs_score", timings, accumulate=True):
+                q = self.scorer.score(frames, req.prompt, auth=auth, frames_dev=frames_dev)
+            d["mdvqs"] = q
+            d["score"] = q["score"] * float(self.registry.get(uid).trust)
+            d["frames_shape"] = list(frames.shape)
+            d["video_bytes"] = len(resp.video)
             d["gen_time_s"] = resp.gen_time_s
-            d["video_bytes"] = len(resp.video) if resp.video else 0
-
-        def fail(name, cheat=False, **extra):
-            d["checks"][name] = False
-            d["failed_check"] = name
-            d["cheat"] = cheat
-            d.update(extra)
-            self.metrics["failures"] += 1
+            if resp.timings:  # advisory, untrusted
+                d["miner_timings_s"] = {str(k): float(v) for k, v in resp.timings.items()}
             return d
-
-        if resp.status != "ok":
-            return fail("status", error=resp.error)
-
-        # 1. echo integrity
-        if resp.challenge != req.challenge or int(resp.seed) != int(req.seed):
-            return fail("echo", cheat=True)
-        if int(resp.num_steps) != int(req.num_steps):
-            return fail("num_steps", cheat=True)
-        d["checks"]["echo"] = True
-
-        # 2. the miner's identity is its registry entry's
-        info = self.registry.get(uid)
-        if info is None or resp.miner_pubkey != info.pubkey:
-            return fail("identity", cheat=True)
-        d["checks"]["identity"] = True
-
-        # 3. the committed timesteps are the canonical schedule
-        expected_ts = make_ddim_schedule(req.num_steps).timesteps
-        if list(map(int, resp.timesteps)) != [int(t) for t in expected_ts]:
-            return fail("timesteps", cheat=True)
-        d["checks"]["timesteps"] = True
-
-        # 4. video digest and the proof signature
-        if hashlib.sha256(resp.video).digest() != resp.video_sha256:
-            return fail("video_digest", cheat=True)
-        if not verify_proof_signature(resp.miner_pubkey, req.challenge, req.seed,
-                                      resp.video, resp.merkle_root, resp.signature):
-            return fail("signature", cheat=True)
-        d["checks"]["signature"] = True
-        d["merkle_root"] = resp.merkle_root.hex()
-        d["signature"] = resp.signature.hex()
-
-        # 5. decode and authenticity; the decoded frames go to the device
-        # once, for the authenticity reductions and MD-VQS alike
-        t0 = time.perf_counter()
-        try:
-            frames = decode_video(resp.video)
-        except Exception as e:
-            return fail("video_decode", error=str(e))
-        t0 = self._mark(d, "video_decode", t0)
-        frames_dev = torch.from_numpy(frames).to(self.pipeline.device)
-        auth = verify_video_authenticity(frames_dev, min_entropy=cfg.auth_min_entropy,
-                                         min_diff=cfg.auth_min_frame_diff,
-                                         host_frames=frames)
-        self._mark(d, "authenticity", t0)
-        d["authenticity"] = auth
-        if not auth["authentic"]:
-            return fail("authenticity", cheat=True)
-        d["checks"]["authenticity"] = True
-
-        # 6. commit-then-reveal spot check with re-execution
-        do_audit, draw = self._audit_decision()
-        d["audited"] = do_audit
-        d["audit_draw"] = draw
-        if do_audit and not await self._spot_check(uid, req, resp, d, frames):
-            return d  # _spot_check recorded the failure
-
-        # 7. quality score
-        t0 = time.perf_counter()
-        q = self.scorer.score(frames, req.prompt, auth=auth, frames_dev=frames_dev)
-        self._mark(d, "mdvqs_score", t0)
-        d["mdvqs"] = q
-        d["score"] = q["score"] * float(self.registry.get(uid).trust)
-        d["frames_shape"] = list(frames.shape)
-        d["video_bytes"] = len(resp.video)
-        d["gen_time_s"] = resp.gen_time_s
-        if resp.timings:  # advisory, untrusted
-            d["miner_timings_s"] = {str(k): float(v) for k, v in resp.timings.items()}
-        return d
 
     async def _spot_check(self, uid: int, req: P.InferenceRequest,
                           resp: P.InferenceResponse, d: dict, frames=None) -> bool:
+        """The deep audit of one response; False where it failed (``d``
+        records the failure)."""
+        async with span("audit"):
+            try:
+                await self._audit(uid, req, resp, d, frames)
+            except _Refused:
+                return False
+            return True
+
+    async def _audit(self, uid: int, req: P.InferenceRequest,
+                     resp: P.InferenceResponse, d: dict, frames) -> None:
+        """``_spot_check``'s body: raises ``_Refused`` at the first failure.
+        A phase that fails records no seconds in ``d["timings_s"]``."""
         cfg = self.config
 
-        def fail(name, cheat=True, **extra):
+        def fail(name, cheat=True, **extra) -> "_Refused":
             d["checks"][name] = False
             d["failed_check"] = name
             d["cheat"] = cheat
             d.update(extra)
             self.metrics["failures"] += 1
-            return False
+            return _Refused(name)
 
+        timings = d["timings_s"]
         # fresh audit randomness drawn after the root arrived, published in
         # the report. Step T-1 is always re-executed (the video binding
         # decodes the latent it derives) and counts toward the k budget;
@@ -493,69 +502,70 @@ class Validator(Neuron):
                                      merkle_root=resp.merkle_root, leaf_indices=indices,
                                      validator_pubkey=self.pubkey, issued_at=time.time())
         reveal_req.signature = self.keypair.sign(P.signing_bytes(reveal_req))
-        t0 = time.perf_counter()
-        reveal, reveal_error = None, ""
-        for _attempt in (0, 1):  # one retry absorbs a transient loss
-            try:
-                reveal = await self.transport.request(info.address, reveal_req,
-                                                      timeout_s=cfg.timeout_s)
-                break
-            except Exception as e:
-                reveal_error = str(e)
-        if reveal is None:
-            # unreachable: no slash (it may have crashed, or the fault is
-            # ours); reachable but dropping a third reveal: refusal, slashed
-            if not await self._is_reachable(info):
-                return fail("reveal_unreachable", cheat=False, error=reveal_error)
-            try:
-                reveal = await self.transport.request(info.address, reveal_req,
-                                                      timeout_s=cfg.timeout_s)
-            except Exception as e:
-                return fail("reveal_refused", cheat=True,
-                            error=f"reachable but dropped 3 reveals: {e}")
-        if not isinstance(reveal, P.RevealResponse) or reveal.status != "ok":
-            # an error reply to the reveal of a root committed seconds ago
-            # is a refusal
-            return fail("reveal_refused", cheat=True,
-                        error=getattr(reveal, "error", "bad reply"))
-        t0 = self._mark(d, "reveal_roundtrip", t0)
+        async with span("reveal_roundtrip", timings, accumulate=True):
+            reveal, reveal_error = None, ""
+            for _attempt in (0, 1):  # one retry absorbs a transient loss
+                try:
+                    reveal = await self.transport.request(info.address, reveal_req,
+                                                          timeout_s=cfg.timeout_s)
+                    break
+                except Exception as e:
+                    reveal_error = str(e)
+            if reveal is None:
+                # unreachable: no slash (it may have crashed, or the fault is
+                # ours); reachable but dropping a third reveal: refusal, slashed
+                if not await self._is_reachable(info):
+                    raise fail("reveal_unreachable", cheat=False, error=reveal_error)
+                try:
+                    reveal = await self.transport.request(info.address, reveal_req,
+                                                          timeout_s=cfg.timeout_s)
+                except Exception as e:
+                    raise fail("reveal_refused", cheat=True,
+                               error=f"reachable but dropped 3 reveals: {e}")
+            if not isinstance(reveal, P.RevealResponse) or reveal.status != "ok":
+                # an error reply to the reveal of a root committed seconds ago
+                # is a refusal
+                raise fail("reveal_refused", cheat=True,
+                           error=getattr(reveal, "error", "bad reply"))
 
-        try:
-            dtype = _leaf_dtype(resp.latent_dtype)
-            shape = tuple(int(s) for s in resp.latent_shape)
-        except Exception as e:  # miner-controlled garbage must not crash us
-            return fail("malformed_response", error=str(e))
-        try:
-            revealed = {int(leaf[0]): leaf for leaf in reveal.leaves}
-        except Exception as e:
-            return fail("malformed_response", error=str(e))
-        if sorted(revealed) != indices:
-            return fail("reveal_indices")
-        leaves: Dict[int, Tuple[int, torch.Tensor, torch.Tensor]] = {}
-        for idx in indices:
+        with span("leaf_verify", timings, key="merkle_verify", accumulate=True):
             try:
-                _, t, zb, eb, path = revealed[idx]
-                z = _leaf_tensor(zb, dtype, shape)
-                eps = _leaf_tensor(eb, dtype, shape)
-            except Exception as e:  # malformed tuple arity included
-                return fail("leaf_decode", error=str(e))
-            path_t = [(bytes(h), bool(r)) for h, r in path]
-            if not verify_merkle_proof(leaf_hash(int(t), z, eps), path_t, resp.merkle_root):
-                return fail("merkle_path", leaf=idx)
-            if int(t) != int(resp.timesteps[idx]):
-                return fail("leaf_timestep", leaf=idx)
-            leaves[idx] = (int(t), z, eps)
-        t0 = self._mark(d, "merkle_verify", t0)
+                dtype = _leaf_dtype(resp.latent_dtype)
+                shape = tuple(int(s) for s in resp.latent_shape)
+            except Exception as e:  # miner-controlled garbage must not crash us
+                raise fail("malformed_response", error=str(e))
+            try:
+                revealed = {int(leaf[0]): leaf for leaf in reveal.leaves}
+            except Exception as e:
+                raise fail("malformed_response", error=str(e))
+            if sorted(revealed) != indices:
+                raise fail("reveal_indices")
+            leaves: Dict[int, Tuple[int, torch.Tensor, torch.Tensor]] = {}
+            for idx in indices:
+                try:
+                    _, t, zb, eb, path = revealed[idx]
+                    z = _leaf_tensor(zb, dtype, shape)
+                    eps = _leaf_tensor(eb, dtype, shape)
+                except Exception as e:  # malformed tuple arity included
+                    raise fail("leaf_decode", error=str(e))
+                path_t = [(bytes(h), bool(r)) for h, r in path]
+                with span("leaf_hash"):
+                    hashed = leaf_hash(int(t), z, eps)
+                if not verify_merkle_proof(hashed, path_t, resp.merkle_root):
+                    raise fail("merkle_path", leaf=idx)
+                if int(t) != int(resp.timesteps[idx]):
+                    raise fail("leaf_timestep", leaf=idx)
+                leaves[idx] = (int(t), z, eps)
         d["checks"]["merkle"] = True
 
         # the response's platform tag is untrusted: only the registry pin
         # relaxes the check, and a response contradicting its pin is a cheat
         pinned = info.platform
         if pinned and resp.platform and resp.platform != pinned:
-            return fail("platform", claimed=resp.platform, pinned=pinned)
+            raise fail("platform", claimed=resp.platform, pinned=pinned)
         if cfg.require_platform and pinned and pinned != cfg.require_platform:
-            return fail("platform_policy", cheat=False, pinned=pinned,
-                        required=cfg.require_platform)
+            raise fail("platform_policy", cheat=False, pinned=pinned,
+                       required=cfg.require_platform)
         same_platform, atol, strat_name = self._regime(pinned)
         d["same_platform"] = same_platform
         d["regime_atol"] = atol
@@ -569,11 +579,11 @@ class Validator(Neuron):
             try:
                 strat = get_strategy(strat_name)
             except KeyError:
-                return fail("platform_pin", cheat=False, pinned=pinned)
+                raise fail("platform_pin", cheat=False, pinned=pinned)
             if strat.chunked:
                 n = int(resp.num_chunks or 0)
                 if not 1 <= n <= req.num_frames:
-                    return fail("chunk_plan", chunks=n)
+                    raise fail("chunk_plan", chunks=n)
                 engine = self._chunk_engine(strat_name, n)
                 plan = engine.chunk_plan(req.num_frames)
                 spec = self.pipeline.spec
@@ -581,7 +591,7 @@ class Validator(Neuron):
                 expected = (plan.num_chunks, plan.chunk_len, req.height // ds,
                             req.width // ds, spec.latent_channels)
                 if shape != expected:
-                    return fail("latent_shape", got=list(shape), expected=list(expected))
+                    raise fail("latent_shape", got=list(shape), expected=list(expected))
                 # the miner's CCI context is a function of the base noise
                 ctx = engine.context_latent(req.seed, req.num_frames, req.height,
                                             req.width)
@@ -590,27 +600,28 @@ class Validator(Neuron):
 
         # base-noise binding: z_0 is the seed-derived base latent (the
         # gathered chunk stack for a chunked regime)
-        t0 = time.perf_counter()
-        if 0 in leaves:
-            base = engine.base_latent(req.seed, req.num_frames, req.height, req.width)
-            ok, err, _bit = compare_arrays(leaves[0][1], base, bitwise=same_platform,
-                                           atol=atol, rtol=rtol)
-            if not ok:
-                return fail("base_noise", err=err)
-            d["checks"]["base_noise"] = True
-        t0 = self._mark(d, "base_noise", t0)
+        with span("base_noise", timings, accumulate=True):
+            if 0 in leaves:
+                base = engine.base_latent(req.seed, req.num_frames, req.height, req.width)
+                with span("compare"):
+                    ok, err, _bit = compare_arrays(leaves[0][1], base,
+                                                   bitwise=same_platform, atol=atol,
+                                                   rtol=rtol)
+                if not ok:
+                    raise fail("base_noise", err=err)
+                d["checks"]["base_noise"] = True
 
-        results, _ = verify_revealed_steps(
-            engine, req.prompt, req.negative_prompt, leaves, checks,
-            req.num_steps, req.guidance_scale, same_platform=same_platform,
-            atol=atol, rtol=rtol, cfg_split=req.cfg_split, ctx=ctx)
-        t0 = self._mark(d, "reexecution", t0)
+        with span("reexecution", timings, accumulate=True):
+            results, _ = verify_revealed_steps(
+                engine, req.prompt, req.negative_prompt, leaves, checks,
+                req.num_steps, req.guidance_scale, same_platform=same_platform,
+                atol=atol, rtol=rtol, cfg_split=req.cfg_split, ctx=ctx)
         self.metrics["reexec_steps"] += len(checks)
         for i in checks:
             res = results[i]
             if not res.passed:
-                return fail("reexecution", step=i, reason=res.reason,
-                            eps_err=res.max_eps_err, z_err=res.max_z_err)
+                raise fail("reexecution", step=i, reason=res.reason,
+                           eps_err=res.max_eps_err, z_err=res.max_z_err)
         d["checks"]["reexecution"] = True
         d["reexec_bitwise"] = all(results[i].bitwise for i in checks)
         d["reexec_max_err"] = max(max(results[i].max_eps_err, results[i].max_z_err)
@@ -618,27 +629,30 @@ class Validator(Neuron):
 
         # video <-> trace binding on post-commit, secret-derived frames
         if cfg.video_binding and frames is not None:
-            t0 = time.perf_counter()
-            last = req.num_steps - 1
-            bind_frames = binding_frame_indices(audit_secret, resp.merkle_root,
-                                                req.num_frames, k=cfg.binding_num_frames)
-            d["binding_frames"] = bind_frames
-            ok_bind, err = engine.verify_video_binding(
-                frames, leaves[last], last, req.num_steps, req.guidance_scale,
-                req.prompt, req.negative_prompt, frame_indices=bind_frames,
-                max_err=cfg.binding_max_err, num_frames=req.num_frames)
-            self._mark(d, "video_binding", t0)
+            with span("video_binding", timings, accumulate=True):
+                last = req.num_steps - 1
+                bind_frames = binding_frame_indices(audit_secret, resp.merkle_root,
+                                                    req.num_frames,
+                                                    k=cfg.binding_num_frames)
+                d["binding_frames"] = bind_frames
+                ok_bind, err = engine.verify_video_binding(
+                    frames, leaves[last], last, req.num_steps, req.guidance_scale,
+                    req.prompt, req.negative_prompt, frame_indices=bind_frames,
+                    max_err=cfg.binding_max_err, num_frames=req.num_frames)
             d["video_binding_err"] = round(err, 4)
             if not ok_bind:
-                return fail("video_binding", err=err)
+                raise fail("video_binding", err=err)
             d["checks"]["video_binding"] = True
-        return True
 
     def _write_results(self, request_id: str, report: dict):
         os.makedirs(self.config.results_dir, exist_ok=True)
         path = os.path.join(self.config.results_dir, f"results_{request_id}.json")
         with open(path, "w") as f:
             json.dump(report, f, indent=2, default=str)
+
+
+class _Refused(Exception):
+    """An audit's failure, already recorded in its report."""
 
 
 def _leaf_dtype(name: str):

@@ -22,6 +22,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -85,8 +87,10 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     minus 1, times (hi - lo) = 2, plus lo, clamped below at lo."""
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)),
-                      dtype=torch.float32, device=bits.device)
+    # a blocking copy to the card where bits live there
+    with span("wait.scalar_upload"):
+        lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)),
+                          dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * 2.0 + lo)
 
 

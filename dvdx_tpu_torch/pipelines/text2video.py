@@ -34,6 +34,7 @@ from ..ops import rng as rng_ops
 from ..ops.scheduler import DDIMSchedule, ddim_step, make_ddim_schedule
 from ..utils.bridge import load_flat_npz, load_tree, save_flat_npz
 from ..utils.init import fast_init
+from ..utils.profiling import span
 
 
 Denoiser = Union[UNet3D, VideoDiT]
@@ -198,21 +199,29 @@ def cfg_denoise_step(unet: Denoiser, sched: DDIMSchedule, z: torch.Tensor,
     context_weight > 0 the UNet's input is z + context_weight *
     context_latent (the CCI global context), in z's dtype; the DDIM update
     starts from z itself. The guidance combine runs in eps's dtype."""
-    t = int(sched.timesteps[step_index])
-    ts = torch.full((z.shape[0],), t, dtype=torch.int32, device=z.device)
-    x = z
-    if context_latent is not None and context_weight > 0.0:
-        x = z + torch.tensor(context_weight, dtype=z.dtype,
-                             device=z.device) * context_latent.to(z.dtype)
-    if cfg_split:
-        eps_u = unet(x, ts, uncond, frame_positions)
-        eps_c = unet(x, ts, cond, frame_positions)
-    else:
-        eps_u, eps_c = unet(torch.cat([x, x]), torch.cat([ts, ts]),
-                            torch.cat([uncond, cond]), frame_positions).chunk(2)
-    g = torch.tensor(guidance_scale, dtype=eps_u.dtype, device=eps_u.device)
-    eps = eps_u + g * (eps_c - eps_u)
-    return ddim_step(sched, step_index, z, eps), eps
+    with span("denoise_step"):
+        t = int(sched.timesteps[step_index])
+        ts = torch.full((z.shape[0],), t, dtype=torch.int32, device=z.device)
+        x = z
+        if context_latent is not None and context_weight > 0.0:
+            # a Python scalar made a device tensor: a blocking copy to the card
+            with span("wait.scalar_upload"):
+                w = torch.tensor(context_weight, dtype=z.dtype, device=z.device)
+            x = z + w * context_latent.to(z.dtype)
+        if cfg_split:
+            with span("unet"):
+                eps_u = unet(x, ts, uncond, frame_positions)
+            with span("unet"):
+                eps_c = unet(x, ts, cond, frame_positions)
+        else:
+            with span("unet"):
+                eps_u, eps_c = unet(torch.cat([x, x]), torch.cat([ts, ts]),
+                                    torch.cat([uncond, cond]), frame_positions).chunk(2)
+        with span("wait.scalar_upload"):
+            g = torch.tensor(guidance_scale, dtype=eps_u.dtype, device=eps_u.device)
+        eps = eps_u + g * (eps_c - eps_u)
+        with span("ddim_update"):
+            return ddim_step(sched, step_index, z, eps), eps
 
 
 def denoise(unet: Denoiser, sched: DDIMSchedule, z0: torch.Tensor,
@@ -262,25 +271,29 @@ def generate_core(pipe: Pipeline, token_ids: torch.Tensor, noise_key: torch.Tens
         raise ValueError(f"{spec.name} is image-conditioned: generate its videos with "
                          "pipelines.img2video.generate_from_image")
     ds = spec.vae.downscale
-    hidden, _ = pipe.text_encoder(token_ids)
+    with span("text_encode"):
+        hidden, _ = pipe.text_encoder(token_ids)
     uncond, cond = hidden[0:1], hidden[1:2]
-    z0 = rng_ops.video_noise(noise_key, num_frames,
-                             (height // ds, width // ds, spec.latent_channels),
-                             device=token_ids.device)
+    with span("base_noise"):
+        z0 = rng_ops.video_noise(noise_key, num_frames,
+                                 (height // ds, width // ds, spec.latent_channels),
+                                 device=token_ids.device)
     # CCI: the global context is the time-mean of the base noise, (1, 1, h, w, C)
     ctx = z0.mean(dim=0, keepdim=True)[None] if context_weight > 0.0 else None
     z, zs, epss = z0[None].to(latent_dtype), [], []
     n = sched.num_steps
     length = segment_steps if segment_steps > 0 else n
     for start in range(0, n, length):
-        out = denoise(pipe.unet, sched, z, cond, uncond, guidance_scale,
-                      context_latent=ctx, context_weight=context_weight, record=record,
-                      step_range=(start, min(start + length, n)), cfg_split=cfg_split)
+        with span("denoise_segment"):
+            out = denoise(pipe.unet, sched, z, cond, uncond, guidance_scale,
+                          context_latent=ctx, context_weight=context_weight, record=record,
+                          step_range=(start, min(start + length, n)), cfg_split=cfg_split)
         z = out[0] if record else out
         if record:
             zs.append(out[1])
             epss.append(out[2])
-    frames = decode_frames_tiled(pipe.vae_decoder, z[0].float(), tile=decode_tile)
+    with span("vae_decode"):
+        frames = decode_frames_tiled(pipe.vae_decoder, z[0].float(), tile=decode_tile)
     return (frames, torch.cat(zs), torch.cat(epss)) if record else frames
 
 

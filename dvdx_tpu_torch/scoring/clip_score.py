@@ -22,6 +22,7 @@ from ..models.clip_vision import CLIPVisionEncoder, VisionConfig, tiny_vision_co
 from ..models.text_encoder import (CLIPTextEncoder, TextEncoderConfig, tiny_text_config,
                                    tokenize_batch)
 from ..utils.init import fast_init
+from ..utils.profiling import span
 from .common import as_device_u8
 
 
@@ -137,7 +138,9 @@ class CLIPScorer(nn.Module):
 
     def score_video(self, frames_uint8, prompt: str) -> float:
         """frames (F, H, W, 3) uint8 (numpy or a tensor) -> [0, 1]."""
-        return float(self.cosines(frames_uint8, prompt).clamp(min=0.0).mean())
+        score = self.cosines(frames_uint8, prompt).clamp(min=0.0).mean()
+        with span("wait.clip_fetch"):
+            return float(score)
 
     def frame_scores(self, frames_uint8, prompt: str) -> np.ndarray:
         return self.cosines(frames_uint8, prompt).cpu().numpy()

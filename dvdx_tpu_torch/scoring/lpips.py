@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .common import as_device_u8
 
 # the lpips package's ScalingLayer constants
@@ -143,4 +144,6 @@ class LPIPS(nn.Module):
         d = torch.zeros(f.shape[0] - 1, dtype=torch.float32, device=f.device)
         for i, x in enumerate(taps):
             d = d + self._tap_distance(i, x[:-1], x[1:])
-        return float(d.mean())
+        d = d.mean()
+        with span("wait.lpips_fetch"):
+            return float(d)

@@ -20,7 +20,6 @@ Counterpart of ``dvdx_tpu/scoring/mdvqs.py``:
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -35,14 +34,9 @@ except ImportError:
     _HAS_CV2 = False
 
 from ..ops import rng as rng_ops
+from ..utils.profiling import span
 from .clip_score import CLIPScorer
 from .common import as_device_u8
-
-
-def _mark(timings: dict, name: str, t0: float) -> float:
-    now = time.perf_counter()
-    timings[name] = round(now - t0, 4)
-    return now
 
 
 # --- authenticity -----------------------------------------------------------
@@ -83,7 +77,8 @@ def auth_stats_device(frames_u8: torch.Tensor):
     levels = torch.arange(256, dtype=torch.int32, device=g.device)
     counts = torch.stack([(gf.reshape(-1, 1) == levels).sum(dim=0) for gf in g])
     diff_sums = (x[1:] - x[:-1]).abs().sum(dim=(1, 2, 3))
-    return counts.cpu().numpy(), diff_sums.cpu().numpy()
+    with span("wait.auth_fetch"):
+        return counts.cpu().numpy(), diff_sums.cpu().numpy()
 
 
 def verify_video_authenticity(frames_uint8, min_entropy: float = 1.0,
@@ -230,30 +225,30 @@ class MDVQS:
         ``frames_dev`` the frames already on the scorer's device, shared by
         every program here."""
         timings: dict = {}
-        t0 = time.perf_counter()
         if frames_dev is None:
-            frames_dev = as_device_u8(frames_uint8, self.clip_scorer.device)
-            t0 = _mark(timings, "device_put", t0)
+            with span("wait.device_put", timings, key="device_put"):
+                frames_dev = as_device_u8(frames_uint8, self.clip_scorer.device)
         if auth is None:
-            auth = verify_video_authenticity(frames_dev, host_frames=frames_uint8)
-            t0 = _mark(timings, "authenticity", t0)
-        pf = self.clip_scorer.score_video(frames_dev, prompt)
-        timings["clip_pf"] = round(time.perf_counter() - t0, 4)
+            with span("authenticity", timings):
+                auth = verify_video_authenticity(frames_dev, host_frames=frames_uint8)
+        with span("clip_pf", timings):
+            pf = self.clip_scorer.score_video(frames_dev, prompt)
 
-        t0 = time.perf_counter()
-        if self.lpips_metric is not None:
-            lp = self.lpips_metric.consecutive_mean_u8(frames_dev)
-            metric = "lpips-alex"
-        else:
-            lp = (float(perceptual_distance_pairs(frames_dev.float() / 127.5 - 1.0))
-                  if frames_uint8.shape[0] > 1 else 0.0)
-            metric = "random-projection-proxy"
-        vq = float(np.clip(1.0 - lp, 0.0, 1.0))
-        timings["perceptual_vq"] = round(time.perf_counter() - t0, 4)
+        with span("perceptual_vq", timings):
+            if self.lpips_metric is not None:
+                lp = self.lpips_metric.consecutive_mean_u8(frames_dev)
+                metric = "lpips-alex"
+            else:
+                lp = 0.0
+                if frames_uint8.shape[0] > 1:
+                    d = perceptual_distance_pairs(frames_dev.float() / 127.5 - 1.0)
+                    with span("wait.vq_fetch"):
+                        lp = float(d)
+                metric = "random-projection-proxy"
+            vq = float(np.clip(1.0 - lp, 0.0, 1.0))
 
-        t0 = time.perf_counter()
-        flow = mean_flow_magnitude(frames_uint8)
-        timings["flow_tc"] = round(time.perf_counter() - t0, 4)
+        with span("flow_tc", timings):
+            flow = mean_flow_magnitude(frames_uint8)
         tc = float(1.0 - np.exp(-flow / self.flow_scale))
 
         total = self.alpha * pf + self.beta * vq + self.gamma * tc

@@ -1,66 +1,171 @@
-"""Phase timing, device memory and traces, in PyTorch.
+"""Spans, device memory and traces, in PyTorch.
 
-The port's copy of ``dvdx_tpu/utils/profiling.py``: the same names and
-report shapes.
-
-* PhaseTimer — named wall-clock phases with a JSON dump;
+* span() — a named region of the program: recorded, with the span open
+  around it, while recording is on, and filling a phase-timings dict
+  (``timings=``) whether it is on or not;
+* spans() / recording() — the recorded spans, and a block that records
+  without a profiler;
 * device_memory() — the caching allocator's peak and in-use bytes and the
   card's size, in MB;
 * trace() — ``torch.profiler`` over the host and the card, written as a
-  Chrome trace JSON;
-* annotate() — a labelled range on that trace (``record_function``).
+  Chrome trace JSON, on which each recorded span is a labelled range.
 
-Like the port's other entry points they act on the card unless the caller
-names the CPU.
+Recording is on while a ``torch.profiler`` session is active, or inside
+``recording()``. Off, ``span`` is one flag check and returns a shared object
+that does nothing (a span that fills a timings dict reads the clock twice);
+on or off, a span never synchronises the card, records a CUDA event or
+touches a tensor. Spans are kept in memory, in a bounded deque of the last
+``MAX_SPANS``, and never written out by this module. Their clock is
+``time.perf_counter_ns``, the monotonic clock ``time.perf_counter`` reads,
+so a span lies beside any interval taken on that clock with no conversion.
+
+Like the port's other entry points, ``device_memory`` and ``trace`` act on
+the card unless the caller names the CPU.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
+import contextvars
+import itertools
 import os
+import threading
 import time
-from typing import Dict
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+MAX_SPANS = 1 << 16
 
 
-class PhaseTimer:
-    """Accumulating named phase timer.
+class Span(NamedTuple):
+    """One recorded span. ``parent`` is the id of the span open around it in
+    the same thread or task, 0 at a root."""
 
-    with timer.phase("denoise"): ...
-    timer.report() -> {"denoise": {"total_s":..., "count":..., "max_s":...}, ...}
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int
 
-    ``phase(name, block=True)`` waits for the work queued on ``device``
-    (``torch.cuda.synchronize``) before it stops the clock; a CPU device has
-    nothing queued.
-    """
 
-    def __init__(self, device="cuda"):
-        self.device = torch.device(device)
-        self.phases: Dict[str, Dict[str, float]] = {}
+_records: "collections.deque[Span]" = collections.deque(maxlen=MAX_SPANS)
+# the id of the span open in this thread or task
+_open: contextvars.ContextVar = contextvars.ContextVar("dvdx_open_span", default=0)
+_ids = itertools.count(1)
+_forced = 0  # depth of open recording() blocks
+_forced_lock = threading.Lock()
 
-    @contextlib.contextmanager
-    def phase(self, name: str, block: bool = False):
-        t0 = time.perf_counter()
-        try:
-            yield
-            if block and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        finally:
-            dt = time.perf_counter() - t0
-            entry = self.phases.setdefault(name, {"total_s": 0.0, "count": 0,
-                                                  "max_s": 0.0})
-            entry["total_s"] += dt
-            entry["count"] += 1
-            entry["max_s"] = max(entry["max_s"], dt)
 
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {k: dict(v) for k, v in self.phases.items()}
+class _Off:
+    """The one span handed out while recording is off and no timings dict
+    is filled: it does nothing. Its ``__enter__`` and ``__exit__`` are C
+    functions, so that entering and leaving it runs no Python frame:
+    ``__enter__`` returns None, and ``__exit__`` takes the three exception
+    arguments and returns "", which lets an exception through."""
 
-    def dump(self, path: str):
-        with open(path, "w") as f:
-            json.dump(self.report(), f, indent=2)
+    __slots__ = ()
+    __enter__ = itertools.repeat(None).__next__
+    __exit__ = "".format
+
+    async def __aenter__(self):
+        return None
+
+    async def __aexit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "timings", "key", "accumulate", "seconds", "_record", "_t0",
+                 "_id", "_prev", "_rf")
+
+    def __init__(self, name, timings, key, accumulate, record):
+        self.name, self.timings, self.key, self.accumulate = name, timings, key, accumulate
+        self._record = record
+        self._rf = None
+        self.seconds = 0.0
+
+    def _enter(self, ranged: bool):
+        if self._record:
+            self._id = next(_ids)
+            self._prev = _open.get()
+            _open.set(self._id)
+            if ranged and _autograd_profiler._is_profiler_enabled:
+                self._rf = torch.profiler.record_function(self.name)
+                self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def _exit(self, failed: bool):
+        t1 = time.perf_counter_ns()
+        self.seconds = (t1 - self._t0) / 1e9
+        if self._record:
+            if self._rf is not None:
+                self._rf.__exit__(None, None, None)
+            _open.set(self._prev)
+            _records.append(Span(self.name, self._t0, t1, self._id, self._prev))
+        if self.timings is not None and not failed:
+            key = self.key or self.name
+            before = self.timings.get(key, 0.0) if self.accumulate else 0.0
+            self.timings[key] = round(before + self.seconds, 4)
+        return False
+
+    def __enter__(self):
+        return self._enter(True)
+
+    def __exit__(self, exc_type, exc, tb):
+        return self._exit(exc_type is not None)
+
+    async def __aenter__(self):
+        return self._enter(False)
+
+    async def __aexit__(self, exc_type, exc, tb):
+        return self._exit(exc_type is not None)
+
+
+def span(name: str, timings: Optional[dict] = None, key: Optional[str] = None,
+         accumulate: bool = False):
+    """A context manager over one region of the program, named ``name``.
+
+    With ``timings`` the span writes its seconds, rounded to 0.1 ms, into
+    ``timings[key or name]`` when its block ends without an exception,
+    whether recording is on or not, and keeps them in ``.seconds``;
+    ``accumulate=True`` adds them to what the entry holds.
+
+    While recording is on under a profiler, ``with span(...)`` also enters a
+    ``record_function`` range. A span that stays open across an ``await`` is
+    entered with ``async with span(...)``: it is recorded, but is no range,
+    since tasks that share a thread would open and close their ranges out
+    of order."""
+    if not (_forced or _autograd_profiler._is_profiler_enabled):
+        if timings is None:
+            return _OFF
+        return _Span(name, timings, key, accumulate, False)
+    return _Span(name, timings, key, accumulate, True)
+
+
+def spans() -> List[Span]:
+    """A snapshot of the recorded spans, oldest first (the last
+    ``MAX_SPANS``)."""
+    return list(_records)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, with or without a profiler."""
+    global _forced
+    with _forced_lock:
+        _forced += 1
+    try:
+        yield
+    finally:
+        with _forced_lock:
+            _forced -= 1
 
 
 def device_memory(device="cuda") -> Dict[str, float]:
@@ -106,7 +211,3 @@ def trace(log_dir: str, device="cuda"):
         prof.stop()
         prof.export_chrome_trace(path)
 
-
-def annotate(name: str):
-    """Label a region on the trace."""
-    return torch.profiler.record_function(name)

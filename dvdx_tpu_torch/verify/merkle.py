@@ -21,6 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from ..utils.native import host_array, sha256_leaves
+from ..utils.profiling import span
 
 HASH_BYTES = 32
 
@@ -93,12 +94,14 @@ class MerkleCommitment:
         self.timesteps = np.asarray(timesteps)
         self.zs = zs
         self.epss = epss
-        if use_native:
-            self.leaves = sha256_leaves(self.timesteps, zs, epss)
-        else:
-            self.leaves = [leaf_hash(int(t), zs[i], epss[i])
-                           for i, t in enumerate(self.timesteps)]
-        self.levels = build_merkle_tree(self.leaves)
+        with span("leaf_hash"):
+            if use_native:
+                self.leaves = sha256_leaves(self.timesteps, zs, epss)
+            else:
+                self.leaves = [leaf_hash(int(t), zs[i], epss[i])
+                               for i, t in enumerate(self.timesteps)]
+        with span("merkle_tree"):
+            self.levels = build_merkle_tree(self.leaves)
 
     @property
     def root(self) -> bytes:

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,14 +61,8 @@ from ..ops.scheduler import ddim_step, make_ddim_schedule
 from ..parallel.chunking import auto_chunk_count, blend_chunks, gather_chunks, plan_chunks
 from ..pipelines.text2video import Pipeline, cfg_denoise_step, generate_core, to_uint8
 from ..utils.bridge import to_tensor
+from ..utils.profiling import span
 from .proof import sample_distinct_indices
-
-
-def _tmark(timings: Optional[dict], name: str, t0: float) -> float:
-    now = time.perf_counter()
-    if timings is not None:
-        timings[name] = round(now - t0, 4)
-    return now
 
 
 # one multi-rank generation at a time in a process: the ranks' collectives
@@ -217,12 +210,13 @@ class StepEngine:
             zf = blend_chunks(z.float()[None], self.chunk_plan(num_frames))[0]
         else:
             zf = z[0].float()
-        if self.mesh is None:
-            from ..models.vae import decode_frames_tiled
+        with span("vae_decode"):
+            if self.mesh is None:
+                from ..models.vae import decode_frames_tiled
 
-            frames = decode_frames_tiled(self.pipe.vae_decoder, zf)
-        else:
-            frames = decode_latents(self.pipe, zf, self.mesh)
+                frames = decode_frames_tiled(self.pipe.vae_decoder, zf)
+            else:
+                frames = decode_latents(self.pipe, zf, self.mesh)
         return to_uint8(frames)
 
     @property
@@ -268,7 +262,10 @@ class StepEngine:
         """(uncond, cond) text states, from the same (2, S) encoder call
         generation makes."""
         ids = torch.from_numpy(self.pipe.tokenize([negative_prompt, prompt])).long()
-        hidden, _ = self.pipe.text_encoder(ids.to(self.pipe.device))
+        with span("wait.ids_upload"):
+            ids = ids.to(self.pipe.device)
+        with span("text_encode"):
+            hidden, _ = self.pipe.text_encoder(ids)
         return hidden[0:1], hidden[1:2]
 
     # -- prover path --
@@ -301,81 +298,81 @@ class StepEngine:
             with _MESH_LOCK:
                 dist.broadcast_object_list([call], src=0)
                 return self._generate_strategy(call, timings)
-        t0 = time.perf_counter()
-        sched = self._schedule(num_steps)
-        ids = torch.from_numpy(self.pipe.tokenize([negative_prompt, prompt])).long()
-        frames, zs, epss = generate_core(
-            self.pipe, ids.to(self.pipe.device), rng_ops.base_key(seed), sched=sched,
-            num_frames=num_frames, height=height, width=width,
-            guidance_scale=guidance_scale, record=True, latent_dtype=latent_dtype,
-            cfg_split=cfg_split, segment_steps=segment_steps)
-        video = to_uint8(frames)
-        t0 = _tmark(timings, "dispatch_loop", t0)
-        if video.is_cuda:
-            torch.cuda.current_stream(video.device).synchronize()
-        t0 = _tmark(timings, "compute_wall", t0)
-        zs, epss = zs[:, 0].cpu(), epss[:, 0].cpu()
-        t0 = _tmark(timings, "leaf_fetch", t0)
-        video = video.cpu().numpy()
-        _tmark(timings, "video_fetch", t0)
-        return video, zs, epss, sched.timesteps.copy()
+        with span("dispatch_loop", timings):
+            sched = self._schedule(num_steps)
+            ids = torch.from_numpy(self.pipe.tokenize([negative_prompt, prompt])).long()
+            with span("wait.ids_upload"):
+                ids = ids.to(self.pipe.device)
+            frames, zs, epss = generate_core(
+                self.pipe, ids, rng_ops.base_key(seed), sched=sched,
+                num_frames=num_frames, height=height, width=width,
+                guidance_scale=guidance_scale, record=True, latent_dtype=latent_dtype,
+                cfg_split=cfg_split, segment_steps=segment_steps)
+            video = to_uint8(frames)
+        _wait_compute(video, timings)
+        zs, epss = zs[:, 0], epss[:, 0]
+        with span("wait.leaf_fetch", timings, key="leaf_fetch"):
+            zs, epss = zs.cpu(), epss.cpu()
+        return _fetch_video(video, timings), zs, epss, sched.timesteps.copy()
 
     def _generate_strategy(self, call: dict, timings: Optional[dict]):
         """generate_recorded through the strategy's step program; the leaves
         are (N, n, L, h, w, C) for a chunked engine."""
-        t0 = time.perf_counter()
-        spec = self.pipe.spec
-        ds = spec.vae.downscale
-        f, lh, lw, c = call["num_frames"], call["height"] // ds, call["width"] // ds, \
-            spec.latent_channels
-        dev = self.pipe.device
-        sched = self._schedule(call["num_steps"])
-        uncond, cond = self._encode(call["prompt"], call["negative_prompt"])
-        key = rng_ops.base_key(call["seed"])
-        ctx = None
-        if self.chunked:
-            z, ctx = self.chunk_prep_fn(f, lh, lw, c, call["latent_dtype"])(key)
-        else:
-            z = rng_ops.video_noise(key, f, (lh, lw, c), device=dev)[None].to(
-                call["latent_dtype"])
-        zs, epss = [], []
-        for i in range(call["num_steps"]):
-            z_next, eps = self._strategy_step(z, i, sched, cond, uncond,
-                                              call["guidance_scale"], call["cfg_split"], ctx)
-            zs.append(z)
-            epss.append(eps)
-            z = z_next
-        video = self._decode_video(z, f)
-        t0 = _tmark(timings, "dispatch_loop", t0)
-        if video.is_cuda:
-            torch.cuda.current_stream(video.device).synchronize()
-        t0 = _tmark(timings, "compute_wall", t0)
-        zs, epss = torch.stack(zs), torch.stack(epss)
-        if not self.chunked:
-            zs, epss = zs[:, 0], epss[:, 0]
-        zs, epss = zs.cpu(), epss.cpu()
-        t0 = _tmark(timings, "leaf_fetch", t0)
-        video = video.cpu().numpy()
-        _tmark(timings, "video_fetch", t0)
-        return video, zs, epss, sched.timesteps.copy()
+        with span("dispatch_loop", timings):
+            spec = self.pipe.spec
+            ds = spec.vae.downscale
+            f, lh, lw, c = call["num_frames"], call["height"] // ds, call["width"] // ds, \
+                spec.latent_channels
+            dev = self.pipe.device
+            sched = self._schedule(call["num_steps"])
+            uncond, cond = self._encode(call["prompt"], call["negative_prompt"])
+            key = rng_ops.base_key(call["seed"])
+            ctx = None
+            with span("base_noise"):
+                if self.chunked:
+                    z, ctx = self.chunk_prep_fn(f, lh, lw, c, call["latent_dtype"])(key)
+                else:
+                    z = rng_ops.video_noise(key, f, (lh, lw, c), device=dev)[None].to(
+                        call["latent_dtype"])
+            zs, epss = [], []
+            for i in range(call["num_steps"]):
+                z_next, eps = self._strategy_step(z, i, sched, cond, uncond,
+                                                  call["guidance_scale"], call["cfg_split"],
+                                                  ctx)
+                zs.append(z)
+                epss.append(eps)
+                z = z_next
+            video = self._decode_video(z, f)
+        _wait_compute(video, timings)
+        # the leaves are stacked on the card inside their fetch's timing
+        with span("wait.leaf_fetch", timings, key="leaf_fetch"):
+            zs, epss = torch.stack(zs), torch.stack(epss)
+            if not self.chunked:
+                zs, epss = zs[:, 0], epss[:, 0]
+            zs, epss = zs.cpu(), epss.cpu()
+        return _fetch_video(video, timings), zs, epss, sched.timesteps.copy()
 
     # -- verifier path --
 
     def _step(self, z_i, step_index: int, sched, cond, uncond,
               guidance_scale: float, cfg_split: bool, ctx=None):
-        z = as_tensor(z_i).to(self.pipe.device)
+        z = as_tensor(z_i)
+        with span("wait.step_upload"):
+            z = z.to(self.pipe.device)
         if self.chunked:  # the chunk stack is the batch
             z_next, eps = self._strategy_step(z, step_index, sched, cond, uncond,
                                               guidance_scale, cfg_split, ctx)
-            return eps.cpu(), z_next.cpu()
-        if self.strategy is not None:
-            z_next, eps = self._strategy_step(z[None], step_index, sched, cond, uncond,
-                                              guidance_scale, cfg_split)
         else:
-            z_next, eps = cfg_denoise_step(self.pipe.unet, sched, z[None], step_index,
-                                           cond, uncond, guidance_scale,
-                                           cfg_split=cfg_split)
-        return eps[0].cpu(), z_next[0].cpu()
+            if self.strategy is not None:
+                z_next, eps = self._strategy_step(z[None], step_index, sched, cond, uncond,
+                                                  guidance_scale, cfg_split)
+            else:
+                z_next, eps = cfg_denoise_step(self.pipe.unet, sched, z[None], step_index,
+                                               cond, uncond, guidance_scale,
+                                               cfg_split=cfg_split)
+            z_next, eps = z_next[0], eps[0]
+        with span("wait.step_fetch"):
+            return eps.cpu(), z_next.cpu()
 
     @torch.inference_mode()
     def reexecute_pair(self, prompt: str, negative_prompt: str, z_i,
@@ -405,8 +402,13 @@ class StepEngine:
     def decode_frame(self, z_frame) -> np.ndarray:
         """Decode one latent frame (h, w, C) -> (H, W, 3) float32 numpy in
         [-1, 1], through the per-frame call generation's decode makes."""
-        z = as_tensor(z_frame).to(self.pipe.device).float()[None]
-        return self.pipe.vae_decoder(z)[0].cpu().numpy()
+        # through the host: a latent on the card is fetched, then copied back
+        with span("wait.frame_upload"):
+            z = as_tensor(z_frame).to(self.pipe.device)
+        with span("vae_decode"):
+            frame = self.pipe.vae_decoder(z.float()[None])[0]
+        with span("wait.decode_fetch"):
+            return frame.cpu().numpy()
 
     def verify_video_binding(self, video_frames: np.ndarray,
                              last_leaf: Tuple[int, object, object],
@@ -428,9 +430,12 @@ class StepEngine:
                              "forged eps_{T-1} cannot bind a substitute video")
         _t, z_last, eps_last = last_leaf
         dev = self.pipe.device
-        z_next = ddim_step(self._schedule(num_steps), last_index,
-                           as_tensor(z_last).to(dev)[None],
-                           as_tensor(eps_last).to(dev)[None])[0]
+        z_last, eps_last = as_tensor(z_last), as_tensor(eps_last)
+        with span("wait.leaf_upload"):
+            z_last, eps_last = z_last.to(dev), eps_last.to(dev)
+        with span("ddim_update"):
+            z_next = ddim_step(self._schedule(num_steps), last_index, z_last[None],
+                               eps_last[None])[0]
         if self.chunked:
             if not num_frames:
                 raise ValueError("chunked video binding requires num_frames")
@@ -448,10 +453,11 @@ class StepEngine:
         worst = 0.0
         for frame_idx in frame_indices:
             decoded = self.decode_frame(z_next[frame_idx])
-            got = video_frames[frame_idx].astype(np.float32) / 127.5 - 1.0
-            if decoded.shape != got.shape:
-                return False, float("inf")
-            err = float(np.mean(np.abs(pool(decoded) - pool(got))))
+            with span("compare"):
+                got = video_frames[frame_idx].astype(np.float32) / 127.5 - 1.0
+                if decoded.shape != got.shape:
+                    return False, float("inf")
+                err = float(np.mean(np.abs(pool(decoded) - pool(got))))
             worst = max(worst, err)
             if err > max_err:
                 return False, worst
@@ -466,13 +472,27 @@ class StepEngine:
         spec = self.pipe.spec
         ds = spec.vae.downscale
         if self.chunked:
-            return self.chunk_prep_fn(num_frames, height // ds, width // ds,
-                                      spec.latent_channels, latent_dtype)(
-                rng_ops.base_key(seed))[0].cpu()
-        noise = rng_ops.video_noise(rng_ops.base_key(seed), num_frames,
-                                    (height // ds, width // ds, spec.latent_channels),
-                                    device=self.pipe.device)
-        return noise.to(latent_dtype).cpu()
+            noise = self.chunk_prep_fn(num_frames, height // ds, width // ds,
+                                       spec.latent_channels, latent_dtype)(
+                rng_ops.base_key(seed))[0]
+        else:
+            noise = rng_ops.video_noise(rng_ops.base_key(seed), num_frames,
+                                        (height // ds, width // ds, spec.latent_channels),
+                                        device=self.pipe.device).to(latent_dtype)
+        with span("wait.noise_fetch"):
+            return noise.cpu()
+
+
+def _wait_compute(video: torch.Tensor, timings: Optional[dict]) -> None:
+    """Wait for the card to finish the generation it was handed."""
+    with span("wait.compute", timings, key="compute_wall"):
+        if video.is_cuda:
+            torch.cuda.current_stream(video.device).synchronize()
+
+
+def _fetch_video(video: torch.Tensor, timings: Optional[dict]) -> np.ndarray:
+    with span("wait.video_fetch", timings, key="video_fetch"):
+        return video.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -537,13 +557,14 @@ def verify_revealed_steps(
     results: Dict[int, CheckResult] = {}
     for row, i in enumerate(checks):
         _t, _z_i, eps_i = leaves[i]
-        ok_e, err_e, bit_e = compare_arrays(eps_re[row], eps_i, bitwise=same_platform,
-                                            atol=atol, rtol=rtol)
-        ok_z, err_z, bit_z = True, 0.0, True
-        if i + 1 in leaves:
-            ok_z, err_z, bit_z = compare_arrays(z_next_re[row], leaves[i + 1][1],
-                                                bitwise=same_platform, atol=atol,
-                                                rtol=rtol)
+        with span("compare"):
+            ok_e, err_e, bit_e = compare_arrays(eps_re[row], eps_i, bitwise=same_platform,
+                                                atol=atol, rtol=rtol)
+            ok_z, err_z, bit_z = True, 0.0, True
+            if i + 1 in leaves:
+                ok_z, err_z, bit_z = compare_arrays(z_next_re[row], leaves[i + 1][1],
+                                                    bitwise=same_platform, atol=atol,
+                                                    rtol=rtol)
         if ok_e and ok_z:
             results[i] = CheckResult(True, "ok", err_e, err_z, bit_e and bit_z)
             continue

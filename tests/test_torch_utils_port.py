@@ -1,8 +1,8 @@
 """The port's ``utils/{config,logging,profiling,plots}`` held against the JAX
 package's modules of the same names: the same config tree and overlays
-(dict equality), the same log line from the same record, the same phase
-report shape, the same plot files from the same CSV. No wall-clock value is
-asserted."""
+(dict equality), the same log line from the same record, the same device
+memory report shape, the same plot files from the same CSV. No wall-clock
+value is asserted."""
 
 import json
 import logging
@@ -88,28 +88,6 @@ def test_setup_logging_formats_the_same_record(tmp_path):
         logger.setLevel(saved[1])
 
 
-def test_phase_timer_report_and_dump(tmp_path):
-    """The report's shape is the JAX timer's: per phase total_s, count and
-    max_s; ``block=True`` on a CPU device has nothing to wait for."""
-    port, ref = profiling.PhaseTimer(device="cpu"), jax_profiling.PhaseTimer()
-    for timer in (port, ref):
-        for name in ("encode", "denoise", "denoise", "decode"):
-            with timer.phase(name, block=name == "decode"):
-                torch.ones(8).sum()
-    rep, want = port.report(), ref.report()
-    assert list(rep) == list(want) == ["encode", "denoise", "decode"]
-    for name in rep:
-        assert rep[name].keys() == want[name].keys() == {"total_s", "count", "max_s"}
-        assert rep[name]["count"] == want[name]["count"]
-        assert 0.0 <= rep[name]["max_s"] <= rep[name]["total_s"]
-    port.dump(str(tmp_path / "phases.json"))
-    assert json.loads((tmp_path / "phases.json").read_text()) == rep
-    with pytest.raises(ValueError):
-        with port.phase("failing"):
-            raise ValueError("the phase is still counted")
-    assert port.report()["failing"]["count"] == 1
-
-
 def test_device_memory_on_the_cpu_is_zeros():
     got = profiling.device_memory("cpu")
     assert got == {"peak_mb": 0.0, "in_use_mb": 0.0, "limit_mb": 0.0}
@@ -117,10 +95,10 @@ def test_device_memory_on_the_cpu_is_zeros():
 
 
 def test_trace_on_the_cpu_holds_its_annotation(tmp_path):
-    """``trace`` writes one Chrome trace JSON into its directory, with the
-    annotated range and the host ops inside it."""
+    """``trace`` writes one Chrome trace JSON into its directory, with a
+    span's range and the host ops inside it."""
     with profiling.trace(str(tmp_path / "trace"), device="cpu") as path:
-        with profiling.annotate("unet_call"):
+        with profiling.span("unet_call"):
             x = torch.randn(32, 32)
             (x @ x).sum()
     assert os.listdir(tmp_path / "trace") == [os.path.basename(path)]
