@@ -897,6 +897,10 @@ KERNEL_META = {
                                "dvdx_tpu/ops/groupnorm.py:179"),
     "group_norm_moments_in": ("dvdx_tpu_torch/csrc/groupnorm.cu",
                               "dvdx_tpu/ops/groupnorm.py:179"),
+    # the bias (+ residual) epilogue of the convolutions and dense layers,
+    # bf16 and float32: no TPU kernel (XLA fuses the bias add into the product)
+    "bias_epilogue": ("dvdx_tpu_torch/csrc/bias_epilogue.cu", None),
+    "bias_epilogue_f32": ("dvdx_tpu_torch/csrc/bias_epilogue.cu", None),
 }
 # the two entries phase 12's two-half split runs
 SHARDED_GN_PATH = ("group_norm_moments_out", "group_norm_moments_in")
@@ -941,6 +945,12 @@ CROSS_DEVICE_PATH = ("group_norm_act_f32", "geglu_ff_simt")
 EXPECTED_PER_UNET_CALL = {"flash_attention": 10, "temporal_attention": 22,
                           "geglu_ff": 22, "group_norm_act": 166,
                           "fused_spatial_tail": 5, "fused_temporal_block": 6}
+# bias_epilogue launches per UNet call, at 576x320 and at XL alike: 166 of a
+# layer's bias alone and 121 with the residual add that follows the layer
+# (every resnet's conv2, temporal conv's last conv, transformer's proj_out
+# and unfused attention's to_out), all but conv_out_zero's (C = 4);
+# tests/test_torch_bias_epilogue.py counts them on the meta device
+EPILOGUE_PER_UNET_CALL = 287
 # max |kernel - plain| <= TOL_ULPS bf16 ulps (2^-7 relative) of max |plain|:
 # both round to bf16 at the same points but sum in different orders, and the
 # flash kernel rounds unnormalised probabilities (the plain version rounds
@@ -951,6 +961,123 @@ TOL_ULPS = 2.0
 # of its sums)
 F32_REL_TOL = {"group_norm_act_f32": 1e-4, "group_norm_moments_out": 0.0}
 F32_REL_TOL_DEFAULT = 1e-5
+
+
+def _add_sum(sums, row, t_ops, t_bytes):
+    """Add a phase-2 row to its kernel's sums over its main-path (or its
+    other) shapes."""
+    s = sums.setdefault((row["kernel"], row["main_path"]),
+                        dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                             library_ms=0.0, t_ops=0.0, t_bytes=0.0))
+    s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
+    s["ms"] += row["ms"]
+    s["plain_ms"] += row["plain_ms"]
+    s["bound_ms"] += row["bound_ms"]
+    s["t_ops"] += t_ops
+    s["t_bytes"] += t_bytes
+    s["library_ms"] = None if row["library_ms"] is None or s["library_ms"] is None \
+        else s["library_ms"] + row["library_ms"]
+
+
+# (label, rows, C) of the biased layer outputs on the main path: the UNet at
+# 576x320 (CFG batch 2 x 16 frames) and XL (batch 1 x 24 frames), levels 0-3,
+# and one 576x320 frame's VAE decode at its three widths (320x576, 160x288
+# and 80x144 pixels)
+EPILOGUE_SHAPES = (("level0", 92160, 320), ("level1", 23040, 640), ("level2", 5760, 1280),
+                   ("level3", 1440, 1280), ("xl_level0", 221184, 320),
+                   ("xl_level1", 55296, 640), ("xl_level2", 13824, 1280),
+                   ("xl_level3", 3456, 1280), ("vae_c128", 184320, 128),
+                   ("vae_c256", 46080, 256), ("vae_c512", 11520, 512))
+EPILOGUE_KERNELS = ("bias_epilogue", "bias_epilogue_f32")
+
+
+def epilogue_cost(rows, c, residual, elem=2):
+    # one add an element (two with the residual); y read and written, the
+    # residual read, the bias read
+    return rows * c * (2.0 if residual else 1.0), (rows * c * (3 if residual else 2) + c) * elem
+
+
+def epilogue_host_us(trials: int = 7, calls: int = 200) -> dict:
+    """Host microseconds a call (best of ``trials`` runs of ``calls`` calls,
+    the card idle before each run) of the epilogue through its wrapper and of
+    the ATen adds it replaces, at the time embedding's (2, 1280) bf16 rows,
+    where the card keeps up with the host."""
+    from dvdx_tpu_torch.ops.kernels.bias_epilogue import bias_epilogue
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    y, r = randn((2, 1280), gen), randn((2, 1280), gen)
+    b = randn((1280,), gen)
+    fns = {"wrapper_bias": lambda: bias_epilogue(y, b),
+           "aten_bias": lambda: y + b,
+           "wrapper_bias_residual": lambda: bias_epilogue(y, b, r),
+           "aten_bias_residual": lambda: r + (y + b)}
+    best = {k: float("inf") for k in fns}
+    for _ in range(trials):
+        for k, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best[k] = min(best[k], (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def check_bias_epilogue():
+    """The bias epilogue at each main-path shape, bf16 and float32, with and
+    without the residual: in place, bit for bit ATen's pair (y + b and r +
+    (y + b), which is also its plain version), the same bits again; timed in
+    place on a copy, beside ATen's pair as the library and its bytes bound.
+    Yields (row, t_ops, t_bytes). Then the host cost of a call against
+    ATen's adds (``epilogue_host_us``)."""
+    from dvdx_tpu_torch.ops.kernels import bias_epilogue as be
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for dtype, name in ((torch.bfloat16, "bias_epilogue"), (torch.float32, "bias_epilogue_f32")):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        elem = dtype.itemsize
+        for label, n, c in EPILOGUE_SHAPES:
+            for residual in (False, True):
+                y = randn((n, c), gen, 3.0, dtype=dtype)
+                b = randn((c,), gen, dtype=dtype)
+                r = randn((n, c), gen, dtype=dtype) if residual else None
+                ref = y + b if r is None else r + (y + b)
+                out = y.clone()
+                got = be.bias_epilogue(out, b, r)
+                again = be.bias_epilogue(y.clone(), b, r)
+                torch.cuda.synchronize()
+                in_place = got.data_ptr() == out.data_ptr()
+                exact = torch.equal(got.view(bits), ref.view(bits))
+                repeat = torch.equal(again.view(bits), got.view(bits))
+                err = (got.float() - ref.float()).abs().max().item()
+                ms = cuda_ms(lambda: be.bias_epilogue(out, b, r), 20)
+                lib_ms = cuda_ms(lambda: y + b if r is None else r + (y + b), 20)
+                flops, nbytes = epilogue_cost(n, c, residual, elem)
+                bms, bby = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+                shape = label + ("_residual" if residual else "")
+                ok = in_place and exact and repeat
+                row = dict(kernel=name, shape=shape, max_abs_err=err, tol=0.0,
+                           max_abs_ref=ref.float().abs().max().item(), repeat_bitwise=repeat,
+                           ms=ms, plain_ms=lib_ms, library_ms=lib_ms, bound_ms=bms,
+                           bound_by=bby, main_path=True, ok=ok, bound_ms_parts=None,
+                           plain_on=None, held_as="bits (torch.equal), in place")
+                log(f"kernel {name:20s} {shape:28s} bitwise={exact} in_place={in_place} "
+                    f"ms={ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({bby}, "
+                    f"{100 * bms / ms:.1f}% of it) repeat_bitwise={repeat} "
+                    f"{'OK' if ok else 'FAIL'}")
+                del y, b, r, ref, out, got, again
+                torch.cuda.empty_cache()
+                if not ok:
+                    raise AssertionError(f"{name} {shape}: not ATen's pair bit for bit "
+                                         f"({err:.3e}), not in place ({in_place}) or not "
+                                         f"the same bits again ({repeat})")
+                yield row, flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    host = epilogue_host_us()
+    log("bias_epilogue host us a call (best of 7 x 200, (2, 1280) bf16): "
+        + json.dumps({k: round(v, 3) for k, v in host.items()}))
+    with open(os.path.join(OUT_DIR, "bias_epilogue_host_us.json"), "w") as f:
+        json.dump(host, f, indent=1)
 
 
 def check_kernels(only=None):
@@ -1007,17 +1134,12 @@ def check_kernels(only=None):
             raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
                                  f"version ({err:.3e} > {tol:.3e}) or with itself "
                                  f"(repeat bitwise: {repeat})")
-        s = sums.setdefault((name, main), dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                               bound_ms=0.0, library_ms=0.0,
-                                               t_ops=0.0, t_bytes=0.0))
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
-        s["bound_ms"] += bms
-        s["t_ops"] += flops / peak
-        s["t_bytes"] += nbytes / PEAK_BYTES
-        s["library_ms"] = None if lib_ms is None or s["library_ms"] is None \
-            else s["library_ms"] + lib_ms
+        _add_sum(sums, row, flops / peak, nbytes / PEAK_BYTES)
+    if only is None or set(only) & set(EPILOGUE_KERNELS):
+        for row, t_ops, t_bytes in check_bias_epilogue():
+            if only is None or row["kernel"] in only:
+                rows.append(row)
+                _add_sum(sums, row, t_ops, t_bytes)
     summary = {}
     for name in KERNEL_META if only is None else only:
         s = sums.get((name, True)) or sums[(name, False)]
@@ -1098,14 +1220,21 @@ def check_against_cpu():
 def launch_bounds(module, run, f32: bool = False):
     """Run ``run()`` with forward hooks on the layers of ``module`` that hand
     work to a kernel, and sum each kernel's launches and bound from the
-    shapes handed to it: {kernel: {"launches": n, "bound_ms": t}}. Each
-    hook's count must equal its kernel's own launch counter over the run.
+    shapes handed to it: {kernel: {"launches": n, "bound_ms": t}}. Each of
+    the six model-path kernels' hook counts must equal its own launch counter
+    over the run.
     ``f32``: a float32 model, whose layers launch the float32 forms
-    (``F32_NAME``), with float32 operands at the float32 peak."""
+    (``F32_NAME``), with float32 operands at the float32 peak. The bias
+    epilogue is counted too (``bias_epilogue`` / ``bias_epilogue_f32``): a
+    dense layer or convolution during whose forward its launch counters rose
+    by one adds its output's bound."""
     from dvdx_tpu_torch.models import layers
     from dvdx_tpu_torch.ops.attention import wants_flash
+    from dvdx_tpu_torch.ops.kernels import bias_epilogue as be
 
     acc = {k: [0, 0.0] for k in MODEL_PATH}
+    epilogue = [0, 0.0]
+    epilogue_before = {}  # layer -> the epilogue's launches before its forward
     chain_ff = [0.0, 0.0]  # the fused block's bound split: chain launch, FF launches
     tail_chain_ff = [0.0, 0.0]  # the fused tail's
 
@@ -1156,6 +1285,21 @@ def launch_bounds(module, run, f32: bool = False):
                                   "fused_spatial_tail")
         tail_chain_ff[1] += bound(temporal_ff_cost(n * s, c), "fused_spatial_tail")
 
+    def epilogue_launches():
+        return be.LAUNCHES + be.F32_LAUNCHES
+
+    def before_layer(mod, args, kwargs):
+        epilogue_before[mod] = epilogue_launches()
+
+    def on_layer(mod, args, kwargs, out):
+        # the epilogue wrote into the product and returned it
+        if epilogue_launches() - epilogue_before.pop(mod) == 1:
+            epilogue[0] += 1
+            c = out.shape[-1]
+            epilogue[1] += bound_ms(*epilogue_cost(out.numel() // c, c,
+                                                   kwargs.get("residual") is not None,
+                                                   out.dtype.itemsize), PEAK_F32_FLOPS)[0]
+
     def on_temporal_block(mod, args, kwargs, out):
         x = args[0]
         if mod.fused(x):
@@ -1167,9 +1311,12 @@ def launch_bounds(module, run, f32: bool = False):
     hooks = ((layers.GroupNorm, on_gn), (layers.GEGLUFeedForward, on_ff),
              (layers._FrameAxisAttention, on_frame_attn), (layers.Attention, on_attn),
              (layers.BasicTransformerBlock, on_block),
-             (layers._TemporalBlock, on_temporal_block))
+             (layers._TemporalBlock, on_temporal_block),
+             (layers.Dense, on_layer), (layers.Conv, on_layer))
     handles = [m.register_forward_hook(fn, with_kwargs=True)
                for m in module.modules() for cls, fn in hooks if isinstance(m, cls)]
+    handles += [m.register_forward_pre_hook(before_layer, with_kwargs=True)
+                for m in module.modules() if isinstance(m, (layers.Dense, layers.Conv))]
     before = read_counts()
     run()
     torch.cuda.synchronize()
@@ -1177,11 +1324,14 @@ def launch_bounds(module, run, f32: bool = False):
         h.remove()
     after = read_counts()
     name = (lambda k: F32_NAME[k]) if f32 else (lambda k: k)
+    epilogue_name = EPILOGUE_KERNELS[1 if f32 else 0]
     for k, (n, _) in acc.items():
-        if after[name(k)] - before[name(k)] != n:
-            raise AssertionError(f"{name(k)}: {after[name(k)] - before[name(k)]} launches, "
+        k = name(k)
+        if after[k] - before[k] != n:
+            raise AssertionError(f"{k}: {after[k] - before[k]} launches, "
                                  f"{n} seen by the bound's hooks")
     out = {name(k): {"launches": n, "bound_ms": ms} for k, (n, ms) in acc.items()}
+    out[epilogue_name] = {"launches": epilogue[0], "bound_ms": epilogue[1]}
     out[name("fused_temporal_block")].update(bound_ms_chain=chain_ff[0],
                                              bound_ms_ff=chain_ff[1])
     out[name("fused_spatial_tail")].update(bound_ms_chain=tail_chain_ff[0],
@@ -1363,7 +1513,9 @@ def run_path(steps_a: int, smi: str):
     log(f"path: per denoise step {step_s:.4f} s, rest of a request (text, noise, "
         f"decode) {sec_a - steps_a * step_s:.3f} s; launches per UNet call "
         f"{json.dumps(per_step)}")
-    wrong = {k: per_step[k] for k, n in EXPECTED_PER_UNET_CALL.items() if per_step[k] != n}
+    wrong = {k: per_step[k] for k, n in dict(EXPECTED_PER_UNET_CALL,
+                                             bias_epilogue=EPILOGUE_PER_UNET_CALL).items()
+             if per_step[k] != n}
     if wrong:
         raise AssertionError(f"launches per UNet call {wrong}, expected "
                              f"{EXPECTED_PER_UNET_CALL}")
@@ -2325,11 +2477,13 @@ PLAIN_LOGITS_BYTES = 4e9
 
 def path_kernel_sites():
     """{kernel: (module whose global name the layers call, that name, plain
-    version)} for the six kernels of the model path; plain flash runs in
-    batch chunks (at XL's level 0 its logits would take 40 GB at once)."""
+    version)} for the six kernels of the model path and the bias epilogue
+    (which writes into its first argument, ``IN_PLACE``); plain flash runs
+    in batch chunks (at XL's level 0 its logits would take 40 GB at once)."""
     from dvdx_tpu_torch.models import layers
     from dvdx_tpu_torch.ops import attention
     from dvdx_tpu_torch.ops import groupnorm as gn
+    from dvdx_tpu_torch.ops.kernels import bias_epilogue as be
     from dvdx_tpu_torch.ops.kernels import flash_attention as fa
     from dvdx_tpu_torch.ops.kernels import geglu_ff as gf
     from dvdx_tpu_torch.ops.kernels import spatial_tail as st
@@ -2349,7 +2503,19 @@ def path_kernel_sites():
             "group_norm_act": (layers, "group_norm_act", gn.group_norm_act_plain),
             "fused_spatial_tail": (layers, "fused_spatial_tail", st.fused_spatial_tail_plain),
             "fused_temporal_block": (layers, "fused_temporal_block",
-                                     tb.fused_temporal_block_plain)}
+                                     tb.fused_temporal_block_plain),
+            "bias_epilogue": (layers, "bias_epilogue", be.bias_epilogue_plain)}
+
+
+# the path's wrappers that write their result into their first argument (and
+# whose plain version does too), held to their plain version bit for bit
+IN_PLACE = ("bias_epilogue",)
+
+
+def _fresh(name, args):
+    """args, with the first one copied where the kernel ``name`` writes into
+    it."""
+    return (args[0].clone(), *args[1:]) if name in IN_PLACE else args
 
 
 @contextlib.contextmanager
@@ -2382,15 +2548,18 @@ def recorded_kernel_inputs():
     """Within the block, the inputs of each model-path kernel's first call at
     each distinct signature (shapes, strides, dtypes, options) are kept, with
     the number of calls at it: yields {kernel: {signature: [calls, args,
-    kwargs]}}. The model path changes no tensor in place, so the kept inputs
-    are the ones the kernel was given."""
+    kwargs]}}. The path changes no kernel input in place but the product
+    that the bias epilogue writes into (``IN_PLACE``), which is kept as a
+    copy; so the kept inputs are the ones the kernel was given."""
     seen = {}
 
     def make(name, kern, plain):
         def call(*args, **kwargs):
-            entry = seen.setdefault(name, {}).setdefault(_signature((args, kwargs)),
-                                                         [0, args, kwargs])
-            entry[0] += 1
+            calls = seen.setdefault(name, {})
+            sig = _signature((args, kwargs))
+            if sig not in calls:
+                calls[sig] = [0, _fresh(name, args), kwargs]
+            calls[sig][0] += 1
             return kern(*args, **kwargs)
         return call
 
@@ -2431,8 +2600,9 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 def hold_recorded(seen, where: str, tag: str = "xl"):
     """Each recorded call's kernel against its plain version (2 bf16 ulps of
-    max|plain|, or ``F32_REL_TOL`` of it in float32, and the same bits on a
-    second call), on the inputs the path gave it and on random inputs of the
+    max|plain|, or ``F32_REL_TOL`` of it in float32; bit for bit for the
+    ``IN_PLACE`` epilogue, each call on a copy of the product; and the same
+    bits on a second call), on the inputs the path gave it and on random inputs of the
     same shapes and strides (the
     synthetic checkpoint's small UNet weights leave some outputs at their
     bias, which the path's inputs alone would not test), and its time on the
@@ -2460,23 +2630,27 @@ def _hold_calls(seen, sites, gen, where, summary, rows):
             row = dict(where=where, kernel=name, shapes=shapes, calls=count)
             for inputs, (a, kw) in (("path", (args, kwargs)),
                                     ("random", _random_like((args, kwargs), gen))):
-                out = kern(*a, **kw)
-                ref = plain(*a, **kw)
+                out = kern(*_fresh(name, a), **kw)
+                ref = plain(*_fresh(name, a), **kw)
                 err = (out.float() - ref.float()).abs().max().item()
                 scale = max(ref.float().abs().max().item(), 1e-6)
-                if out.dtype == torch.float32:
+                bitwise = torch.equal(_bits(out), _bits(ref))
+                if name in IN_PLACE:
+                    tol = 0.0
+                elif out.dtype == torch.float32:
                     tol = F32_REL_TOL.get(F32_NAME[name], F32_REL_TOL_DEFAULT) * scale
                 else:
                     tol = TOL_ULPS * 2.0 ** -7 * scale
-                repeat = torch.equal(_bits(out), _bits(kern(*a, **kw)))
+                repeat = torch.equal(_bits(out), _bits(kern(*_fresh(name, a), **kw)))
                 row.update({f"{inputs}_max_abs_err": err, f"{inputs}_tol": tol,
-                            f"{inputs}_repeat_bitwise": repeat})
+                            f"{inputs}_bitwise": bitwise, f"{inputs}_repeat_bitwise": repeat})
                 del out, ref
-                if not (np.isfinite(err) and err <= tol and repeat):
+                if not (np.isfinite(err) and err <= tol and repeat
+                        and (bitwise or name not in IN_PLACE)):
                     raise AssertionError(
                         f"{where}: {name} at {shapes} on {inputs} inputs: kernel disagrees "
-                        f"with its plain version ({err:.3e} > {tol:.3e}) or with itself "
-                        f"(repeat bitwise: {repeat})")
+                        f"with its plain version ({err:.3e} > {tol:.3e}, bitwise: {bitwise}) "
+                        f"or with itself (repeat bitwise: {repeat})")
                 s["max_abs_err"] = max(s["max_abs_err"], err)
             row["ms"] = cuda_ms(lambda: kern(*args, **kwargs), 3)
             rows.append(row)
@@ -2581,6 +2755,8 @@ def run_xl(root: str, written: dict, smi: str):
     with recorded_kernel_inputs() as seen_unet:
         out["bound_per_unet_call"] = launch_bounds(pipe.unet, lambda: one_call("kernels"))
     log(f"xl: bound per cfg_split UNet call {json.dumps(out['bound_per_unet_call'])}")
+    _require(out["bound_per_unet_call"]["bias_epilogue"]["launches"] == EPILOGUE_PER_UNET_CALL,
+             "xl: bias_epilogue launches per UNet call", out["bound_per_unet_call"])
     # every input that call handed a kernel, held against the plain version;
     # then the whole call through the plain versions
     out["held_per_unet_call"], held_rows = hold_recorded(seen_unet, "unet call")
@@ -2856,9 +3032,11 @@ def run_float32(root: str, smi: str) -> dict:
                                                    f32=True)
     bounds = out["bound_per_unet_call"]
     _require({k: bounds[k]["launches"] for k in F32_KERNELS}
-             == F32_EXPECTED_PER_UNET_CALL, "phase 13(b): one UNet call's launches", bounds)
+             == F32_EXPECTED_PER_UNET_CALL
+             and bounds["bias_epilogue_f32"]["launches"] == EPILOGUE_PER_UNET_CALL,
+             "phase 13(b): one UNet call's launches", bounds)
     held, held_rows = hold_recorded(seen_unet, "unet call", tag="float32")
-    out["held_per_unet_call"] = {F32_NAME[k]: v for k, v in held.items()}
+    out["held_per_unet_call"] = {F32_NAME.get(k, k + "_f32"): v for k, v in held.items()}
     del seen_unet
     _require(all(out["held_per_unet_call"][k]["launches"] == bounds[k]["launches"]
                  for k in F32_KERNELS),
@@ -2878,7 +3056,7 @@ def run_float32(root: str, smi: str) -> dict:
     with recorded_kernel_inputs() as seen_vae:
         out["bound_vae_frame"] = launch_bounds(pipe.vae_decoder, decode_one_frame, f32=True)
     held_vae, vae_rows = hold_recorded(seen_vae, "vae frame", tag="float32")
-    out["held_vae_frame"] = {F32_NAME[k]: v for k, v in held_vae.items()}
+    out["held_vae_frame"] = {F32_NAME.get(k, k + "_f32"): v for k, v in held_vae.items()}
     del seen_vae
     frame_k = decode_one_frame()
     with swapped_kernels(lambda name, kern, plain: plain):
@@ -3859,7 +4037,8 @@ def main():
                      ("spatial_tail", ("spatial_tail_chain",)),
                      ("temporal_attention", ("temporal_attn_tma",)),
                      ("attention_f32", ("attention_f32_mma", "attention_f32_frames")),
-                     ("geglu_ff", ("f32_gemm",))):
+                     ("geglu_ff", ("f32_gemm",)),
+                     ("bias_epilogue", ("bias_epilogue_rows",))):
         lines = build[k]["ptxas"].splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(n in line for n in names):

@@ -35,7 +35,11 @@ Layout: activations stay channel-last, (N, H, W, C) per frame and
 
 bf16 rounding points follow the reference's ``nn.Dense(dtype=...)``: a
 linear layer or convolution rounds its float32-accumulated product to the
-activation dtype, then adds the bias in that dtype. LayerNorm and GroupNorm
+activation dtype, then adds the bias in that dtype, and a residual add that
+follows the layer adds to that rounded sum; the two adds run as one
+``bias_epilogue`` pass (a kernel on the card, in place over the product,
+ATen's adds bit for bit), so a block hands its residual to its last layer's
+``forward``. LayerNorm and GroupNorm
 statistics are float32; attention softmax is float32 with probabilities cast
 to V's dtype; GELU is the exact-erf form.
 """
@@ -51,6 +55,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention, ring_active, ring_mesh
 from ..ops.groupnorm import group_norm_act, group_norm_act_sharded
+from ..ops.kernels.bias_epilogue import bias_epilogue
 from ..ops.kernels.geglu_ff import geglu_ff
 from ..ops.kernels import spatial_tail
 from ..ops.kernels import temporal_attention as frame_attention
@@ -99,29 +104,34 @@ def temporal_attention_wants(frames: int, head_dim: int) -> bool:
             and 8 <= head_dim <= frame_attention.MAX_HEAD_DIM)
 
 
-class Dense(nn.Linear):
-    """``flax.linen.Dense``: x W^T rounded to x's dtype, then + bias."""
+def _epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
+              residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """The layer's product y, + bias in y's dtype, then residual + that."""
+    if bias is not None:
+        return bias_epilogue(y, bias.to(y.dtype), residual)
+    return y if residual is None else residual + y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(x.dtype))
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
-        return y
+
+class Dense(nn.Linear):
+    """``flax.linen.Dense``: x W^T rounded to x's dtype, then + bias; with
+    ``residual``, residual + that."""
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _epilogue(F.linear(x, self.weight.to(x.dtype)), self.bias, residual)
 
 
 class Conv(nn.Conv2d):
     """``flax.linen.Conv`` over channel-last (N, H, W, C): the product
-    rounded to x's dtype, then + bias. A (3, 1, 1) temporal conv over
-    (B, F, H, W, C) is the same layer with kernel (3, 1) on the
-    (B, F, H*W, C) view."""
+    rounded to x's dtype, then + bias; with ``residual`` (the output's
+    shape), residual + that. A (3, 1, 1) temporal conv over (B, F, H, W, C)
+    is the same layer with kernel (3, 1) on the (B, F, H*W, C) view."""
 
-    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding=None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None,
                      self.stride, self.padding if padding is None else padding)
-        y = y.permute(0, 2, 3, 1)
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
-        return y
+        return _epilogue(y.permute(0, 2, 3, 1), self.bias, residual)
 
 
 class GroupNorm(nn.Module):
@@ -204,9 +214,8 @@ class ResnetBlock2D(nn.Module):
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
         t = self.time_emb_proj(F.silu(temb))
-        h = self.conv2(self.norm2(h, bias=t))
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
-        return residual + h
+        return self.conv2(self.norm2(h, bias=t), residual=residual)
 
 
 class TemporalConvBlock(nn.Module):
@@ -232,10 +241,12 @@ class TemporalConvBlock(nn.Module):
             last = i == self.num_layers - 1
             h = getattr(self, f"norm{i}").over_frames(h)
             conv = getattr(self, f"conv{i}_zero" if last else f"conv{i}")
+            residual = x.reshape(h.shape) if last else None
             # frames sharded: the neighbours' edge frames stand in for the
             # frame padding
-            h = conv(h) if ctx is None else conv(frame_halo(h, *ctx), padding=(0, 0))
-        return x + h.reshape(x.shape)
+            h = (conv(h, residual=residual) if ctx is None
+                 else conv(frame_halo(h, *ctx), padding=(0, 0), residual=residual))
+        return h.reshape(x.shape)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -282,9 +293,10 @@ class Attention(nn.Module):
         o = multi_head_attention(q, k, v)
         return o.reshape(b, s, self.heads * self.head_dim)
 
-    def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.to_out(self.attend(x, context))
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """to_out of the heads' output; with ``residual``, residual + that."""
+        return self.to_out(self.attend(x, context), residual=residual)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -324,8 +336,8 @@ class BasicTransformerBlock(nn.Module):
             return fused_spatial_tail(
                 x, o1, self.attn2.to_k(context), self.attn2.to_v(context),
                 self.tail_params(), heads=self.attn1.heads, eps=self.norm2.eps)
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = self.attn1(self.norm1(x), residual=x)
+        x = self.attn2(self.norm2(x), context, residual=x)
         return x + self.ff(self.norm3(x))
 
 
@@ -345,8 +357,8 @@ class SpatialTransformer(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         n, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(n, hh * ww, c))
-        h = self.proj_out_zero(self.block0(h, context))
-        return x + h.reshape(x.shape)
+        return self.proj_out_zero(self.block0(h, context),
+                                  residual=x.reshape(h.shape)).reshape(x.shape)
 
 
 class _FrameAxisAttention(nn.Module):
@@ -365,7 +377,10 @@ class _FrameAxisAttention(nn.Module):
         self.to_v = Dense(dim, inner, bias=False)
         self.to_out = Dense(inner, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """to_out of the frame-axis attention; with ``residual``, residual +
+        that."""
         if ring_active():
             # frames sharded: (B*N, F, H, D) through ring / Ulysses attention
             b, f, n, _ = x.shape
@@ -377,11 +392,13 @@ class _FrameAxisAttention(nn.Module):
 
             o = multi_head_attention(to_ring(self.to_q(x)), to_ring(self.to_k(x)),
                                      to_ring(self.to_v(x)), impl="ring")
-            return self.to_out(o.reshape(b, n, f, self.heads * d).transpose(1, 2))
+            return self.to_out(o.reshape(b, n, f, self.heads * d).transpose(1, 2),
+                               residual=residual)
         attend = (temporal_attention
                   if temporal_attention_wants(x.shape[1], self.to_q.out_features // self.heads)
                   else temporal_attention_plain)
-        return self.to_out(attend(self.to_q(x), self.to_k(x), self.to_v(x), heads=self.heads))
+        return self.to_out(attend(self.to_q(x), self.to_k(x), self.to_v(x), heads=self.heads),
+                           residual=residual)
 
 
 class _TemporalBlock(nn.Module):
@@ -423,8 +440,8 @@ class _TemporalBlock(nn.Module):
         if self.fused(x):
             return fused_temporal_block(x, self.block_params(),
                                         heads=self.attn1.heads, eps=self.norm1.eps)
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x))
+        x = self.attn1(self.norm1(x), residual=x)
+        x = self.attn2(self.norm2(x), residual=x)
         return x + self.ff(self.norm3(x))
 
 
@@ -447,8 +464,8 @@ class TransformerTemporal(nn.Module):
         is taken so both temporal styles share one call."""
         b, f, hh, ww, c = x.shape
         h = self.norm.over_frames(x).reshape(b, f, hh * ww, c)
-        h = self.proj_out_zero(self.block0(self.proj_in(h)))
-        return x + h.reshape(x.shape)
+        return self.proj_out_zero(self.block0(self.proj_in(h)),
+                                  residual=x.reshape(h.shape)).reshape(x.shape)
 
 
 def rotary_embed(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

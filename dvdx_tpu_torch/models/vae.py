@@ -62,8 +62,8 @@ class _VAEResnet(nn.Module):
                          if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
-        return (x if self.shortcut is None else self.shortcut(x)) + h
+        h = self.norm2(self.conv1(self.norm1(x)))
+        return self.conv2(h, residual=x if self.shortcut is None else self.shortcut(x))
 
 
 class _VAEAttention(nn.Module):
@@ -81,7 +81,7 @@ class _VAEAttention(nn.Module):
         n, hh, ww, c = x.shape
         y = self.norm(x).reshape(n, hh * ww, 1, c)
         o = multi_head_attention(self.q(y), self.k(y), self.v(y))
-        return x + self.proj(o).reshape(x.shape)
+        return self.proj(o, residual=x.reshape(y.shape)).reshape(x.shape)
 
 
 class VAEDecoder(nn.Module):

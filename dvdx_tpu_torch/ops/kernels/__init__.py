@@ -8,6 +8,7 @@ Each wrapper adds one to a module-level counter where it launches its kernel
 def launch_counters() -> dict:
     """{kernel: (module, name of its launch counter)} for every kernel."""
     from .. import groupnorm as gn
+    from . import bias_epilogue as be
     from . import flash_attention as fa
     from . import geglu_ff as gf
     from . import spatial_tail as st
@@ -25,7 +26,8 @@ def launch_counters() -> dict:
             "flash_attention_f32": (fa, "F32_LAUNCHES"),
             "temporal_attention_f32": (ta, "F32_LAUNCHES"),
             "fused_spatial_tail_f32": (st, "F32_LAUNCHES"),
-            "fused_temporal_block_f32": (tb, "F32_LAUNCHES")}
+            "fused_temporal_block_f32": (tb, "F32_LAUNCHES"),
+            "bias_epilogue": (be, "LAUNCHES"), "bias_epilogue_f32": (be, "F32_LAUNCHES")}
 
 
 def launch_counts() -> dict:

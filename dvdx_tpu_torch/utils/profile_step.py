@@ -52,6 +52,7 @@ GROUPS = (
     ("attention_f32", ("attention_f32",)),
     ("geglu_ff", ("geglu_ff_", "geglu_stage")),
     ("group_norm_act", ("gn_fused", "gn_moments", "gn_apply")),
+    ("bias_epilogue", ("bias_epilogue",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )

@@ -18,6 +18,7 @@ import torch
 
 from dvdx_tpu_torch.ops import groupnorm as tgn
 from dvdx_tpu_torch.ops.kernels import attention_f32 as tatt32
+from dvdx_tpu_torch.ops.kernels import bias_epilogue as tbias
 from dvdx_tpu_torch.ops.kernels import flash_attention as tflash
 from dvdx_tpu_torch.ops.kernels import geglu_ff as tff
 from dvdx_tpu_torch.ops.kernels import spatial_tail as ttail
@@ -161,6 +162,33 @@ def test_group_norm_kernel_matches_plain(cuda, n, l, c, act, with_bias):
     torch.cuda.synchronize()
     assert tgn.LAUNCHES == before + 1
     _check(got, tgn.group_norm_act_plain(x, gamma, beta, **kw))
+
+
+# (rows, C) of the biased layer outputs on the main path: zeroscope-v2-576w
+# (CFG batch 2 x 16 frames) and zeroscope-v2-xl (batch 1 x 24 frames) at
+# levels 0-3, the time embedding's rows, one 576x320 frame's VAE decode at
+# its three widths; off it, a row of two 256-octet segments (the text
+# tower's MLP) and one whose second segment is ragged
+@pytest.mark.parametrize("rows,c", [
+    (92160, 320), (23040, 640), (5760, 1280), (1440, 1280), (221184, 320), (55296, 640),
+    (13824, 1280), (3456, 1280), (2, 1280), (184320, 128), (46080, 256), (11520, 512),
+    (154, 4096), (77, 2400)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+def test_bias_epilogue_kernel_is_atens_adds(cuda, rows, c, dtype, residual):
+    """The kernel in place over y, bit for bit ATen's y + b and r + (y + b)."""
+    g = torch.Generator(device=cuda).manual_seed(rows + c)
+    y = (torch.randn((rows, c), generator=g, device=cuda) * 3).to(dtype)
+    b = torch.randn((c,), generator=g, device=cuda).to(dtype)
+    r = torch.randn((rows, c), generator=g, device=cuda).to(dtype) if residual else None
+    want = y + b if r is None else r + (y + b)
+    counter = "F32_LAUNCHES" if dtype == torch.float32 else "LAUNCHES"
+    before = getattr(tbias, counter)
+    got = tbias.bias_epilogue(y, b, r)
+    torch.cuda.synchronize()
+    assert getattr(tbias, counter) == before + 1 and got.data_ptr() == y.data_ptr()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
 
 
 def _params(keys, shapes, seed, device):

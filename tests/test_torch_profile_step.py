@@ -4,12 +4,19 @@ profiler reports them on the card: each of the port's kernels lands in its
 own group, the GEGLU products of the fused kernels in their fused kernel's
 group beside its chain, GroupNorm's kernels (the one-device kernel and the
 frame-sharded entries' moments-out and moments-in) in GroupNorm's (and no
-ATen kernel whose name merely contains "gn_"), and library kernels in
-theirs."""
+ATen kernel whose name merely contains "gn_"), the bias epilogue in its own,
+and library kernels in theirs."""
 
 import pytest
 
 from dvdx_tpu_torch.utils.profile_step import group_of
+
+# the bias epilogue's two instances as the profiler names them
+EPILOGUE_NAMES = (
+    "void dvdx::(anonymous namespace)::bias_epilogue_rows<__nv_bfloat16, true>(__nv_bfloat16*, "
+    "__nv_bfloat16 const*, __nv_bfloat16 const*, long long, int, int, int)",
+    "void dvdx::(anonymous namespace)::bias_epilogue_rows<float, false>(float*, float const*, "
+    "float const*, long long, int, int, int)")
 
 
 @pytest.mark.parametrize("name,group", [
@@ -48,9 +55,19 @@ from dvdx_tpu_torch.utils.profile_step import group_of
     ("nvjet_tst_320x128_64x3_1x2_h_bz_coopB_TNT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::FillFunctor<c10::BFloat16>",
      "other"),
-])
+] + [(name, "bias_epilogue") for name in EPILOGUE_NAMES])
 def test_kernel_names_land_in_their_groups(name, group):
     assert group_of(name) == group
+
+
+@pytest.mark.parametrize("name", EPILOGUE_NAMES)
+def test_benchmark_counts_the_epilogue_as_no_named_kernel(name):
+    """The benchmark's own copy of the grouping (``portbench/trace.py``)
+    finds none of its fragments in the epilogue's name: not a convolution,
+    not a product, not one of the six model-path kernels."""
+    from portbench.trace import group_of as bench_group_of
+
+    assert bench_group_of(name) == "other"
 
 
 def test_kernel_probe_instruments_the_current_sources():
