@@ -6,6 +6,8 @@
         # kernels alone (names as in the kernels line): their rows, no
         # contract line; a quick timing of a kernel's change, e.g. a copy of
         # the parent's package beside a copy of this script, run in one call
+    python3 chip_smoke.py --cogvideox-hf   # phase 1, phase 2 for the CogVideoX
+        # block's three kernels, and phase 14
 
 Phases, each printing on its own lines; any failure raises and exits nonzero:
   1. the card's name and power limit (nvidia-smi), torch / CUDA versions;
@@ -35,7 +37,11 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      frame-sharded GroupNorm's two entries (moments-out: the float32 moments
      of its float64 sums bit-equal to the plain version's; moments-in given
      the same moments) at the UNet's level-0 and level-2 frame-sharded
-     norms, with kernel /
+     norms, and the published CogVideoX block's three kernels at
+     cogvideox-5b-hf's shapes (``qk_norm_rope`` over (2, 17,776, 48, 64),
+     ``bias_gelu`` at C = 12,288, ``gated_residual`` at C = 3072; each
+     output within one bf16 rounding step of the plain version's, at least
+     99% the same bits), with kernel /
      plain / library times
      (CUDA events, the launches queued behind a device spin), the roofline
      bound (the fused kernels' also split into their chain and FF launches),
@@ -133,6 +139,21 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      576x320 image (25 steps, CFG 3.0, recorded) twice, bit for bit; every
      distinct kernel input of one batched UNet call and of one VAE encode
      held against the plain versions, and that call through them;
+ 14. the published CogVideoX-5B, ``cogvideox-5b-hf`` (5.57 B + the 4.76 B
+     T5 encoder, bf16, weights drawn on the card; run after phase 9): a
+     recorded request at its benchmark geometry (13 x 480x720: 226 text +
+     17,550 video = 17,776 joint tokens, 2 steps, every frame decoded);
+     one CFG step (one batch-2 DiT call) with the launch counters set to 0
+     just before it, which must launch per block one ``qk_norm_rope``, one
+     flash attention, one ``bias_gelu`` and two ``gated_residual``, and 132
+     bias epilogues a call, and nothing else; that step's kernel inputs,
+     recorded where the layers call them, held against the plain versions
+     on those inputs and on random ones of the same shapes and strides:
+     the block's three kernels within one bf16 rounding step of their plain
+     versions with at least 99% of the outputs the same bits, the bias
+     epilogue bit for bit (to_qkv over 2 x 17,776 rows of 9,216), flash at
+     (2, 17,776, 48, 64) on query-row slices; the same bits on a second
+     call; each kernel's ms beside its bound (``cogvideox_hf.json``);
  10. the distribution pillar (``dvdx_tpu_torch.parallel``) on Request A's
      model, prompt and seed (16 x 576x320, 25 steps, CFG 7.5): single,
      chunk, hybrid_ctx and precond through ``build_runner`` in this process
@@ -214,7 +235,8 @@ Phases, each printing on its own lines; any failure raises and exits nonzero:
      in each of the 6 fused blocks) on its short-sequence body;
   then a ``kernels`` JSON line (each kernel's ``launches`` from the path
   that runs it: Request A, phase 12(c)'s two ranks for the two sharded
-  GroupNorm entries, or phase 13's float32 request for the float32 kernels
+  GroupNorm entries, phase 13's float32 request for the float32 kernels,
+  or phase 14's request for the CogVideoX block's three
   (phase 6's round under ``launches_cross_device_round``, phase 13's UNet
   call and frame under ``float32_per_unet_call`` / ``float32_vae_frame``);
   0 for those phase 2 alone holds; ``launches_xl`` from phase 7's request;
@@ -901,6 +923,12 @@ KERNEL_META = {
     # bf16 and float32: no TPU kernel (XLA fuses the bias add into the product)
     "bias_epilogue": ("dvdx_tpu_torch/csrc/bias_epilogue.cu", None),
     "bias_epilogue_f32": ("dvdx_tpu_torch/csrc/bias_epilogue.cu", None),
+    # the published CogVideoX block's QK-LayerNorm and rotation, and its
+    # feed-forward / gated-residual epilogues: no TPU kernel (the JAX
+    # package has no such block)
+    "qk_norm_rope": ("dvdx_tpu_torch/csrc/qk_norm_rope.cu", None),
+    "bias_gelu": ("dvdx_tpu_torch/csrc/dit_epilogue.cu", None),
+    "gated_residual": ("dvdx_tpu_torch/csrc/dit_epilogue.cu", None),
 }
 # the two entries phase 12's two-half split runs
 SHARDED_GN_PATH = ("group_norm_moments_out", "group_norm_moments_in")
@@ -1080,6 +1108,138 @@ def check_bias_epilogue():
         json.dump(host, f, indent=1)
 
 
+COG_HF_MODEL = "cogvideox-5b-hf"
+# the geometry of a cogvideox-5b-hf request (portbench's configuration):
+# 13 latent frames of 60 x 90, 226 text + 13 * 30 * 45 = 17,776 joint tokens
+COG_HF = dict(num_frames=13, height=480, width=720, guidance_scale=6.0)
+COG_HF_TOKENS = 226 + 13 * 30 * 45
+COG_HF_STEPS = 2       # the recorded request's steps (of the family's 50)
+# kernel launches per DiT call (both guidance rows in one batch-2 call): a
+# qk_norm_rope, a flash attention, a bias_gelu and two gated_residual a
+# block; the bias epilogue on every other Dense, 3 a block (norm1's and
+# norm2's modulation, to_qkv) and 6 around them (the time embedding's two
+# layers, patch_embed, text_proj, norm_out's modulation, proj_out)
+COG_HF_PER_DIT_CALL = {"qk_norm_rope": 42, "bias_gelu": 42, "gated_residual": 84,
+                       "flash_attention": 42, "bias_epilogue": 3 * 42 + 6}
+# the block's own kernels, which only phase 14's model runs
+COG_HF_PATH = ("qk_norm_rope", "bias_gelu", "gated_residual")
+# kernel and plain version both compute in float32 and round once to bf16,
+# in another order: each output within one bf16 rounding step of the plain
+# value (2^-7 of it; near zero 2^-7 of 2^-8 of the largest output), and at
+# least this share of the outputs the same bits
+COG_HF_SAME_BITS = 0.99
+
+
+def cog_hf_kernel_sites():
+    """{kernel: (module whose global name the CogVideoX block calls, that
+    name, plain version)} for the block's three kernels (``bias_gelu`` and
+    ``gated_residual`` write into their first argument, ``IN_PLACE``)."""
+    from dvdx_tpu_torch.models import cogvideox
+    from dvdx_tpu_torch.ops.kernels import dit_epilogue as de
+    from dvdx_tpu_torch.ops.kernels import qk_norm_rope as qk
+
+    def qk_plain(q, k, norm_q, norm_k, cos, sin, n_text):
+        return tuple(qk.qk_norm_rope_plain(x, n.weight, n.bias, n.eps, cos, sin, n_text)
+                     for x, n in ((q, norm_q), (k, norm_k)))
+
+    return {"qk_norm_rope": (cogvideox, "qk_norm_rope", qk_plain),
+            "bias_gelu": (cogvideox, "bias_gelu_", de.bias_gelu_plain),
+            "gated_residual": (cogvideox, "gated_residual_", de.gated_residual_plain)}
+
+
+def cog_hf_cost(name, args):
+    """(flops, bytes) of one launch of a CogVideoX block kernel on ``args``:
+    each input read once and each output written once in bf16 (the rotary
+    tables in float32); the float32 arithmetic about 10 operations a value
+    for the norm and rotation and for the tanh-GELU, 3 for the gated add."""
+    if name == "qk_norm_rope":
+        q, cos = args[0], args[4]
+        values = 2 * q.numel()
+        return 10.0 * values, values * 2 * 2 + 2 * cos.numel() * 4
+    y = args[0] if name == "bias_gelu" else args[1]
+    c = y.shape[-1]
+    if name == "bias_gelu":
+        return 10.0 * y.numel(), (2 * y.numel() + c) * 2
+    return 3.0 * y.numel(), (3 * y.numel() + c + 2 * y.shape[0] * c) * 2
+
+
+def _one_rounding(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``COG_HF_SAME_BITS``' criterion of one output against the plain
+    version's."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = 2.0 ** -7 * torch.maximum(want.abs(), want.abs().max() * 2.0 ** -8)
+    return dict(max_abs_err=err.max().item(), over_tol=int((err > tol).sum()),
+                same_bits=(got == want).float().mean().item())
+
+def check_cog_hf_kernels():
+    """The CogVideoX block's three kernels at cogvideox-5b-hf's shapes (batch
+    2 for the guidance pair, 17,776 joint tokens, 48 heads of 64; C = 3072
+    and 12,288) on random inputs, against their plain versions
+    (``_one_rounding``; in-place calls on a copy) and themselves (the same
+    bits again); timed beside the plain version and the bytes bound. Yields
+    (row, t_ops, t_bytes)."""
+    from dvdx_tpu_torch.models.cogvideox import CogVideoXConfig, rope_tables
+    from dvdx_tpu_torch.models.layers import LayerNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    b, s, h, d, c, t = 2, COG_HF_TOKENS, 48, 64, 3072, 226
+    qkv = randn((b, s, 3, h, d), gen, 2.0, 0.5)
+    norms = []
+    for _ in range(2):
+        n = LayerNorm(d, eps=1e-6).to("cuda").bfloat16().requires_grad_(False)
+        n.weight.copy_(randn((d,), gen, 0.05, 1.0))
+        n.bias.copy_(randn((d,), gen, 0.05))
+        norms.append(n)
+    cos, sin = (x[:, None].cuda() for x in rope_tables(CogVideoXConfig(), 13, 30, 45))
+    emb6 = randn((b, 1, 6 * c), gen, 0.5)
+    cases = (("qk_norm_rope", "joint_qk", (qkv[:, :, 0], qkv[:, :, 1], *norms, cos, sin, t)),
+             ("bias_gelu", "ff_proj_in", (randn((b, s, 4 * c), gen, 1.5),
+                                          randn((4 * c,), gen, 0.05))),
+             ("gated_residual", "to_out_and_ff_proj_out", (
+                 randn((b, s, c), gen, 4.0), randn((b, s, c), gen), randn((c,), gen, 0.05),
+                 emb6[..., 2 * c:3 * c], emb6[..., 5 * c:], t)))
+    sites = cog_hf_kernel_sites()
+    for name, label, args in cases:
+        mod, attr, plain = sites[name]
+        kern = getattr(mod, attr)
+        with torch.inference_mode():
+            out, again, ref = (((x,) if isinstance(x, torch.Tensor) else x)
+                               for x in (fn(*_fresh(name, args)) for fn in (kern, kern, plain)))
+            close = [_one_rounding(o, r) for o, r in zip(out, ref)]
+            repeat = all(torch.equal(_bits(o), _bits(x)) for o, x in zip(out, again))
+            scale = max(r.float().abs().max().item() for r in ref)
+            del out, again, ref
+            fresh = _fresh(name, args)
+            ms = cuda_ms(lambda: kern(*fresh), 10)
+            plain_ms = cuda_ms(lambda: plain(*fresh), 2)
+            del fresh
+        err = max(x["max_abs_err"] for x in close)
+        over = sum(x["over_tol"] for x in close)
+        same = min(x["same_bits"] for x in close)
+        flops, nbytes = cog_hf_cost(name, args)
+        bms, bby = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        ok = bool(np.isfinite(err)) and over == 0 and same >= COG_HF_SAME_BITS and repeat
+        row = dict(kernel=name, shape=label, max_abs_err=err, tol=None, max_abs_ref=scale,
+                   repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bms, bound_by=bby, main_path=True, ok=ok, bound_ms_parts=None,
+                   plain_on=None, over_tol=over, same_bits=same,
+                   held_as="each output within one bf16 rounding step, "
+                           f">= {COG_HF_SAME_BITS:.0%} the same bits")
+        log(f"kernel {name:20s} {label:28s} err={err:.3e} over_one_step={over} "
+            f"same_bits={same:.6f} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
+            f"({bby}, {100 * bms / ms:.1f}% of it) repeat_bitwise={repeat} "
+            f"{'OK' if ok else 'FAIL'}")
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"{name} {label}: kernel disagrees with its plain version "
+                                 f"({over} outputs over one rounding step, {same:.6f} the "
+                                 f"same bits) or with itself (repeat bitwise: {repeat})")
+        yield row, flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    del qkv, norms, cos, sin, emb6
+    torch.cuda.empty_cache()
+
+
 def check_kernels(only=None):
     """Each case's kernel against its plain version (the kernels named in
     ``only``, or all). Returns ({kernel: sums over its main-path shapes, or
@@ -1137,6 +1297,11 @@ def check_kernels(only=None):
         _add_sum(sums, row, flops / peak, nbytes / PEAK_BYTES)
     if only is None or set(only) & set(EPILOGUE_KERNELS):
         for row, t_ops, t_bytes in check_bias_epilogue():
+            if only is None or row["kernel"] in only:
+                rows.append(row)
+                _add_sum(sums, row, t_ops, t_bytes)
+    if only is None or set(only) & set(COG_HF_PATH):
+        for row, t_ops, t_bytes in check_cog_hf_kernels():
             if only is None or row["kernel"] in only:
                 rows.append(row)
                 _add_sum(sums, row, t_ops, t_bytes)
@@ -2508,8 +2673,11 @@ def path_kernel_sites():
 
 
 # the path's wrappers that write their result into their first argument (and
-# whose plain version does too), held to their plain version bit for bit
-IN_PLACE = ("bias_epilogue",)
+# whose plain version does too): the recorder and each held call take a copy
+# of it
+IN_PLACE = ("bias_epilogue", "bias_gelu", "gated_residual")
+# of those, the ones held to their plain version bit for bit
+BITWISE = ("bias_epilogue",)
 
 
 def _fresh(name, args):
@@ -2519,10 +2687,11 @@ def _fresh(name, args):
 
 
 @contextlib.contextmanager
-def swapped_kernels(make):
-    """Within the block, each model-path wrapper, where the layers call it,
-    is make(kernel, wrapper, plain version)."""
-    sites = path_kernel_sites()
+def swapped_kernels(make, sites=None):
+    """Within the block, each model-path wrapper (of ``sites``, by default
+    ``path_kernel_sites()``), where the layers call it, is make(kernel,
+    wrapper, plain version)."""
+    sites = path_kernel_sites() if sites is None else sites
     saved = {name: getattr(mod, attr) for name, (mod, attr, _) in sites.items()}
     for name, (mod, attr, plain) in sites.items():
         setattr(mod, attr, make(name, saved[name], plain))
@@ -2536,6 +2705,8 @@ def swapped_kernels(make):
 def _signature(x):
     if isinstance(x, torch.Tensor):
         return tuple(x.shape), tuple(x.stride()), str(x.dtype)
+    if isinstance(x, torch.nn.Module):  # a layer handed to a kernel: its parameters' layout
+        return type(x).__name__, tuple((k, _signature(v)) for k, v in x.named_parameters())
     if isinstance(x, dict):
         return tuple((k, _signature(v)) for k, v in sorted(x.items()))
     if isinstance(x, (tuple, list)):
@@ -2544,13 +2715,14 @@ def _signature(x):
 
 
 @contextlib.contextmanager
-def recorded_kernel_inputs():
-    """Within the block, the inputs of each model-path kernel's first call at
-    each distinct signature (shapes, strides, dtypes, options) are kept, with
+def recorded_kernel_inputs(sites=None):
+    """Within the block, the inputs of each model-path kernel's (of
+    ``sites``, by default ``path_kernel_sites()``) first call at each
+    distinct signature (shapes, strides, dtypes, options) are kept, with
     the number of calls at it: yields {kernel: {signature: [calls, args,
-    kwargs]}}. The path changes no kernel input in place but the product
-    that the bias epilogue writes into (``IN_PLACE``), which is kept as a
-    copy; so the kept inputs are the ones the kernel was given."""
+    kwargs]}}. The path changes no kernel input in place but the tensor
+    that an ``IN_PLACE`` wrapper writes into, which is kept as a copy; so
+    the kept inputs are the ones the kernel was given."""
     seen = {}
 
     def make(name, kern, plain):
@@ -2563,7 +2735,7 @@ def recorded_kernel_inputs():
             return kern(*args, **kwargs)
         return call
 
-    with swapped_kernels(make):
+    with swapped_kernels(make, sites):
         yield seen
 
 
@@ -2601,7 +2773,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 def hold_recorded(seen, where: str, tag: str = "xl"):
     """Each recorded call's kernel against its plain version (2 bf16 ulps of
     max|plain|, or ``F32_REL_TOL`` of it in float32; bit for bit for the
-    ``IN_PLACE`` epilogue, each call on a copy of the product; and the same
+    ``BITWISE`` epilogue, each call on a copy of the product; and the same
     bits on a second call), on the inputs the path gave it and on random inputs of the
     same shapes and strides (the
     synthetic checkpoint's small UNet weights leave some outputs at their
@@ -2635,7 +2807,7 @@ def _hold_calls(seen, sites, gen, where, summary, rows):
                 err = (out.float() - ref.float()).abs().max().item()
                 scale = max(ref.float().abs().max().item(), 1e-6)
                 bitwise = torch.equal(_bits(out), _bits(ref))
-                if name in IN_PLACE:
+                if name in BITWISE:
                     tol = 0.0
                 elif out.dtype == torch.float32:
                     tol = F32_REL_TOL.get(F32_NAME[name], F32_REL_TOL_DEFAULT) * scale
@@ -2646,7 +2818,7 @@ def _hold_calls(seen, sites, gen, where, summary, rows):
                             f"{inputs}_bitwise": bitwise, f"{inputs}_repeat_bitwise": repeat})
                 del out, ref
                 if not (np.isfinite(err) and err <= tol and repeat
-                        and (bitwise or name not in IN_PLACE)):
+                        and (bitwise or name not in BITWISE)):
                     raise AssertionError(
                         f"{where}: {name} at {shapes} on {inputs} inputs: kernel disagrees "
                         f"with its plain version ({err:.3e} > {tol:.3e}, bitwise: {bitwise}) "
@@ -3573,6 +3745,201 @@ def run_families(smi: str) -> dict:
     return out
 
 
+# --- phase 14: the published CogVideoX-5B (cogvideox-5b-hf) ------------------
+
+def hold_cog_hf_kernels(seen) -> tuple:
+    """Each recorded call of the block's three kernels against its plain
+    version (``_one_rounding``; each in-place call on a copy) and against
+    itself (the same bits on a second call), on the inputs the path gave it
+    and on random inputs of the same shapes and strides; its device time on
+    the path's inputs beside its bytes bound -> ({kernel: {"shapes",
+    "launches", "ms", "bound_ms", "roofline_pct", "max_abs_err",
+    "min_same_bits"}}, rows)."""
+    sites = cog_hf_kernel_sites()
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    summary, rows = {}, []
+    with torch.inference_mode():
+        for name, calls in seen.items():
+            mod, attr, plain = sites[name]
+            kern = getattr(mod, attr)
+            s = summary.setdefault(name, dict(shapes=0, launches=0, ms=0.0, bound_ms=0.0,
+                                              max_abs_err=0.0, min_same_bits=1.0))
+            for count, args, kwargs in calls.values():
+                shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+                row = dict(kernel=name, shapes=shapes, calls=count)
+                for inputs, (a, kw) in (("path", (args, kwargs)),
+                                        ("random", _random_like((args, kwargs), gen))):
+                    out = kern(*_fresh(name, a), **kw)
+                    again = kern(*_fresh(name, a), **kw)
+                    ref = plain(*_fresh(name, a), **kw)
+                    out, again, ref = ((x,) if isinstance(x, torch.Tensor) else x
+                                       for x in (out, again, ref))
+                    close = [_one_rounding(o, r) for o, r in zip(out, ref)]
+                    repeat = all(torch.equal(_bits(o), _bits(x)) for o, x in zip(out, again))
+                    del out, again, ref
+                    err = max(c["max_abs_err"] for c in close)
+                    same = min(c["same_bits"] for c in close)
+                    over = sum(c["over_tol"] for c in close)
+                    row.update({f"{inputs}_max_abs_err": err, f"{inputs}_over_tol": over,
+                                f"{inputs}_same_bits": same, f"{inputs}_repeat_bitwise": repeat})
+                    log(f"cogvideox-hf: {name} at {shapes} on {inputs} inputs: max err "
+                        f"{err:.3e}, {over} outputs over one rounding step, same bits "
+                        f"{same:.6f}, repeat bitwise {repeat}")
+                    _require(np.isfinite(err) and over == 0 and same >= COG_HF_SAME_BITS
+                             and repeat, f"cogvideox-hf: {name} at {shapes} on {inputs} "
+                             f"inputs against its plain version and itself", row)
+                    s["max_abs_err"] = max(s["max_abs_err"], err)
+                    s["min_same_bits"] = min(s["min_same_bits"], same)
+                fresh = _fresh(name, args)
+                row["ms"] = cuda_ms(lambda: kern(*fresh, **kwargs), 5)
+                row["bound_ms"], row["bound_by"] = bound_ms(*cog_hf_cost(name, args),
+                                                            PEAK_F32_FLOPS)
+                row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+                del fresh
+                rows.append(row)
+                s["shapes"] += 1
+                s["launches"] += count
+                s["ms"] += count * row["ms"]
+                s["bound_ms"] += count * row["bound_ms"]
+            s["roofline_pct"] = 100.0 * s["bound_ms"] / s["ms"]
+    torch.cuda.empty_cache()
+    return summary, rows
+
+
+def seeded_on_card(module: torch.nn.Module, seed: int) -> None:
+    """Every parameter drawn on the card from ``seed`` as a checkpoint's
+    would be spread: a matrix or kernel N(0, 1 / fan_in), a norm's scale
+    1 + N(0, 0.05^2), a shift or bias N(0, 0.05^2)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+            else:
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.05, generator=gen)
+
+
+def run_cogvideox_hf(smi: str) -> dict:
+    """Phase 14: cogvideox-5b-hf at full width and depth, bf16, weights
+    drawn on the card: a recorded request at the geometry of its benchmark
+    configuration (13 x 480x720, COG_HF_STEPS steps, every frame decoded),
+    the launches per DiT call of one CFG step read with the counters set to
+    0 just before it (``COG_HF_PER_DIT_CALL``, nothing else launched); the
+    inputs of a second step's kernels recorded where the layers call them
+    and held against the plain versions: the block's three kernels
+    (``hold_cog_hf_kernels``), the bias epilogue bit for bit
+    (``hold_recorded``) and flash on query-row slices (``hold_flash_path``),
+    each also on random inputs of the same shapes."""
+    from dvdx_tpu_torch.models.zoo import get_model_spec
+    from dvdx_tpu_torch.pipelines.text2video import (cfg_denoise_step, empty_pipeline,
+                                                     encode_prompts)
+    from dvdx_tpu_torch.verify.spotcheck import StepEngine
+
+    out = {"device": smi}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec = get_model_spec(COG_HF_MODEL)
+    pipe = empty_pipeline(spec, "cuda")
+    for i, module in enumerate((pipe.unet, pipe.text_encoder, pipe.vae_decoder)):
+        seeded_on_card(module, 21 + i)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["params"] = {name: sum(p.numel() for p in m.parameters()) for name, m in
+                     (("dit", pipe.unet), ("text", pipe.text_encoder),
+                      ("vae_dec", pipe.vae_decoder))}
+    log(f"cogvideox-hf: built {COG_HF_MODEL} in {out['build_s']:.1f} s; params "
+        f"{json.dumps(out['params'])}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    _require(out["params"]["dit"] == 5_570_283_072, "cogvideox-hf: transformer parameters",
+             out["params"])
+
+    # a recorded request, as a miner serves it
+    prompt = "a panda playing guitar by a campfire at night, cinematic"
+    engine = StepEngine(pipe)
+    reset_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    video, zs, epss, ts = engine.generate_recorded(prompt, seed=11, num_steps=COG_HF_STEPS,
+                                                   segment_steps=COG_HF_STEPS,
+                                                   timings=timings, **COG_HF)
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    out["request"] = dict(seconds=sec, steps=COG_HF_STEPS, timings_s=timings,
+                          launches=launches, peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"cogvideox-hf request: video {tuple(video.shape)}, {COG_HF_STEPS} steps, {sec:.2f} s, "
+        f"peak memory {out['request']['peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    _require(video.shape == (COG_HF["num_frames"], COG_HF["height"], COG_HF["width"], 3)
+             and float(np.std(video)) > 0
+             and zs.shape == (COG_HF_STEPS, COG_HF["num_frames"], 60, 90, 16)
+             and bool(torch.isfinite(zs.float()).all() and torch.isfinite(epss.float()).all()),
+             "cogvideox-hf request: output", dict(video=list(video.shape), zs=list(zs.shape)))
+    for k in COG_HF_PATH + ("flash_attention",):
+        _require(launches[k] == COG_HF_STEPS * COG_HF_PER_DIT_CALL[k],
+                 f"cogvideox-hf request: {k} launches per DiT call", launches)
+
+    # one CFG step through the pipeline's step, the counters set to 0 just
+    # before it
+    hidden = encode_prompts(pipe, ["", prompt])
+    sched = spec.ddim_schedule(50)
+    z = zs[0][None].cuda()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        cfg_denoise_step(pipe.unet, sched, z, 0, hidden[1:2], hidden[0:1],
+                         COG_HF["guidance_scale"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    per_call = read_counts()
+    out["step"] = dict(seconds=step_s, launches_per_dit_call=per_call)
+    log(f"cogvideox-hf step (one batch-2 CFG DiT call + DDIM, {COG_HF_TOKENS} joint tokens): "
+        f"{step_s:.3f} s; launches per DiT call "
+        f"{json.dumps({k: v for k, v in per_call.items() if v})}")
+    _require(per_call == dict({k: 0 for k in per_call}, **COG_HF_PER_DIT_CALL),
+             "cogvideox-hf: launches per DiT call", dict(per_call=per_call,
+                                                          expected=COG_HF_PER_DIT_CALL))
+
+    # the same step's kernel inputs, recorded where the layers call them
+    path = path_kernel_sites()
+    sites = dict(cog_hf_kernel_sites(), flash_attention=path["flash_attention"],
+                 bias_epilogue=path["bias_epilogue"])
+    with torch.inference_mode(), recorded_kernel_inputs(sites) as seen:
+        cfg_denoise_step(pipe.unet, sched, z, 0, hidden[1:2], hidden[0:1],
+                         COG_HF["guidance_scale"])
+    torch.cuda.synchronize()
+    del pipe, engine, video, zs, epss, ts, hidden, z
+    torch.cuda.empty_cache()
+    (_count, args, _kw), = seen.pop("flash_attention").values()
+    b, s, h, d = args[0].shape
+    _require((b, s, h, d) == (2, COG_HF_TOKENS, 48, 64), "cogvideox-hf: flash's shape",
+             list(args[0].shape))
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    flash = {what: hold_flash_path(*qkv, f"cogvideox-hf {what}") for what, qkv in (
+        ("path inputs", args[:3]), ("random inputs", [randn((b, s, h, d), gen)
+                                                      for _ in range(3)]))}
+    fb_ms, fb_by = bound_ms(*flash_cost(b, s, h, d))
+    out["flash"] = dict(shape=[b, s, h, d], ms=flash["path inputs"]["ms"], bound_ms=fb_ms,
+                        bound_by=fb_by, roofline_pct=100.0 * fb_ms / flash["path inputs"]["ms"],
+                        max_abs_err=max(x["max_abs_err"] for x in flash.values()),
+                        **{what: x["slices"] for what, x in flash.items()})
+    del args, flash
+    torch.cuda.empty_cache()
+    out["bias_epilogue"], epi_rows = hold_recorded({"bias_epilogue": seen.pop("bias_epilogue")},
+                                                   "one DiT call", tag="cogvideox-hf")
+    out["block_kernels"], rows = hold_cog_hf_kernels(seen)
+    del seen
+    torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, "cogvideox_hf.json"), "w") as f:
+        json.dump(dict(out, rows=rows + epi_rows), f, indent=1, default=str)
+    log(f"cogvideox-hf ({smi}): flash at {out['flash']['shape']} {out['flash']['ms']:.3f} ms, "
+        f"{out['flash']['roofline_pct']:.1f}% of its bound; block kernels per DiT call "
+        + json.dumps({k: {f: round(v[f], 4) for f in ("launches", "ms", "bound_ms",
+                                                      "roofline_pct", "min_same_bits")}
+                      for k, v in out["block_kernels"].items()}))
+    return out
+
+
 # --- phase 10: the distribution pillar ---------------------------------------
 
 STRAT_PROMPT = "a red panda rides a bicycle through a snowy forest"  # Request A's
@@ -4000,10 +4367,11 @@ def run_strategies(pipe, request_a_sha: str) -> dict:
 def main():
     argv = sys.argv[1:]
     only = None
-    if argv:
+    cog_hf_only = argv == ["--cogvideox-hf"]
+    if argv and not cog_hf_only:
         if len(argv) != 2 or argv[0] != "--kernels" \
                 or not set(argv[1].split(",")) <= set(KERNEL_META):
-            print(f"usage: chip_smoke.py [--kernels NAME[,NAME...]] (names: "
+            print(f"usage: chip_smoke.py [--kernels NAME[,NAME...] | --cogvideox-hf] (names: "
                   f"{', '.join(KERNEL_META)})", file=sys.stderr)
             return 2
         only = argv[1].split(",")
@@ -4045,6 +4413,12 @@ def main():
                 log(f"ptxas {k}: " + " | ".join(x.split("ptxas info    :")[-1].strip()
                                                for x in lines[i:i + 4]))
 
+    if cog_hf_only:
+        check_kernels(list(COG_HF_PATH))
+        run_cogvideox_hf(smi)
+        log(f"chip_smoke --cogvideox-hf: phases 2 (the block's kernels) and 14 passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     summary, rows = check_kernels(only)
     marks = [("start", t_start), ("1-2 build, kernel checks", time.perf_counter())]
     if only is not None:
@@ -4100,6 +4474,8 @@ def main():
     marks.append(("7 xl", time.perf_counter()))
     path["families"] = run_families(smi)
     marks.append(("9 families", time.perf_counter()))
+    path["cogvideox_hf"] = run_cogvideox_hf(smi)
+    marks.append(("14 cogvideox-5b-hf", time.perf_counter()))
     path["phase_seconds"] = {name: round(t - marks[i][1], 1)
                              for i, (name, t) in enumerate(marks[1:])}
     with open(os.path.join(OUT_DIR, "path.json"), "w") as f:
@@ -4137,6 +4513,13 @@ def main():
                 strat["held_per_unet_call"].get(name, {}),
                 bound_ms=strat["bound_per_unet_call"][name]["bound_ms"],
                 bound_launches=strat["bound_per_unet_call"][name]["launches"])})
+        # phase 14: cogvideox-5b-hf's request and DiT call, its held inputs
+        cog = path["cogvideox_hf"]
+        families.update({
+            "launches_cogvideox_hf_request": cog["request"]["launches"][name],
+            "launches_per_cogvideox_hf_call": cog["step"]["launches_per_dit_call"][name],
+            "cogvideox_hf_held": dict(cog["bias_epilogue"], **cog["block_kernels"]).get(name),
+            "cogvideox_hf_flash": cog["flash"] if name == "flash_attention" else None})
         if name == "flash_attention":
             families["dit_shape"] = {k: dit["flash"][k] for k in (
                 "shape", "ms", "library_ms", "bound_ms", "bound_by", "plain_slice_shape",
@@ -4158,9 +4541,11 @@ def main():
                         "replaces": replaces,
                         "path": ("request_a" if name in MODEL_PATH else "float32_request"
                                  if name in F32_KERNELS else "phase12_gloo_ranks"
-                                 if name in SHARDED_GN_PATH else None),
+                                 if name in SHARDED_GN_PATH else "phase14_cogvideox_hf_request"
+                                 if name in COG_HF_PATH else None),
                         "launches": f32["request"]["launches"][name] if name in F32_KERNELS
                         else sharded["launches"][name] if name in SHARDED_GN_PATH
+                        else cog["request"]["launches"][name] if name in COG_HF_PATH
                         else launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

@@ -47,7 +47,7 @@ to V's dtype; GELU is the exact-erf form.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -114,11 +114,15 @@ def _epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
 
 class Dense(nn.Linear):
     """``flax.linen.Dense``: x W^T rounded to x's dtype, then + bias; with
-    ``residual``, residual + that."""
+    ``residual``, residual + that; with ``epilogue``, epilogue(x W^T, bias in
+    x's dtype) in place of both (a caller's fused bias epilogue)."""
 
-    def forward(self, x: torch.Tensor,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return _epilogue(F.linear(x, self.weight.to(x.dtype)), self.bias, residual)
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                epilogue: Optional[Callable] = None) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        if epilogue is not None:
+            return epilogue(y, self.bias.to(x.dtype))
+        return _epilogue(y, self.bias, residual)
 
 
 class Conv(nn.Conv2d):

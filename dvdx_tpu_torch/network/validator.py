@@ -43,7 +43,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.scheduler import make_ddim_schedule
 from ..pipelines.text2video import Pipeline
 from ..scoring.clip_score import CLIPScorer
 from ..scoring.mdvqs import MDVQS, verify_video_authenticity
@@ -403,7 +402,7 @@ class Validator(Neuron):
             d["checks"]["identity"] = True
 
             # 3. the committed timesteps are the canonical schedule
-            expected_ts = make_ddim_schedule(req.num_steps).timesteps
+            expected_ts = self.pipeline.spec.ddim_schedule(req.num_steps).timesteps
             if list(map(int, resp.timesteps)) != [int(t) for t in expected_ts]:
                 return fail("timesteps", cheat=True)
             d["checks"]["timesteps"] = True

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("flash_attention", "temporal_attention", "geglu_ff", "groupnorm",
            "spatial_tail", "temporal_block", "attention_f32", "spatial_tail_f32",
-           "temporal_block_f32", "bias_epilogue")
+           "temporal_block_f32", "bias_epilogue", "qk_norm_rope", "dit_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,8 +9,10 @@ def launch_counters() -> dict:
     """{kernel: (module, name of its launch counter)} for every kernel."""
     from .. import groupnorm as gn
     from . import bias_epilogue as be
+    from . import dit_epilogue as de
     from . import flash_attention as fa
     from . import geglu_ff as gf
+    from . import qk_norm_rope as qk
     from . import spatial_tail as st
     from . import temporal_attention as ta
     from . import temporal_block as tb
@@ -27,7 +29,9 @@ def launch_counters() -> dict:
             "temporal_attention_f32": (ta, "F32_LAUNCHES"),
             "fused_spatial_tail_f32": (st, "F32_LAUNCHES"),
             "fused_temporal_block_f32": (tb, "F32_LAUNCHES"),
-            "bias_epilogue": (be, "LAUNCHES"), "bias_epilogue_f32": (be, "F32_LAUNCHES")}
+            "bias_epilogue": (be, "LAUNCHES"), "bias_epilogue_f32": (be, "F32_LAUNCHES"),
+            "qk_norm_rope": (qk, "LAUNCHES"), "bias_gelu": (de, "LAUNCHES"),
+            "gated_residual": (de, "GATED_LAUNCHES")}
 
 
 def launch_counts() -> dict:

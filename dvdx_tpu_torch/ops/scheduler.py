@@ -4,7 +4,11 @@ Counterpart of ``dvdx_tpu/ops/scheduler.py``: diffusers' DDIMScheduler with
 scaled-linear betas, 'leading' spacing, steps_offset=1 and
 set_alpha_to_one=False, which is what Zeroscope ships, for epsilon- and
 v-prediction models (the CogVideoX-class DiT), and the DPM-Solver++(2M)
-multistep sampler. The tables are host numpy (float64 derivation, stored as
+multistep sampler. ``make_ddim_schedule`` also takes the published
+CogVideoX scheduler's settings (``CogVideoXDDIMScheduler``): trailing
+spacing, alpha-bar rescaled to zero terminal SNR and ``set_alpha_to_one``;
+its ``snr_shift_scale`` is 1.0 for the 5B model, the identity, and is not
+taken. The tables are host numpy (float64 derivation, stored as
 float32); a step is float32 math on the caller's device with the result cast
 back to the latent dtype, which pins the bit pattern the Proof-of-Inference
 leaves commit to.
@@ -50,14 +54,32 @@ def make_betas(num_train_timesteps: int = 1000, beta_start: float = 0.00085,
     raise ValueError(f"unknown beta_schedule {beta_schedule!r}")
 
 
+def rescale_zero_terminal_snr(alphas_cumprod: np.ndarray) -> np.ndarray:
+    """alpha-bar rescaled so that the last training timestep has zero SNR
+    (arXiv:2305.08891, Algorithm 1; diffusers' ``rescale_zero_terminal_snr``
+    on alpha-bar, as the CogVideoX scheduler applies it): sqrt(alpha-bar)
+    shifted to end at exactly 0 and scaled to keep its first value."""
+    s = np.sqrt(alphas_cumprod)
+    s0, s_last = s[0], s[-1]
+    s = (s - s_last) * (s0 / (s0 - s_last))
+    return s ** 2
+
+
 def make_ddim_schedule(num_steps: int, num_train_timesteps: int = 1000,
                        beta_start: float = 0.00085, beta_end: float = 0.012,
                        beta_schedule: str = "scaled_linear",
                        steps_offset: int = 1,
                        timestep_spacing: str = "leading",
-                       prediction_type: str = "epsilon") -> DDIMSchedule:
+                       prediction_type: str = "epsilon",
+                       rescale_zero_snr: bool = False,
+                       set_alpha_to_one: bool = False) -> DDIMSchedule:
+    """The sampled-timestep tables; ``rescale_zero_snr`` rescales alpha-bar
+    to zero terminal SNR, and ``set_alpha_to_one`` makes the alpha-bar after
+    the last step 1 (else alpha-bar[0]). Both off give the zeroscope tables."""
     betas = make_betas(num_train_timesteps, beta_start, beta_end, beta_schedule)
     acp = np.cumprod(1.0 - betas)
+    if rescale_zero_snr:
+        acp = rescale_zero_terminal_snr(acp)
     if timestep_spacing == "leading":
         step_ratio = num_train_timesteps // num_steps
         ts = (np.arange(num_steps) * step_ratio).round().astype(np.int64)[::-1].copy()
@@ -69,7 +91,8 @@ def make_ddim_schedule(num_steps: int, num_train_timesteps: int = 1000,
         raise ValueError(f"unknown timestep_spacing {timestep_spacing!r}")
     ts = np.clip(ts, 0, num_train_timesteps - 1)
     prev_ts = ts - num_train_timesteps // num_steps
-    alpha_prev = np.where(prev_ts >= 0, acp[np.clip(prev_ts, 0, None)], acp[0])
+    final = 1.0 if set_alpha_to_one else acp[0]
+    alpha_prev = np.where(prev_ts >= 0, acp[np.clip(prev_ts, 0, None)], final)
     return DDIMSchedule(timesteps=ts.astype(np.int32),
                         alphas_cumprod=acp[ts].astype(np.float32),
                         alphas_cumprod_prev=alpha_prev.astype(np.float32),

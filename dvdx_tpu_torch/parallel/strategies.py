@@ -40,7 +40,7 @@ import torch.distributed as dist
 from ..models.vae import decode_frames_tiled
 from ..ops import rng as rng_ops
 from ..ops.attention import ring_context
-from ..ops.scheduler import DDIMSchedule, make_ddim_schedule
+from ..ops.scheduler import DDIMSchedule
 from ..pipelines.text2video import Pipeline, denoise
 from .chunking import ChunkPlan, auto_chunk_count, blend_chunks, gather_chunks, plan_chunks
 from .sharding import shard_pipeline
@@ -149,7 +149,7 @@ def build_runner(pipe: Pipeline, strategy: Strategy, mesh, *, num_frames: int,
     spec = pipe.spec
     ds = spec.vae.downscale
     lh, lw, c = height // ds, width // ds, spec.latent_channels
-    sched = make_ddim_schedule(num_steps, prediction_type=spec.prediction_type)
+    sched = spec.ddim_schedule(num_steps)
     seq = mesh.shape["seq"]
     if strategy.exact_cp and seq > 1:
         if spec.kind != "unet3d":

@@ -74,7 +74,6 @@ def main(argv=None) -> int:
         return 2
 
     from ..ops import rng as rng_ops
-    from ..ops.scheduler import make_ddim_schedule
     from ..pipelines.text2video import denoise
 
     if args.threads > 0:
@@ -85,7 +84,7 @@ def main(argv=None) -> int:
     spec = pipe.spec
     ds = spec.vae.downscale
     shape = (args.height // ds, args.width // ds, spec.latent_channels)
-    sched = make_ddim_schedule(args.steps, prediction_type=spec.prediction_type)
+    sched = spec.ddim_schedule(args.steps)
     ids = torch.from_numpy(pipe.tokenize([args.negative_prompt, args.prompt])).long()
     with torch.inference_mode():
         hidden, _ = pipe.text_encoder(ids.to(pipe.device))

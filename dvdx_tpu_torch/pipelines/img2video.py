@@ -19,7 +19,6 @@ from torch import nn
 
 from ..models.vae import VAEEncoder, decode_frames_tiled
 from ..ops import rng as rng_ops
-from ..ops.scheduler import make_ddim_schedule
 from ..utils.bridge import load_tree
 from ..utils.init import fast_init
 from .text2video import Pipeline, build_pipeline, denoise, to_uint8
@@ -108,7 +107,7 @@ def generate_from_image(pipe: Img2VideoPipeline, image: np.ndarray, *, seed: int
         guidance_scale = spec.default_guidance_scale
     ds = spec.vae.downscale
     lh, lw = image.shape[0] // ds, image.shape[1] // ds
-    sched = make_ddim_schedule(num_steps, prediction_type=spec.prediction_type)
+    sched = spec.ddim_schedule(num_steps)
     key = rng_ops.base_key(seed)
     with torch.inference_mode():
         img = torch.from_numpy(np.ascontiguousarray(image)).to(pipe.device).float()

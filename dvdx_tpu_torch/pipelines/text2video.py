@@ -25,19 +25,22 @@ import torch
 from torch import nn
 
 from .. import enable_determinism
+from ..models.cogvideox import CogVideoXTransformer
 from ..models.dit_video import VideoDiT
+from ..models.t5 import T5Config, T5Encoder
 from ..models.text_encoder import CLIPTextEncoder, tokenize_batch
 from ..models.unet3d import UNet3D
 from ..models.vae import VAEDecoder, decode_frames_tiled
 from ..models.zoo import ModelSpec, get_model_spec
 from ..ops import rng as rng_ops
-from ..ops.scheduler import DDIMSchedule, ddim_step, make_ddim_schedule
+from ..ops.scheduler import DDIMSchedule, ddim_step
 from ..utils.bridge import load_flat_npz, load_tree, save_flat_npz
 from ..utils.init import fast_init
 from ..utils.profiling import span
 
 
-Denoiser = Union[UNet3D, VideoDiT]
+Denoiser = Union[UNet3D, VideoDiT, CogVideoXTransformer]
+TextEncoder = Union[CLIPTextEncoder, T5Encoder]
 
 
 class Pipeline(nn.Module):
@@ -82,9 +85,10 @@ def empty_pipeline(spec: ModelSpec, device="cuda", tokenizer=None) -> Pipeline:
     if device.type == "cuda":
         enable_determinism()
     with torch.device("meta"):
-        denoiser = VideoDiT(spec.dit) if spec.kind == "dit" else UNet3D(spec.unet)
-        modules = [(denoiser, spec.denoiser_config),
-                   (CLIPTextEncoder(spec.text), spec.text),
+        denoiser = {"unet3d": UNet3D, "dit": VideoDiT,
+                    "cogvideox": CogVideoXTransformer}[spec.kind](spec.denoiser_config)
+        text = (T5Encoder if isinstance(spec.text, T5Config) else CLIPTextEncoder)(spec.text)
+        modules = [(denoiser, spec.denoiser_config), (text, spec.text),
                    (VAEDecoder(spec.vae), spec.vae)]
     # dtype first, on the meta device: the storage is allocated once, in the
     # compute dtype (cogvideox-5b's 11 B parameters would take 44 GB in
@@ -304,7 +308,7 @@ def build_segmented_runner(pipe: Pipeline, *, num_frames: int, height: int, widt
                            decode_tile: int = 0):
     """-> run(token ids (2, S), noise key) -> frames (F, H, W, 3) float32:
     ``generate_core`` with these arguments bound, the reference's API."""
-    sched = make_ddim_schedule(num_steps, prediction_type=pipe.spec.prediction_type)
+    sched = pipe.spec.ddim_schedule(num_steps)
 
     @torch.inference_mode()
     def run(token_ids: torch.Tensor, noise_key: torch.Tensor) -> torch.Tensor:
@@ -338,7 +342,7 @@ def generate(pipe: Pipeline, prompt: str, *, negative_prompt: str = "",
     num_steps = num_steps or spec.default_steps
     if guidance_scale is None:
         guidance_scale = spec.default_guidance_scale
-    sched = make_ddim_schedule(num_steps, prediction_type=spec.prediction_type)
+    sched = spec.ddim_schedule(num_steps)
     ids = torch.from_numpy(pipe.tokenize([negative_prompt, prompt])).long()
     with torch.inference_mode():
         out = generate_core(pipe, ids.to(pipe.device), rng_ops.base_key(seed),

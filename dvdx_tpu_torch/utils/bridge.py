@@ -11,7 +11,8 @@ VAE decoder and encoder, and the CLIP scorer's vision tower, text tower and
 * a conv ``kernel`` in HWIO becomes OIHW; the (3, 1, 1, I, O) temporal conv
   kernel becomes (O, I, 3, 1) (the port runs it as a (3, 1) conv over
   (B, F, H*W, C));
-* a norm's ``scale`` becomes ``weight``, an embedding's ``embedding``
+* a norm's ``scale`` (LayerNorm, GroupNorm, T5's RMSNorm) becomes
+  ``weight``, an embedding's ``embedding``
   becomes ``weight``; ``bias`` and bare parameters keep their names.
 
 One table (``_LAYOUTS``) holds both directions. ``flax_leaves`` runs it
@@ -40,6 +41,7 @@ import torch
 from torch import nn
 
 from ..models.layers import GroupNorm
+from ..models.t5 import RMSNorm
 
 
 def to_tensor(leaf: Any) -> torch.Tensor:
@@ -93,7 +95,7 @@ _LAYOUTS = (
      lambda m, s: (s[1], s[0])),
     (nn.Conv2d, "kernel", _conv_to_torch, _conv_to_flax, _conv_flax_shape),
     (nn.Embedding, "embedding", None, None, None),
-    ((nn.LayerNorm, GroupNorm), "scale", None, None, None),
+    ((nn.LayerNorm, GroupNorm, RMSNorm), "scale", None, None, None),
 )
 
 

@@ -29,6 +29,13 @@ prints a JSON summary of the checkpoint (spec, parameter counts, tokenizer)
 and with ``--out`` writes the converted tree as a flat npz that
 ``utils.bridge.load_flat_npz`` reads.
 
+A CogVideoX checkpoint (``transformer/`` a ``CogVideoXTransformer3DModel``,
+``text_encoder/`` a ``T5EncoderModel``) is recognised by its config classes:
+``convert_cogvideox_transformer`` and ``convert_t5_encoder`` map those two
+state dicts from their published key names (the dense kernels as views, no
+copy, so that a 5.6 B-parameter state dict is not held twice); its 3D causal
+VAE has no port, so ``convert_checkpoint`` refuses such a directory.
+
 ``convert_lpips`` / ``load_lpips`` read an lpips-package 'alex' state dict
 (``.pth`` or safetensors) as the validator's LPIPS metric, as strictly.
 """
@@ -43,6 +50,8 @@ import numpy as np
 import torch
 
 from ..models.clip_vision import VisionConfig
+from ..models.cogvideox import CogVideoXConfig
+from ..models.t5 import T5Config
 from ..models.text_encoder import TextEncoderConfig
 from ..models.unet3d import UNet3DConfig
 from ..models.vae import VAEConfig
@@ -529,11 +538,122 @@ def convert_vae_encoder(sd: Dict[str, np.ndarray], cfg: VAEConfig) -> Dict[str, 
     return {"params": m.unflatten()}
 
 
+# --- CogVideoX: the transformer and its T5 encoder ------------------------------
+
+def _dense_view(m: _Mapper, ours: str, hf: str, bias: bool = True) -> None:
+    """A Linear's (O, I) weight as the (I, O) kernel, a view of the array."""
+    m.put(f"{ours}/kernel", m.take(f"{hf}.weight").T)
+    if bias:
+        m.put(f"{ours}/bias", m.take(f"{hf}.bias"))
+
+
+def convert_cogvideox_transformer(sd: Dict[str, np.ndarray],
+                                  cfg: CogVideoXConfig) -> Dict[str, Any]:
+    """diffusers ``CogVideoXTransformer3DModel`` state dict -> {'params':
+    tree} of ``models.cogvideox.CogVideoXTransformer``: the patch Conv2d
+    (C, in, p, p) as a Dense over (in, p, p) patches, ``to_q`` / ``to_k`` /
+    ``to_v`` stacked into ``to_qkv``, ``ff.net.0.proj`` / ``ff.net.2`` as
+    ``ff.proj_in`` / ``ff.proj_out``, every other module under its own
+    name."""
+    m = _Mapper(sd)
+    w = m.take("patch_embed.proj.weight")
+    m.put("patch_embed/kernel", w.reshape(w.shape[0], -1).T)
+    m.put("patch_embed/bias", m.take("patch_embed.proj.bias"))
+    _dense_view(m, "text_proj", "patch_embed.text_proj")
+    _dense_view(m, "time_embedding/fc1", "time_embedding.linear_1")
+    _dense_view(m, "time_embedding/fc2", "time_embedding.linear_2")
+    for i in range(cfg.num_layers):
+        hf, ours = f"transformer_blocks.{i}", f"block{i}"
+        for norm in ("norm1", "norm2"):
+            _dense_view(m, f"{ours}/{norm}/linear", f"{hf}.{norm}.linear")
+            m.norm(f"{ours}/{norm}/norm", f"{hf}.{norm}.norm")
+        a = f"{hf}.attn1"
+        m.put(f"{ours}/attn1/to_qkv/kernel", np.concatenate(
+            [m.take(f"{a}.to_{x}.weight") for x in "qkv"], axis=0).T)
+        m.put(f"{ours}/attn1/to_qkv/bias", np.concatenate(
+            [m.take(f"{a}.to_{x}.bias") for x in "qkv"], axis=0))
+        m.norm(f"{ours}/attn1/norm_q", f"{a}.norm_q")
+        m.norm(f"{ours}/attn1/norm_k", f"{a}.norm_k")
+        _dense_view(m, f"{ours}/attn1/to_out", f"{a}.to_out.0")
+        _dense_view(m, f"{ours}/ff/proj_in", f"{hf}.ff.net.0.proj")
+        _dense_view(m, f"{ours}/ff/proj_out", f"{hf}.ff.net.2")
+    m.norm("norm_final", "norm_final")
+    _dense_view(m, "norm_out/linear", "norm_out.linear")
+    m.norm("norm_out/norm", "norm_out.norm")
+    _dense_view(m, "proj_out", "proj_out")
+    m.check_all_used("CogVideoX transformer")
+    return {"params": m.unflatten()}
+
+
+def convert_t5_encoder(sd: Dict[str, np.ndarray], cfg: T5Config) -> Dict[str, Any]:
+    """transformers ``T5EncoderModel`` state dict -> {'params': tree} of
+    ``models.t5.T5Encoder`` (``encoder.embed_tokens`` is ``shared``, tied)."""
+    m = _Mapper(sd)
+    m.put("shared/embedding", m.take("shared.weight"))
+    m.put("relative_attention_bias/embedding", m.take(
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"))
+    for i in range(cfg.num_layers):
+        hf, ours = f"encoder.block.{i}.layer", f"block{i}"
+        for x in "qkvo":
+            _dense_view(m, f"{ours}/{x}", f"{hf}.0.SelfAttention.{x}", bias=False)
+        m.put(f"{ours}/ln1/scale", m.take(f"{hf}.0.layer_norm.weight"))
+        for x in ("wi_0", "wi_1", "wo"):
+            _dense_view(m, f"{ours}/{x}", f"{hf}.1.DenseReluDense.{x}", bias=False)
+        m.put(f"{ours}/ln2/scale", m.take(f"{hf}.1.layer_norm.weight"))
+    m.put("final_ln/scale", m.take("encoder.final_layer_norm.weight"))
+    m.check_all_used("T5 encoder", ("encoder.embed_tokens.",))
+    return {"params": m.unflatten()}
+
+
+def cogvideox_spec(transformer: dict, text: dict, vae: dict, name: str,
+                   dtype: str = "bfloat16") -> ModelSpec:
+    """The ModelSpec of a CogVideoX checkpoint's transformer, T5 and VAE
+    config.json dicts: the published transformer and text tower; the port's
+    per-frame KL decoder at the VAE's published widths, latent channels and
+    scaling factor; the CogVideoX DDIM schedule."""
+    t = transformer
+    den = CogVideoXConfig(
+        in_channels=t["in_channels"], out_channels=t.get("out_channels") or t["in_channels"],
+        num_layers=t["num_layers"], num_heads=t["num_attention_heads"],
+        head_dim=t["attention_head_dim"], time_embed_dim=t["time_embed_dim"],
+        text_embed_dim=t["text_embed_dim"], patch_size=t["patch_size"],
+        norm_eps=t.get("norm_eps", 1e-5), sample_height=t.get("sample_height", 60),
+        sample_width=t.get("sample_width", 90), dtype=dtype)
+    t5 = T5Config(
+        vocab_size=text["vocab_size"], d_model=text["d_model"], d_kv=text["d_kv"],
+        num_heads=text["num_heads"], d_ff=text["d_ff"], num_layers=text["num_layers"],
+        relative_attention_num_buckets=text.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=text.get("relative_attention_max_distance", 128),
+        layer_norm_epsilon=text.get("layer_norm_epsilon", 1e-6),
+        max_length=t.get("max_text_seq_length", 226), dtype=dtype)
+    chs = vae["block_out_channels"]
+    dec = VAEConfig(
+        latent_channels=vae.get("latent_channels", 16), base_channels=chs[0],
+        channel_mults=tuple(c // chs[0] for c in chs),
+        layers_per_block=vae.get("layers_per_block", 3), norm_groups=vae.get("norm_num_groups", 32),
+        use_mid_attention=False, final_tanh=False, scaling_factor=vae.get("scaling_factor", 0.7),
+        dtype=dtype)
+    return ModelSpec(name=name, kind="cogvideox", dit=den, text=t5, vae=dec,
+                     prediction_type="v_prediction", default_width=720, default_height=480,
+                     default_frames=13, default_steps=50, default_guidance_scale=6.0)
+
+
 # --- spec and pipeline ------------------------------------------------------------
 
 def spec_from_diffusers_configs(root: str, name: Optional[str] = None,
                                 dtype: str = "bfloat16") -> ModelSpec:
-    """A ModelSpec from the checkpoint's own config.json files."""
+    """A ModelSpec from the checkpoint's own config.json files: a UNet3D
+    checkpoint's, or a CogVideoX checkpoint's (``transformer/`` a
+    ``CogVideoXTransformer3DModel``, ``text_encoder/`` a ``T5EncoderModel``)."""
+    if os.path.exists(os.path.join(root, "transformer", "config.json")):
+        t = _read_config(os.path.join(root, "transformer"))
+        text = _read_config(os.path.join(root, "text_encoder"))
+        if t.get("_class_name") != "CogVideoXTransformer3DModel" or \
+                "T5EncoderModel" not in text.get("architectures", ["T5EncoderModel"]):
+            raise ValueError(f"{root}: transformer {t.get('_class_name')!r} with text encoder "
+                             f"{text.get('architectures')}: not a CogVideoX checkpoint")
+        return cogvideox_spec(t, text, _read_config(os.path.join(root, "vae")),
+                              name or os.path.basename(os.path.normpath(root)), dtype)
     u = _read_config(os.path.join(root, "unet"))
     v = _read_config(os.path.join(root, "vae"))
     t = _read_config(os.path.join(root, "text_encoder"))
@@ -572,6 +692,11 @@ def convert_checkpoint(root: str, spec: ModelSpec) -> Dict[str, Any]:
     """The checkpoint's three components -> the reference's
     ``Pipeline.params`` tree ({'unet', 'text', 'vae_dec'}) of float32
     numpy arrays."""
+    if spec.kind == "cogvideox":
+        raise NotImplementedError(
+            f"{root}: the CogVideoX 3D causal VAE (AutoencoderKLCogVideoX) has no port; "
+            "convert its transformer and text encoder with convert_cogvideox_transformer "
+            "and convert_t5_encoder")
     return {
         "unet": convert_unet3d(load_state_dict(os.path.join(root, "unet")), spec.unet),
         "text": convert_text_encoder(load_state_dict(os.path.join(root, "text_encoder")),

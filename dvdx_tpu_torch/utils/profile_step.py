@@ -1,10 +1,13 @@
 """Where one request's time goes on the card: a device-time breakdown of the
 denoise step and the VAE decode of zeroscope-v2-576w.
 
-    python -m dvdx_tpu_torch.utils.profile_step [--xl]
+    python -m dvdx_tpu_torch.utils.profile_step [--xl | --model NAME]
 
 ``--xl`` profiles zeroscope-v2-xl's step as the CLI runs it (24 frames at
-1024x576, cfg_split: two batch-1 UNet calls a step) instead.
+1024x576, cfg_split: two batch-1 UNet calls a step) instead; ``--model``
+any registered text-to-video model at its default geometry, guidance as one
+batch-2 call (``cogvideox-5b-hf``: 13 latent frames at 480x720, 17,776
+joint tokens, where the QK-norm and rotary kernel has a group of its own).
 
 Builds the model with seeded random weights (zero-init leaves perturbed, as
 ``chip_smoke.py`` does), runs one warm-up step, then traces two
@@ -15,11 +18,13 @@ part of the traced window in which no kernel ran. The fused spatial tail and
 temporal block are grouped as their three launches each (the chain and the
 two GEGLU products, whose kernels carry the library's name in their template
 arguments). Needs a CUDA card; writes the breakdown to
-``chiprun_out/profile_step.json`` (``profile_step_xl.json`` with ``--xl``).
+``chiprun_out/profile_step.json`` (``profile_step_xl.json`` with ``--xl``,
+``profile_step_<model>.json`` with ``--model``).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -53,6 +58,8 @@ GROUPS = (
     ("geglu_ff", ("geglu_ff_", "geglu_stage")),
     ("group_norm_act", ("gn_fused", "gn_moments", "gn_apply")),
     ("bias_epilogue", ("bias_epilogue",)),
+    ("qk_norm_rope", ("qk_norm_rope",)),
+    ("dit_epilogue", ("bias_gelu_rows", "gated_residual_rows")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
@@ -102,14 +109,17 @@ def breakdown(prof, wall_s: float) -> dict:
 
 
 def main(argv=None) -> int:
-    xl = "--xl" in (sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--xl", action="store_true")
+    ap.add_argument("--model", default="")
+    args = ap.parse_args(argv)
+    xl = args.xl
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import rng
-    from ..ops.scheduler import make_ddim_schedule
     from ..pipelines.text2video import build_pipeline, cfg_denoise_step, encode_prompts
     from .testing import perturb_zero_params
 
@@ -117,10 +127,10 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    model = "zeroscope-v2-xl" if xl else "zeroscope-v2-576w"
+    model = args.model or ("zeroscope-v2-xl" if xl else "zeroscope-v2-576w")
     pipe = perturb_zero_params(build_pipeline(model, seed=0), seed=99)
     spec = pipe.spec
-    sched = make_ddim_schedule(spec.default_steps)
+    sched = spec.ddim_schedule(spec.default_steps)
     with torch.inference_mode():
         hidden = encode_prompts(pipe, ["", "a red panda rides a bicycle"])
         uncond, cond = hidden[0:1], hidden[1:2]
@@ -160,7 +170,8 @@ def main(argv=None) -> int:
         print(f"profile {part}: wall {r['wall_ms']:.2f} ms, device busy "
               f"{r['device_busy_ms']:.2f} ms, idle share {r['idle_share']}, "
               f"{r['kernels']} kernels; ms by group: {groups}", flush=True)
-    out = OUT.replace(".json", "_xl.json") if xl else OUT
+    out = (OUT.replace(".json", f"_{args.model}.json") if args.model
+           else OUT.replace(".json", "_xl.json") if xl else OUT)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(result, f, indent=1)

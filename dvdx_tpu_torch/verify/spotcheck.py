@@ -57,7 +57,7 @@ import torch
 
 from ..ops import rng as rng_ops
 from ..ops.attention import ring_context
-from ..ops.scheduler import ddim_step, make_ddim_schedule
+from ..ops.scheduler import ddim_step
 from ..parallel.chunking import auto_chunk_count, blend_chunks, gather_chunks, plan_chunks
 from ..pipelines.text2video import Pipeline, cfg_denoise_step, generate_core, to_uint8
 from ..utils.bridge import to_tensor
@@ -256,7 +256,7 @@ class StepEngine:
         self._shards = []
 
     def _schedule(self, num_steps: int):
-        return make_ddim_schedule(num_steps, prediction_type=self.pipe.spec.prediction_type)
+        return self.pipe.spec.ddim_schedule(num_steps)
 
     def _encode(self, prompt: str, negative_prompt: str):
         """(uncond, cond) text states, from the same (2, S) encoder call

@@ -17,8 +17,12 @@ the run's record, its device trace and the spans that
   (``miner.request``, ``audit``'s root ``validator.verify`` or ``audit``)
   or no span at all;
 * ``step_ms``: host milliseconds a denoise step, by part: each UNet level's
-  span, the UNet call's own rest, the guidance's scalar upload, the DDIM
-  update, and the step's rest;
+  span (a DiT's ``dit`` span), the UNet call's own rest, the guidance's
+  scalar upload, the DDIM update, and the step's rest;
+* ``dit_ms``: for a DiT (``cogvideox.mine``), host milliseconds a ``dit``
+  call by part: ``dit.embed``, the blocks' ``dit.attn`` and ``dit.ff``
+  summed over the blocks, the blocks' own rest, ``dit.out`` and the call's
+  rest;
 * ``spans``: the count of spans by name, and spans per unit completed.
 
 ``--cost`` times ``span`` on this host: off, off filling a timings dict, on
@@ -64,6 +68,29 @@ def step_parts(spans):
     return {"steps": n, **{k: v / n for k, v in sorted(parts.items())}} if n else {"steps": 0}
 
 
+def dit_parts(spans):
+    """Mean host milliseconds a ``dit`` call by part, over the whole calls of
+    ``spans``: its direct children by name (the blocks summed), the blocks'
+    own children summed over the blocks, each parent's rest."""
+    kids = collections.defaultdict(list)
+    for s in spans:
+        kids[s.parent].append(s)
+    calls = [s for s in spans if s.name == "dit"]
+    parts = collections.Counter()
+    for call in calls:
+        rest = 1e3 * (call.end - call.start)
+        for c in kids[call.id]:
+            ms = 1e3 * (c.end - c.start)
+            rest -= ms
+            for g in kids[c.id]:
+                parts[g.name] += 1e3 * (g.end - g.start)
+                ms -= 1e3 * (g.end - g.start)
+            parts[f"{c.name} (rest)" if kids[c.id] else c.name] += ms
+        parts["dit (rest)"] += rest
+    n = len(calls)
+    return {"calls": n, **{k: v / n for k, v in sorted(parts.items())}} if n else {"calls": 0}
+
+
 def read_window(run, suffix: str) -> dict:
     from portbench.metrics import window
     from portbench.spans import idle_by_innermost, window_spans
@@ -83,6 +110,7 @@ def read_window(run, suffix: str) -> dict:
             "idle_root_share": rooted / idle_s if idle_s else None,
             "idle_by_span": {k or "(no span)": v for k, v in by_span.items()},
             "step_ms": step_parts(whole),
+            "dit_ms": dit_parts(whole),
             "spans": {"total": len(spans), "units": units,
                       "per_unit": len(spans) / units if units else None,
                       "by_name": dict(collections.Counter(s.name for s in spans)

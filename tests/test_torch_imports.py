@@ -71,7 +71,7 @@ def test_chip_smoke_imports_without_jax():
                                     "geglu_ff", "groupnorm", "spatial_tail",
                                     "temporal_block", "attention_f32",
                                     "spatial_tail_f32", "temporal_block_f32",
-                                    "bias_epilogue"])
+                                    "bias_epilogue", "qk_norm_rope", "dit_epilogue"])
 def test_kernel_sources_ship(source):
     """Every CUDA source the build compiles exists in the package, beside the
     shared header."""

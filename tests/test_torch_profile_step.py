@@ -55,6 +55,13 @@ EPILOGUE_NAMES = (
     ("nvjet_tst_320x128_64x3_1x2_h_bz_coopB_TNT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::FillFunctor<c10::BFloat16>",
      "other"),
+    ("dvdx::(anonymous namespace)::qk_norm_rope_rows(dvdx::(anonymous namespace)::QkArgs)",
+     "qk_norm_rope"),
+    ("void dvdx::(anonymous namespace)::bias_gelu_rows(__nv_bfloat16*, __nv_bfloat16 const*, "
+     "long long, int)", "dit_epilogue"),
+    ("void dvdx::(anonymous namespace)::gated_residual_rows(__nv_bfloat16*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, long long, "
+     "long long, int, int, int)", "dit_epilogue"),
 ] + [(name, "bias_epilogue") for name in EPILOGUE_NAMES])
 def test_kernel_names_land_in_their_groups(name, group):
     assert group_of(name) == group
